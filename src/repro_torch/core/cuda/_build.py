@@ -4,8 +4,9 @@ Every `csrc/*.cu` source is compiled for `sm_90a` into one shared library
 with a plain C interface, at first use, into `build/repro_torch/` of the
 checkout (`_native.build_root()`), named by a hash of the sources and the
 flags so that an edited source is rebuilt and a stale library is never
-loaded.  The compile goes to a temporary file that is renamed into place,
-so processes that build at the same time never load a half-written file.
+loaded.  The sources compile at the same time, one nvcc each, and are
+linked into a temporary file that is renamed into place, so processes that
+build at the same time never load a half-written file.
 
 There is no fallback: without `nvcc`, or when the compile fails, loading
 raises.  The wrappers call this only for CUDA tensors.
@@ -28,8 +29,7 @@ __all__ = ["NVCC_FLAGS", "sources", "build_library", "load_library"]
 # with the host engines rests on the exact order and rounding of the adds);
 # -Xptxas -v reports each kernel's registers, shared memory and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # where nvcc is looked for after PATH
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
@@ -72,19 +72,39 @@ def build_library() -> tuple[str, str]:
     so_path = os.path.join(root, f"kernels_{digest.hexdigest()[:16]}.so")
     if os.path.exists(so_path):
         return so_path, ""
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=root)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        log = ""
+        failed = []
+        try:
+            for src, proc in zip(srcs, procs):
+                out, _ = proc.communicate(timeout=600)
+                log += out
+                if proc.returncode != 0:
+                    failed.append(f"{os.path.basename(src)} "
+                                  f"({proc.returncode})")
+        finally:
+            for proc in procs:      # none outlives a failed build
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        lib = os.path.join(tmp, "kernels.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                               *objs],
                               capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so_path, proc.stdout + proc.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(lib, so_path)
+    return so_path, log + link.stdout + link.stderr
 
 
 def load_library() -> ctypes.CDLL:
@@ -92,10 +112,24 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build_library()[0])
-        vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        for name in ("segsum_f64", "segsum_i64"):
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [vp, vp, i64, vp, i64, vp]
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        f32 = ctypes.c_float
+        signatures = {
+            # data, ids, m, out, num_segments, stream
+            ("segsum_f64", "segsum_i64"): [vp, vp, i64, vp, i64, vp],
+            # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, has_window,
+            # window, has_softcap, softcap, scale, q_offset, stream
+            ("flash_attention_f32", "flash_attention_bf16"):
+                [vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i32, i32,
+                 i64, i32, f32, f32, i64, vp],
+            # x, a, h0 (may be null), h, h_last, B, S, D, stream
+            ("rglru_f32", "rglru_bf16"):
+                [vp, vp, vp, vp, vp, i64, i64, i64, vp],
+        }
+        for names, argtypes in signatures.items():
+            for name in names:
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
         _lib = lib
     return _lib

@@ -1,0 +1,118 @@
+"""Flash attention (forward): the CUDA kernel's wrapper and its plain
+version.
+
+`flash_attention` takes the JAX package's layout, q [B, Sq, Hq, D] and
+k/v [B, Sk, Hkv, D], and returns [B, Sq, Hq, D] in q's dtype.  On a CUDA
+tensor it launches the hand-written kernel `csrc/flash_attention.cu`,
+which replaces the Pallas kernel `_fa_kernel` of
+`repro.kernels.flash_attention`; on a CPU tensor it runs the plain
+version, `attention_ref`.  There is no other path: a CUDA tensor that the
+kernel cannot take raises.
+
+What the kernel takes: float32 or bfloat16, q, k and v of one dtype, on
+one card, contiguous and 16-byte aligned, with D one of `HEAD_DIMS` and
+Hq a multiple of Hkv.  It supports the causal mask, a sliding window
+(`k_pos > q_pos - window`), a tanh logit softcap, GQA (head h reads kv
+head h // (Hq // Hkv)) and a static `q_offset` (the absolute position of
+q[:, 0]).
+
+`launches` counts the kernel launches; a run sets it to 0 and reads it
+back to show that a path went through the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.cuda import _build
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+
+launches = 0
+
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
+_ENTRIES = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None,
+                          softcap=None, scale=None, q_offset: int = 0):
+    """The plain version: `attention_ref`, on the tensors' own device."""
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         softcap=softcap, scale=scale, q_offset=q_offset)
+
+
+def _check(q, k, v, window, q_offset) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be 4-D [B, S, H, D]")
+    B, _, Hq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if Hq % k.shape[2]:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k.shape[2]}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k and v must have one dtype")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    if not isinstance(q_offset, int):
+        raise TypeError("the kernel takes a static int q_offset; a tensor "
+                        "offset goes to ops.attention's chunked path")
+    if window is not None and not isinstance(window, int):
+        raise TypeError("window must be an int or None")
+
+
+def _launch(q, k, v, causal, window, softcap, scale, q_offset):
+    global launches
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention takes CPU or CUDA tensors, "
+                         f"not {q.device.type!r}")
+    if q.dtype not in _ENTRIES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, "
+                        f"not {q.dtype}")
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, "
+                         f"not {D}")
+    for t in (q, k, v):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("q, k and v must be contiguous and 16-byte "
+                             "aligned")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if Sk == 0:
+        raise ValueError("the kernel needs at least one key")
+    fn = getattr(_build.load_library(), _ENTRIES[q.dtype])
+    with torch.cuda.device(q.device):   # launch on the tensors' card
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, Sq, Sk, Hq, Hkv, D, int(causal),
+                int(window is not None), window or 0,
+                int(softcap is not None), float(softcap or 0.0), scale,
+                q_offset, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D].
+
+    Scale defaults to D ** -0.5.  The kernel's output on a CUDA tensor,
+    the plain version's on a CPU tensor.
+    """
+    _check(q, k, v, window, q_offset)
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     q_offset=q_offset)
+    return _launch(q, k, v, causal, window, softcap, scale, q_offset)

@@ -1,0 +1,135 @@
+"""The attention and recurrence entry points every model calls, with the
+JAX package's dispatch (`repro.kernels.ops`).
+
+Implementations per op:
+  * "cuda"    — the hand-written kernel's wrapper: the kernel on a CUDA
+                tensor, its plain version on a CPU tensor;
+  * "ref"     — the plain PyTorch version (`ref.py`);
+  * "chunked" — flash-semantics attention in plain PyTorch: a loop over
+                kv blocks with an online softmax.  It takes what the
+                kernel does not: a tensor `q_offset`, a `kv_len`, and
+                distinct qk and v head dims.
+
+`impl="auto"` picks the kernel when the tensor is on a CUDA device; on
+the CPU it keeps the JAX package's choice: ref for short sequences, and
+chunked for attention once Sk exceeds `CHUNK_THRESHOLD`.  A kernel's
+failure is never caught.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref as _ref
+from .flash_attention import flash_attention as _flash
+from .rglru import rglru_scan as _rglru_cuda
+
+__all__ = ["attention", "rglru", "rwkv6", "CHUNK_THRESHOLD"]
+
+CHUNK_THRESHOLD = 1024
+_KV_BLOCK = 512
+
+
+# ---------------------------------------------------------------------- #
+# attention
+# ---------------------------------------------------------------------- #
+def _attention_chunked(q, k, v, *, causal, window, softcap, scale,
+                       q_offset=0, kv_len=None, kv_block=_KV_BLOCK):
+    """Online-softmax attention, looped over kv blocks (flash semantics).
+    Supports distinct qk and v head dims (MLA: 192 vs 128)."""
+    B, Sq, Hq, Dk = q.shape
+    _, Sk, Hkv, _ = k.shape
+    Dv = v.shape[-1]
+    groups = Hq // Hkv
+    scale = scale if scale is not None else Dk ** -0.5
+    nblocks = -(-Sk // kv_block)
+    pad = nblocks * kv_block - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+
+    dev = q.device
+    qf = q.float() * scale
+    q_pos = torch.arange(Sq, device=dev) + q_offset
+    m = torch.full((B, Hq, Sq, 1), _ref.NEG_INF, dtype=torch.float32,
+                   device=dev)
+    lsum = torch.zeros((B, Hq, Sq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, Hq, Dv), dtype=torch.float32, device=dev)
+    neg = torch.tensor(_ref.NEG_INF, device=dev)
+    for bi in range(nblocks):
+        blk = slice(bi * kv_block, (bi + 1) * kv_block)
+        kblk = k[:, blk].float().repeat_interleave(groups, dim=2)
+        vblk = v[:, blk].float().repeat_interleave(groups, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kblk)
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        k_pos = bi * kv_block + torch.arange(kv_block, device=dev)
+        mask = (k_pos[None, :] < Sk).expand(Sq, kv_block)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        if kv_len is not None:
+            mask = mask & (k_pos[None, :] < kv_len)
+        s = torch.where(mask[None, None], s, neg)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        lsum = alpha * lsum + p.sum(-1, keepdim=True)
+        acc = acc * alpha.transpose(1, 2) + torch.einsum(
+            "bhqk,bkhd->bqhd", p, vblk)
+        m = m_new
+    lsum = torch.where(lsum == 0.0, 1.0, lsum).transpose(1, 2)
+    return (acc / lsum).to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              softcap: float | None = None, scale: float | None = None,
+              q_offset=0, kv_len=None, impl: str = "auto") -> torch.Tensor:
+    """Unified attention entry point used by every model.
+
+    q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, Dv].  The kernel
+    path takes only a static int `q_offset` and no `kv_len`; otherwise
+    "cuda" goes to "chunked", as the JAX package's "pallas" does.
+    """
+    if impl == "auto":
+        if q.device.type == "cuda":
+            impl = "cuda"
+        elif k.shape[1] > CHUNK_THRESHOLD:
+            impl = "chunked"
+        else:
+            impl = "ref"
+    if impl == "cuda":
+        if isinstance(q_offset, int) and kv_len is None:
+            return _flash(q, k, v, causal=causal, window=window,
+                          softcap=softcap, scale=scale, q_offset=q_offset)
+        impl = "chunked"
+    if impl == "chunked":
+        return _attention_chunked(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale,
+                                  q_offset=q_offset, kv_len=kv_len)
+    if impl == "ref":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale,
+                                  q_offset=q_offset, kv_len=kv_len)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+# ---------------------------------------------------------------------- #
+# recurrences
+# ---------------------------------------------------------------------- #
+def rglru(x, a, h0=None, impl: str = "auto"):
+    """RG-LRU scan; returns (h, h_last).  Every impl other than "cuda"
+    (and "auto" on a CUDA tensor) runs the plain version, as in the JAX
+    package, so a model's impl="chunked" reaches it too."""
+    if impl == "auto":
+        impl = "cuda" if x.device.type == "cuda" else "ref"
+    if impl == "cuda":
+        return _rglru_cuda(x, a, h0)
+    return _ref.rglru_ref(x, a, h0=h0)
+
+
+def rwkv6(r, k, v, w, u, s0=None, impl: str = "auto"):
+    """RWKV6 WKV scan: not ported yet."""
+    raise NotImplementedError(
+        "rwkv6 is not ported yet: the RWKV6 slice (its kernel, rwkv6_ref "
+        "and rwkv6_chunked) is ROADMAP.md queue 1, item 4")

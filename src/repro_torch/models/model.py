@@ -1,0 +1,236 @@
+"""The model: a stack of pattern-typed blocks (attn / local / global /
+rec) between an embedding and an unembedding.
+
+The port of `repro.models.model`, serving half.  The JAX package stacks
+the layers of each repeat of `cfg.layer_pattern` along a leading axis and
+scans over them; here the layers are one flat `nn.ModuleList` in layer
+order (the stages, then the partial tail stage), each a `Params` module
+with the JAX package's key names, so `convert.py` maps one onto the other.
+
+API (the JAX package's, with a `Model` where it passes (cfg, params)):
+  Model(cfg, device=, dtype=, generator=)      # random weights, seeded
+  forward(model, batch, impl)  -> (logits, aux)
+  init_cache(model, batch, max_len)
+  prefill(model, batch, max_len, impl) -> (logits_last, cache)
+  decode_step(model, cache, tokens, pos) -> (logits, cache)
+
+Blocks and features outside this slice raise NotImplementedError naming
+their ROADMAP.md item.  Sharding (`maybe_shard`) and the scan barrier
+have no counterpart: the first goes with ROADMAP.md queue 1, item 10, and
+the second only steers XLA.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..core.cuda import resolve_device
+from .attention import GQA
+from .layers import (Params, embed, init_embedding, init_mlp,
+                     init_rms_norm, mlp, rms_norm, unembed)
+from .recurrent import RGLRUBlock
+
+__all__ = ["Model", "init_params", "layer_kinds", "forward", "loss_fn",
+           "init_cache", "prefill", "decode_step"]
+
+
+# ---------------------------------------------------------------------- #
+# what this slice runs
+# ---------------------------------------------------------------------- #
+def _check_supported(cfg: ModelConfig) -> None:
+    if "rwkv" in cfg.layer_pattern:
+        raise NotImplementedError(
+            "RWKV6 blocks are not ported yet: the RWKV6 slice is "
+            "ROADMAP.md queue 1, item 4 (next)")
+    for present, what in ((cfg.is_moe, "MoE"), (cfg.use_mla, "MLA"),
+                          (cfg.n_encoder_layers, "the encoder"),
+                          (cfg.mtp_depth, "the MTP head")):
+        if present:
+            raise NotImplementedError(
+                f"{what} is not ported yet: ROADMAP.md queue 1, item 4")
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Block kind of every layer, in order: the stages, then the tail."""
+    pattern = tuple(cfg.layer_pattern)
+    n_stages = cfg.n_layers // len(pattern)
+    tail = pattern[: cfg.n_layers % len(pattern)]
+    return list(pattern) * n_stages + list(tail)
+
+
+def _window_for(cfg: ModelConfig, kind: str) -> int | None:
+    if kind == "local":
+        return cfg.local_window
+    if kind == "attn" and cfg.family == "hybrid":
+        return cfg.local_window
+    return None
+
+
+# ---------------------------------------------------------------------- #
+# block-level init / apply
+# ---------------------------------------------------------------------- #
+def _block_init(gen, cfg: ModelConfig, kind: str, dtype) -> dict:
+    p = {"ln1": init_rms_norm(cfg.d_model, gen, dtype),
+         "ln2": init_rms_norm(cfg.d_model, gen, dtype)}
+    if kind == "rec":
+        p["rec"] = RGLRUBlock.init(gen, cfg, dtype)
+    else:
+        p["attn"] = GQA.init(gen, cfg, dtype)
+    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def _block_apply(p, cfg: ModelConfig, kind: str, h, positions,
+                 impl: str = "auto"):
+    if kind == "rec":
+        h = h + RGLRUBlock.apply(p["rec"], cfg, rms_norm(p["ln1"], h),
+                                 impl=impl)
+    else:
+        h = h + GQA.apply(p["attn"], cfg, rms_norm(p["ln1"], h), positions,
+                          window=_window_for(cfg, kind), impl=impl)
+    return h + mlp(p["mlp"], rms_norm(p["ln2"], h), cfg.hidden_act)
+
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype, device) -> dict:
+    if kind == "rec":
+        return RGLRUBlock.init_cache(cfg, batch, dtype, device)
+    return GQA.init_cache(cfg, batch, max_len, window=_window_for(cfg, kind),
+                          dtype=dtype, device=device)
+
+
+def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int):
+    if kind == "rec":
+        y, cache = RGLRUBlock.apply_decode(p["rec"], cfg,
+                                           rms_norm(p["ln1"], h), cache, pos)
+    else:
+        y, cache = GQA.apply_decode(p["attn"], cfg, rms_norm(p["ln1"], h),
+                                    cache, pos,
+                                    window=_window_for(cfg, kind))
+    h = h + y
+    return h + mlp(p["mlp"], rms_norm(p["ln2"], h), cfg.hidden_act), cache
+
+
+# ---------------------------------------------------------------------- #
+# params and the module
+# ---------------------------------------------------------------------- #
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                dtype=torch.float32) -> dict:
+    """Random weights on the generator's device, with the distributions of
+    the JAX package's `init_params`: {"embed", "final_ln", "layers"}."""
+    _check_supported(cfg)
+    return {
+        "embed": init_embedding(gen, cfg, dtype),
+        "final_ln": init_rms_norm(cfg.d_model, gen, dtype),
+        "layers": [_block_init(gen, cfg, kind, dtype)
+                   for kind in layer_kinds(cfg)],
+    }
+
+
+class Model(nn.Module):
+    """A model of `cfg` on one device.
+
+    Random weights come from `generator` (a `torch.Generator` on
+    `device`; one seeded with 0 when None).  `params`, a tree as
+    `init_params` returns it, takes their place (see `convert.py`).
+    `device` defaults to the card and raises without one.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 dtype=torch.float32, generator: torch.Generator | None = None,
+                 params: dict | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        _check_supported(cfg)
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            if generator.device.type != dev.type:
+                raise ValueError(f"the generator is on {generator.device}, "
+                                 f"the model on {dev}")
+            params = init_params(cfg, generator, dtype)
+        self.cfg = cfg
+        self.kinds = layer_kinds(cfg)
+        if len(params["layers"]) != len(self.kinds):
+            raise ValueError(f"{len(params['layers'])} layers given, "
+                             f"{cfg.name} has {len(self.kinds)}")
+        self.embed = Params(params["embed"])
+        self.final_ln = Params(params["final_ln"])
+        self.layers = nn.ModuleList(Params(p) for p in params["layers"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_ln["scale"].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.final_ln["scale"].dtype
+
+    def forward(self, batch: dict, impl: str = "auto"):
+        """batch: {"tokens": [B, S]}.  Returns (logits [B, S, V], aux),
+        aux being the MoE auxiliary loss of the JAX package (0 here)."""
+        cfg = self.cfg
+        if "patch_embeds" in batch:
+            raise NotImplementedError(
+                "the vision frontend is not ported yet: ROADMAP.md queue 1, "
+                "item 4")
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h = embed(self.embed, cfg, tokens.long())
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        if cfg.mrope_sections is not None:
+            positions = batch.get("mrope_pos",
+                                  torch.stack([positions] * 3))
+        for kind, p in zip(self.kinds, self.layers):
+            h = _block_apply(p, cfg, kind, h, positions, impl=impl)
+        h = rms_norm(self.final_ln, h)
+        logits = unembed(self.embed, cfg, h)
+        return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+# ---------------------------------------------------------------------- #
+# the functional API
+# ---------------------------------------------------------------------- #
+def forward(model: Model, batch: dict, impl: str = "auto"):
+    """(logits [B, S, V], aux) of a full-sequence pass."""
+    return model(batch, impl=impl)
+
+
+def loss_fn(model: Model, batch: dict, **kw):
+    raise NotImplementedError(
+        "loss_fn is not ported yet: training is ROADMAP.md queue 1, item 9")
+
+
+def init_cache(model: Model, batch: int, max_len: int) -> list[dict]:
+    """One cache dict per layer, in layer order, on the model's device and
+    in its dtype (the recurrent state is float32)."""
+    return [_block_cache(model.cfg, kind, batch, max_len, model.dtype,
+                         model.device) for kind in model.kinds]
+
+
+def decode_step(model: Model, cache: list[dict], tokens: torch.Tensor,
+                pos: int) -> tuple[torch.Tensor, list[dict]]:
+    """tokens [B] (current token), pos an int.  Returns (logits [B, V],
+    the cache with this position written)."""
+    cfg = model.cfg
+    h = embed(model.embed, cfg, tokens.long()[:, None])
+    new_cache = []
+    for kind, p, c in zip(model.kinds, model.layers, cache):
+        h, c = _block_decode(p, cfg, kind, h, c, pos)
+        new_cache.append(c)
+    h = rms_norm(model.final_ln, h)
+    return unembed(model.embed, cfg, h)[:, 0], new_cache
+
+
+def prefill(model: Model, batch: dict, max_len: int,
+            impl: str = "auto") -> tuple[torch.Tensor, list[dict]]:
+    """Process the full prompt, returning (last-position logits, cache).
+
+    As in the JAX package, the prompt's forward pass runs here and the
+    returned cache starts empty; the serving loop replays the prompt
+    through `decode_step` to fill it (see launch/serve.py)."""
+    logits, _ = forward(model, batch, impl=impl)
+    last = logits[:, -1].clone()    # frees the [B, S, V] logits
+    del logits
+    return last, init_cache(model, batch["tokens"].shape[0], max_len)

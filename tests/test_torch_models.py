@@ -1,0 +1,317 @@
+"""The port's serving path against the JAX package's model stack.
+
+Reduced recurrentgemma-9b and gemma2-27b (local/global windows, softcap)
+are built by the JAX package, their weights carried across with
+`repro_torch.models.convert`, and the two packages' `forward` and
+`decode_step` compared on the same tokens: the JAX side with
+`impl="pallas"` (its kernels in interpret mode), the port with
+`impl="cuda"` (its kernel wrappers, which run their plain versions on a
+CPU tensor).  The tests marked `cuda` run the port on the card.
+"""
+import dataclasses
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import models  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, reduced_config  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rglru  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
+from repro_torch.models import layers  # noqa: E402
+
+SLICE_ARCHS = ["recurrentgemma-9b", "gemma2-27b"]
+S_FWD = 12
+
+
+def _tokens(vocab, B=2, S=S_FWD, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S))
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's model stack.  Imported here, not at the top, so
+    the tests marked `cuda` also run where JAX is not installed."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro import models
+    from repro.configs import ARCHS, reduced_config
+    from repro.models import layers
+    return types.SimpleNamespace(jax=jax, jnp=jnp, models=models,
+                                 ARCHS=ARCHS, reduced=reduced_config,
+                                 layers=layers)
+
+
+@pytest.fixture(scope="module")
+def setups(jx):
+    """name -> (port model, JAX cfg, JAX params, JAX pallas logits)."""
+    jax, jnp, jmodels = jx.jax, jx.jnp, jx.models
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            jcfg = jx.reduced(jx.ARCHS[name])
+            params = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
+            tree = jax.tree.map(np.asarray, params)
+            model = models.from_jax_params(reduced_config(ARCHS[name]),
+                                           tree, device="cpu")
+            toks = _tokens(jcfg.vocab_size)
+            logits, _ = jmodels.forward(
+                jcfg, params, {"tokens": jnp.asarray(toks, jnp.int32)},
+                impl="pallas")
+            cache[name] = (model, jcfg, params, np.asarray(logits))
+        return cache[name]
+
+    return get
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _batch(model, toks, device="cpu"):
+    return {"tokens": torch.as_tensor(toks, device=device)}
+
+
+# ---------------------------------------------------------------------- #
+# configs and weights
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_config_registry_is_a_faithful_copy(name, jx):
+    assert sorted(ARCHS) == sorted(jx.ARCHS)
+    for port, ref in ((ARCHS[name], jx.ARCHS[name]),
+                      (reduced_config(ARCHS[name]),
+                       jx.reduced(jx.ARCHS[name]))):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.param_count() == ref.param_count()
+
+
+@pytest.mark.parametrize("name", SLICE_ARCHS)
+def test_conversion_round_trips_exactly(setups, name, jx):
+    jax = jx.jax
+    model, _, params, _ = setups(name)
+    back = models.to_jax_params(model)
+    want = jax.tree.map(np.asarray, params)
+    assert (jax.tree.structure(back) == jax.tree.structure(want))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(want)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", SLICE_ARCHS)
+def test_initialiser_builds_the_jax_shapes(name, jx):
+    jax = jx.jax
+    cfg = reduced_config(ARCHS[name])
+    jcfg = jx.reduced(jx.ARCHS[name])
+    model = models.Model(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(3))
+    got = models.to_jax_params(model)
+    want = jax.eval_shape(lambda: jx.models.init_params(
+        jcfg, jax.random.PRNGKey(0)))
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    again = models.Model(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(3))
+    for a, b in zip(model.parameters(), again.parameters()):
+        assert torch.equal(a, b)      # a seed fixes the weights
+
+
+# ---------------------------------------------------------------------- #
+# forward and decode against the JAX package
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("name", SLICE_ARCHS)
+@pytest.mark.parametrize("impl", ["cuda", "auto", "chunked"])
+def test_forward_matches_jax(setups, name, impl):
+    model, jcfg, _, want = setups(name)
+    before = (fa.launches, rglru.launches)
+    logits, aux = models.forward(
+        model, _batch(model, _tokens(jcfg.vocab_size)), impl=impl)
+    assert (fa.launches, rglru.launches) == before   # CPU: plain versions
+    assert logits.shape == want.shape and float(aux) == 0.0
+    assert np.abs(logits.numpy() - want).max() < 1e-4
+
+
+@pytest.mark.parametrize("name", SLICE_ARCHS)
+def test_decode_steps_match_jax(setups, name, jx):
+    jax, jnp, jmodels = jx.jax, jx.jnp, jx.models
+    model, jcfg, params, _ = setups(name)
+    B, S = 2, 10
+    toks = _tokens(jcfg.vocab_size, B=B, S=S, seed=1)
+    jstep = jax.jit(lambda c, t, p: jmodels.decode_step(jcfg, params, c, t, p))
+    jcache = jmodels.init_cache(jcfg, B, max_len=S)
+    cache = models.init_cache(model, B, max_len=S)
+    errs = []
+    for t in range(S):
+        jlog, jcache = jstep(jcache, jnp.asarray(toks[:, t], jnp.int32),
+                             jnp.int32(t))
+        logits, cache = models.decode_step(
+            model, cache, torch.as_tensor(toks[:, t]), t)
+        errs.append(float(np.abs(logits.numpy() - np.asarray(jlog)).max()))
+    assert max(errs) < 1e-4, errs
+
+
+@pytest.mark.parametrize("name,S", [("recurrentgemma-9b", 10),
+                                    ("gemma2-27b", 10),
+                                    ("gemma2-27b", 40)])
+def test_decode_matches_forward(setups, name, S):
+    """The port's own decode-vs-forward equivalence; gemma2 at S=40
+    decodes past its reduced window of 32 through the ring buffer."""
+    model = setups(name)[0]
+    if S > 32:
+        assert model.cfg.local_window == 32
+    toks = _tokens(model.cfg.vocab_size, B=1, S=S, seed=2)
+    ref, _ = models.forward(model, _batch(model, toks))
+    cache = models.init_cache(model, 1, max_len=S)
+    errs = []
+    for t in range(S):
+        logits, cache = models.decode_step(
+            model, cache, torch.as_tensor(toks[:, t]), t)
+        errs.append(float((logits - ref[:, t]).abs().max()))
+    assert max(errs) < 1e-4, errs
+
+
+def test_prefill_returns_last_logits_and_an_empty_cache(setups):
+    model = setups("recurrentgemma-9b")[0]
+    batch = _batch(model, _tokens(model.cfg.vocab_size))
+    full, _ = models.forward(model, batch)
+    last, cache = models.prefill(model, batch, max_len=20)
+    assert torch.equal(last, full[:, -1])
+    assert torch.equal(make_prefill_step(model.cfg)(model, batch), last)
+    assert len(cache) == model.cfg.n_layers
+    assert all(float(t.abs().max()) == 0 for c in cache for t in c.values())
+
+
+def test_serve_step_greedy(setups):
+    model = setups("gemma2-27b")[0]
+    step = make_serve_step(model.cfg)
+    cache = models.init_cache(model, 2, max_len=8)
+    nxt, cache = step(model, cache, torch.zeros(2, dtype=torch.int32), 0)
+    assert nxt.shape == (2,) and nxt.dtype == torch.int32
+
+
+def test_launcher_replay_matches_prefill():
+    """The launcher's logits after replaying the prompt equal `prefill`'s
+    last-position logits on the same prompts (what chip_smoke.py checks
+    at full width)."""
+    cfg = reduced_config(get_config("recurrentgemma-9b"))
+    out = serve_mod.serve(cfg, batch=2, prompt_len=8, gen=4, device="cpu")
+    assert out["generated"].shape == (2, 4)
+    assert out["generated"].dtype == torch.int32
+    last, _ = models.prefill(out["model"], {"tokens": out["prompts"]},
+                             max_len=12)
+    assert float((out["last_logits"] - last).abs().max()) < 1e-4
+
+
+def test_launcher_main_runs_on_the_cpu(capsys):
+    serve_mod.main(["--arch", "gemma-2b", "--reduced", "--batch", "2",
+                    "--prompt-len", "4", "--gen", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "serving gemma-2b-reduced: batch=2 prompt=4 gen=3" in out
+    assert "sample generation ids" in out
+
+
+# ---------------------------------------------------------------------- #
+# layers
+# ---------------------------------------------------------------------- #
+def test_rope_and_mrope_match_jax(jx):
+    jnp, jlayers = jx.jnp, jx.layers
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 6, 3, 16)).astype(np.float32)
+    pos = np.tile(np.arange(6) + 3000, (2, 1))
+    mpos = rng.integers(0, 50, (3, 2, 6))
+    pairs = [
+        (layers.rope(torch.from_numpy(x), torch.as_tensor(pos), 10_000.0),
+         jlayers.rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0)),
+        (layers.mrope(torch.from_numpy(x), torch.as_tensor(mpos), (4, 2, 2)),
+         jlayers.mrope(jnp.asarray(x), jnp.asarray(mpos), (4, 2, 2))),
+    ]
+    for got, want in pairs:
+        assert np.abs(got.numpy() - np.asarray(want)).max() < 2e-5
+
+
+def test_text_models_outside_the_slice_run_too():
+    """qwen2-vl (M-RoPE, text only) and gemma-2b need no new block."""
+    for name in ("qwen2-vl-2b", "gemma-2b"):
+        cfg = reduced_config(get_config(name))
+        model = models.Model(cfg, device="cpu")
+        toks = torch.as_tensor(_tokens(cfg.vocab_size, S=5))
+        logits, _ = models.forward(model, {"tokens": toks})
+        assert logits.shape == (2, 5, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("name", ["rwkv6-7b", "dbrx-132b",
+                                  "deepseek-v3-671b",
+                                  "seamless-m4t-large-v2"])
+def test_blocks_outside_the_slice_raise(name):
+    cfg = reduced_config(get_config(name))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
+        models.Model(cfg, device="cpu")
+
+
+def test_vision_frontend_and_training_raise():
+    cfg = reduced_config(get_config("qwen2-vl-2b"))
+    model = models.Model(cfg, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+             "patch_embeds": torch.zeros((1, 2, cfg.d_model))}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
+        models.forward(model, batch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 9"):
+        models.loss_fn(model, batch)
+
+
+# ---------------------------------------------------------------------- #
+# on the card
+# ---------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_default_prefill_launches_both_kernels(cuda_device):
+    cfg = reduced_config(get_config("recurrentgemma-9b"))
+    model = models.Model(cfg, device="cpu")
+    gpu = models.from_jax_params(cfg, models.to_jax_params(model))
+    assert gpu.device.type == "cuda"
+    toks = _tokens(model.cfg.vocab_size)
+    fa.launches = rglru.launches = 0
+    last, _ = models.prefill(gpu, _batch(gpu, toks, cuda_device), max_len=16)
+    torch.cuda.synchronize()
+    kinds = gpu.kinds
+    assert fa.launches == kinds.count("attn")
+    assert rglru.launches == kinds.count("rec")
+    want, _ = models.prefill(model, _batch(model, toks), max_len=16)
+    assert float((last.cpu() - want).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SLICE_ARCHS)
+def test_forward_on_the_card_matches_the_cpu(name, cuda_device):
+    """The kernel path on the card (GQA windows, softcap, head_dim 16)
+    against the plain versions on the host, on the same weights."""
+    cfg = reduced_config(get_config(name))
+    model = models.Model(cfg, device="cpu")
+    gpu = models.from_jax_params(cfg, models.to_jax_params(model))
+    toks = _tokens(cfg.vocab_size, S=40)
+    fa.launches = rglru.launches = 0
+    got, _ = models.forward(gpu, _batch(gpu, toks, cuda_device))
+    torch.cuda.synchronize()
+    assert fa.launches == sum(k != "rec" for k in gpu.kinds)
+    assert rglru.launches == gpu.kinds.count("rec")
+    want, _ = models.forward(model, _batch(model, toks))
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_launcher_on_the_card(cuda_device):
+    cfg = reduced_config(get_config("recurrentgemma-9b"))
+    out = serve_mod.serve(cfg, batch=2, prompt_len=8, gen=4)
+    assert out["generated"].device.type == "cuda"
+    last, _ = models.prefill(out["model"], {"tokens": out["prompts"]},
+                             max_len=12)
+    assert float((out["last_logits"] - last).abs().max()) < 1e-4

@@ -40,7 +40,11 @@ def _graph():
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.obs, "
-            "repro_torch.core.cuda.metrics; "
+            "repro_torch.core.cuda.metrics, repro_torch.configs, "
+            "repro_torch.kernels, repro_torch.kernels.ops, "
+            "repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.launch, repro_torch.launch.steps, "
+            "repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(bad)")
@@ -56,6 +60,8 @@ def test_no_source_line_imports_repro_or_jax():
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
     assert len(files) > 10
+    for sub in ("configs", "kernels", "models", "launch"):
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     offending = []
     for path in files:
         with open(path) as f:
@@ -172,3 +178,48 @@ def test_obs_records_spans_only_when_enabled():
 def test_cuda_marker_is_registered():
     with open(os.path.join(ROOT, "pyproject.toml")) as f:
         assert "cuda: needs an NVIDIA GPU" in f.read()
+
+
+def test_model_stack_asks_for_the_card_and_raises_without_one(no_gpu):
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import serve
+    cfg = reduced_config(get_config("recurrentgemma-9b"))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        models.Model(cfg)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        models.prefill(models.Model(cfg, device="cuda"),
+                       {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
+                       max_len=8)
+    cpu = models.Model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        models.from_jax_params(cfg, models.to_jax_params(cpu))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        serve.serve(cfg, batch=1, prompt_len=2, gen=1)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        serve.main(["--arch", "recurrentgemma-9b", "--reduced"])
+
+
+def test_model_kernels_have_no_path_to_the_plain_version(monkeypatch):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, rglru
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(fa, "flash_attention_plain", no_plain)
+    monkeypatch.setattr(rglru, "rglru_plain", no_plain)
+    monkeypatch.setattr(ops._ref, "attention_ref", no_plain)
+    monkeypatch.setattr(ops._ref, "rglru_ref", no_plain)
+    q = torch.ones((1, 4, 2, 16), device="meta")
+    x = torch.ones((1, 4, 16), device="meta")
+    before = (fa.launches, rglru.launches)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.attention(q, q, q, impl="cuda")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        rglru.rglru_scan(x, x)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.rglru(x, x, impl="cuda")
+    assert (fa.launches, rglru.launches) == before
