@@ -31,10 +31,23 @@ Phases, each reported on its own line(s):
    with the JAX launcher's defaults (batch 4, prompt 32, generate 32) at
    full width; its logits after replaying the prompt are held against
    `prefill` on the same prompts (1e-3);
-8. timing: each kernel, its plain version and, where one exists, one
+8. RWKV6 kernel: the WKV scan against its plain version on the shapes
+   of the JAX package's `test_rwkv6_kernel_vs_ref` (1e-5), at the
+   prefill shape (B=2, S=4096, H=64, Dk=Dv=64) with and without s0, at
+   the decode shape (B=4, S=1, with s0), both with out within
+   1e-5·max(1, max|out|), and in bfloat16 (2e-2·max(1, max|out|));
+   S_last exactly equal everywhere;
+9. rwkv6-7b prefill path, after the recurrentgemma-9b model is freed: at
+   full width and depth (7,534,415,872 float32 parameters from a seeded
+   generator), `make_prefill_step` on 2 prompts of 4,096 tokens, exactly
+   32 RWKV6 launches and none of the other kernels, finite logits;
+10. rwkv6-7b serving path: the launcher at its defaults, exactly
+   (32 + 32) x 32 = 2,048 RWKV6 launches (one per layer and decode step,
+   with the cached state as s0), prefill vs prompt replay (1e-3);
+11. timing: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function (timed only, as a
    yardstick) at the main paths' largest shapes, then one JSON line
-   `{"kernels": [...]}`.
+   `{"kernels": [...]}` with all four kernels.
 
 The last line is `{"ok": true, "device": {...}}`.  Any failure raises
 and the script exits non-zero before that line.  It imports nothing of
@@ -62,6 +75,18 @@ PEAK_F32_OPS_PER_S = 67e12
 
 ARCH = "recurrentgemma-9b"
 N_PARAMS = 9_396_195_328
+RWKV_ARCH = "rwkv6-7b"
+RWKV_N_PARAMS = 7_534_415_872
+RWKV_LAYERS = 32
+RWKV_PREFILL_B, RWKV_PREFILL_S = 2, 4096     # rwkv6-7b's train_4k context
+# (B, S, H, Dk, Dv): the prefill and decode shapes of one rwkv6-7b layer,
+# and tests/test_kernels.py::test_rwkv6_kernel_vs_ref's shapes
+RWKV_MAIN = (RWKV_PREFILL_B, RWKV_PREFILL_S, 64, 64, 64)
+RWKV_DECODE = (4, 1, 64, 64, 64)
+RWKV_CASES = [(2, 32, 2, 16, 16), (1, 48, 4, 32, 32), (1, 16, 1, 8, 24)]
+RWKV_BF16 = (2, 256, 64, 64, 64)
+RWKV_TOL = 1e-5
+RWKV_BF16_TOL = 2e-2
 PREFILL_B, PREFILL_S = 2, 3072
 # the serving shape of one attention layer and one recurrent layer
 FA_MAIN = (PREFILL_B, PREFILL_S, PREFILL_S, 16, 1, 256, True, 2048, None,
@@ -312,49 +337,68 @@ def phase_model_kernels_vs_plain() -> dict:
 
 
 # ---------------------------------------------------------------------- #
-# 6. the prefill path at full width
+# 6/9. the prefill path at full width
 # ---------------------------------------------------------------------- #
-def _build_model(seed: int = 0):
+def _counted():
+    """Every kernel wrapper's module, by kernel name (each has `launches`)."""
+    from repro_torch.core.cuda import segsum
+    from repro_torch.kernels import flash_attention, rglru, rwkv6
+    return {"segment_sum": segsum, "flash_attention": flash_attention,
+            "rglru": rglru, "rwkv6": rwkv6}
+
+
+def zero_launches() -> None:
+    for module in _counted().values():
+        module.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: module.launches for name, module in _counted().items()}
+
+
+def _expect(**counts) -> dict:
+    return {name: counts.get(name, 0) for name in _counted()}
+
+
+def _build_model(arch: str, n_params: int, seed: int = 0):
     from repro_torch import models
     from repro_torch.configs import get_config
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = models.Model(cfg, device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(seed))
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
+    kinds = {k: model.kinds.count(k) for k in dict.fromkeys(model.kinds)}
     log(f"model {cfg.name}: {n} float32 parameters "
         f"({n * 4 / 1e9:.3f} GB) built on the card in "
-        f"{time.perf_counter() - t0:.3f} s; layers "
-        f"{''.join(k[0] for k in model.kinds)} (r = rec, a = attn)")
-    check(n == N_PARAMS, f"expected {N_PARAMS} parameters, built {n}")
+        f"{time.perf_counter() - t0:.3f} s; layers {json.dumps(kinds)}")
+    check(n == n_params, f"expected {n_params} parameters, built {n}")
     return model
 
 
-def phase_prefill() -> dict:
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru
+def phase_prefill(arch: str, n_params: int, B: int, S: int,
+                  expect: dict) -> dict:
+    """`make_prefill_step` on B random prompts of S tokens, with every
+    kernel's launches counted around the first run."""
     from repro_torch.launch.steps import make_prefill_step
-    model = _build_model()
-    kinds = model.kinds
-    check(kinds.count("attn") == 12 and kinds.count("rec") == 26,
-          "recurrentgemma-9b must have 12 attention and 26 recurrent layers")
+    model = _build_model(arch, n_params)
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(
-        0, model.cfg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+        0, model.cfg.vocab_size, (B, S))).cuda()
     step = make_prefill_step(model.cfg)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    fa.launches = rglru.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     logits = step(model, {"tokens": tokens})
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches, "rglru": rglru.launches}
-    check(launches == {"flash_attention": 12, "rglru": 26},
-          f"prefill launches {launches}, expected 12 and 26")
-    check(tuple(logits.shape) == (PREFILL_B, model.cfg.vocab_size),
+    launches = read_launches()
+    check(launches == expect,
+          f"{arch} prefill launches {launches}, expected {expect}")
+    check(tuple(logits.shape) == (B, model.cfg.vocab_size),
           "prefill logits shape")
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     t0 = time.perf_counter()
@@ -363,67 +407,170 @@ def phase_prefill() -> dict:
     second_s = time.perf_counter() - t0
     rerun_diff = float((again - logits).abs().max())
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"prefill path B={PREFILL_B} S={PREFILL_S}: launches "
+    log(f"prefill path {arch} B={B} S={S}: launches "
         f"{json.dumps(launches)}, logits finite, |logits| max "
         f"{float(logits.abs().max())!r}, second run differs by "
         f"{rerun_diff!r}")
-    log(f"prefill wall (host clock after synchronize): first "
+    log(f"prefill wall {arch} (host clock after synchronize): first "
         f"{first_s:.6f} s, second {second_s:.6f} s "
-        f"({PREFILL_B * PREFILL_S / second_s:.1f} prompt tokens/s); peak "
+        f"({B * S / second_s:.1f} prompt tokens/s); peak "
         f"device memory {peak:.3f} GB")
     del model, logits, again
     torch.cuda.empty_cache()
-    return {"launches": launches, "first_s": first_s, "second_s": second_s}
+    return {"launches": launches, "first_s": first_s, "second_s": second_s,
+            "peak_gb": peak}
 
 
 # ---------------------------------------------------------------------- #
-# 7. the serving path at full width
+# 7/10. the serving path at full width
 # ---------------------------------------------------------------------- #
-def phase_serve() -> dict:
+def rwkv_logits_f64(model, tokens: torch.Tensor) -> torch.Tensor:
+    """Last-position logits of an rwkv6-7b `model` on `tokens`, evaluated
+    in float64 on the card from its weights by the block's equations
+    written out (`tools/rwkv6_replay_drift.py`), apart from the code under
+    test: it separates float32 rounding from a fault."""
+    from rwkv6_replay_drift import f64_block, f64_logits, zero_carry
+    h = model.embed["table"][tokens.long()].double()
+    for layer in model.layers:
+        h, _ = f64_block(layer, model.cfg, h,
+                         zero_carry(model.cfg, h.shape[0], h.device))
+    return f64_logits(model, h[:, -1])
+
+
+def phase_serve(arch: str, expect_serve: dict, expect_prefill: dict,
+                note: str = "", reference=None) -> dict:
+    """The launcher at the JAX launcher's defaults (batch 4, prompt 32,
+    generate 32), with every kernel's launches counted around it; its
+    logits after the prompt replay held against `make_prefill_step`.
+
+    With a float64 `reference` (model, prompts) -> logits, the replay is
+    held to it instead: it may be no farther from the float64 logits
+    than max(SERVE_TOL, twice the prefill's own distance), i.e. the
+    decode path through the kernel must be as accurate as the prefill.
+    A float32 model whose rounding grows through its depth can put the
+    two float32 paths more than SERVE_TOL apart while both are right."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_prefill_step
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls must stay off: the checks are float32")
-    fa.launches = rglru.launches = 0
-    out = serve(get_config(ARCH), device="cuda")
-    serve_launches = {"flash_attention": fa.launches,
-                      "rglru": rglru.launches}
+    zero_launches()
+    out = serve(get_config(arch), device="cuda")
+    serve_launches = read_launches()
+    check(serve_launches == expect_serve,
+          f"{arch} launcher launches {serve_launches}, expected "
+          f"{expect_serve}")
     gen = out["generated"]
     check(tuple(gen.shape) == (4, 32) and gen.dtype == torch.int32,
           "generated ids shape or dtype")
     check(bool(((gen >= 0) & (gen < out["model"].cfg.vocab_size)).all()),
           "generated ids outside the vocabulary")
-    fa.launches = rglru.launches = 0
+    zero_launches()
     last = make_prefill_step(out["model"].cfg)(
         out["model"], {"tokens": out["prompts"]})
     torch.cuda.synchronize()
-    check(fa.launches == 12 and rglru.launches == 26,
+    check(read_launches() == expect_prefill,
           "the comparison prefill did not run the kernels")
     err = float((last - out["last_logits"]).abs().max())
-    check(err <= SERVE_TOL,
-          f"prefill vs prompt replay: max abs difference {err!r}")
-    log(f"serving path: prefill (prompt replay) "
+    ref_note = ""
+    if reference is None:
+        check(err <= SERVE_TOL,
+              f"prefill vs prompt replay: max abs difference {err!r}")
+    else:
+        want = reference(out["model"], out["prompts"])
+        e_prefill = float((last.double() - want).abs().max())
+        e_replay = float((out["last_logits"].double() - want).abs().max())
+        bound = max(SERVE_TOL, 2.0 * e_prefill)
+        check(e_replay <= bound,
+              f"prompt replay is {e_replay!r} from the float64 logits, "
+              f"more than max({SERVE_TOL}, 2 x the prefill's "
+              f"{e_prefill!r})")
+        ref_note = (f"; against the float64 evaluation: prefill "
+                    f"{e_prefill!r}, replay {e_replay!r} (bound "
+                    f"{bound!r})")
+        del want
+    decode_ms = out["gen_s"] / gen.shape[1] * 1e3
+    log(f"serving path {arch}: prefill (prompt replay) "
         f"{out['prefill_s'] * 1e3:.3f} ms, decode "
-        f"{out['gen_s'] / gen.shape[1] * 1e3:.3f} ms/step, "
+        f"{decode_ms:.3f} ms/step, "
         f"{out['tok_per_s']:.3f} tok/s; launches in the launcher "
-        f"{json.dumps(serve_launches)} (its decode computes attention and "
-        f"the recurrence inline, as the JAX launcher's does)")
-    log(f"serving first generated ids: {gen[0, :16].tolist()}")
-    log(f"prefill vs prompt replay, last-position logits: max abs "
-        f"difference {err!r} (tolerance {SERVE_TOL}); "
+        f"{json.dumps(serve_launches)}{note}")
+    log(f"serving first generated ids {arch}: {gen[0, :16].tolist()}")
+    log(f"prefill vs prompt replay {arch}, last-position logits: max abs "
+        f"difference {err!r}"
+        f"{f' (tolerance {SERVE_TOL})' if reference is None else ref_note}; "
         f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32} (no "
         f"convolution runs)")
     del out, last
     torch.cuda.empty_cache()
-    return {"max_abs_diff": err}
+    return {"max_abs_diff": err, "launches": serve_launches,
+            "decode_ms": decode_ms}
 
 
 # ---------------------------------------------------------------------- #
-# 8. timing of the segment sum at the partition path's largest shapes
+# 8. the RWKV6 kernel against its plain version
+# ---------------------------------------------------------------------- #
+def _rwkv_inputs(B: int, S: int, H: int, Dk: int, Dv: int,
+                 dtype=torch.float32, seed: int = 0):
+    """r, v normal; k normal * 0.3; w uniform(0.4, 0.99); u normal * 0.1
+    (the draws of the JAX package's kernel test); s0 normal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    r = normal(B, S, H, Dk).to(dtype)
+    k = (normal(B, S, H, Dk) * 0.3).to(dtype)
+    v = normal(B, S, H, Dv).to(dtype)
+    w = (torch.rand((B, S, H, Dk), generator=g, device="cuda") * 0.59
+         + 0.4).to(dtype)
+    u = normal(H, Dk) * 0.1
+    s0 = normal(B, H, Dk, Dv)
+    return r, k, v, w, u, s0
+
+
+def phase_rwkv_kernel_vs_plain() -> float:
+    """out within tol (absolute at the JAX test shapes; times max(1,
+    max|out|) at the model's shapes), S_last exactly equal: the kernel
+    rounds w*S + kv as the plain version's two operations do."""
+    from repro_torch.kernels import rwkv6
+    cases = ([(c, torch.float32, False, False) for c in RWKV_CASES]
+             + [(RWKV_MAIN, torch.float32, s0, True) for s0 in (False, True)]
+             + [(RWKV_DECODE, torch.float32, True, True),
+                (RWKV_BF16, torch.bfloat16, True, True)])
+    worst = 0.0
+    for shape, dtype, with_s0, relative in cases:
+        r, k, v, w, u, s0 = _rwkv_inputs(*shape, dtype=dtype)
+        s0 = s0 if with_s0 else None
+        out, s_last = rwkv6.rwkv6_scan(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        want_o, want_s = rwkv6.rwkv6_plain(r, k, v, w, u, s0)
+        check(out.dtype == dtype and tuple(out.shape) == tuple(v.shape)
+              and s_last.dtype == torch.float32,
+              f"rwkv6 {shape}: dtype or shape")
+        tol = RWKV_TOL if dtype == torch.float32 else RWKV_BF16_TOL
+        scale = max(1.0, float(want_o.float().abs().max())) if relative \
+            else 1.0
+        err = float((out.float() - want_o.float()).abs().max())
+        check(err <= tol * scale, f"rwkv6 {shape} {dtype}: out error "
+              f"{err!r} > {tol} x {scale!r}")
+        check(torch.equal(s_last, want_s),
+              f"rwkv6 {shape} {dtype}: S_last differs from the plain "
+              f"version by {float((s_last - want_s).abs().max())!r}")
+        if shape == RWKV_MAIN:
+            worst = max(worst, err)
+        log(f"kernel rwkv6 (B, S, H, Dk, Dv)={shape} "
+            f"{str(dtype).split('.')[-1]} s0={'given' if with_s0 else 'none'}"
+            f": out max abs error {err!r} (tolerance {tol}"
+            f"{f' x {scale!r}' if relative else ''}), S_last equal")
+        del r, k, v, w, out, s_last, want_o, want_s
+    torch.cuda.empty_cache()
+    return worst
+
+
+# ---------------------------------------------------------------------- #
+# 11. timing of the segment sum at the partition path's largest shapes
 # ---------------------------------------------------------------------- #
 def _cuda_ms(fn, reps: int = 20) -> float:
     fn()
@@ -499,7 +646,7 @@ def phase_timing(runs: dict, max_abs_err: float) -> dict:
 
 
 # ---------------------------------------------------------------------- #
-# 8b. timing of the model kernels at the serving shapes
+# 11b. timing of the model kernels at the serving shapes
 # ---------------------------------------------------------------------- #
 def _fa_bound(case) -> tuple[float, str]:
     """Least time for one flash attention call: its unmasked (query, key)
@@ -584,12 +731,56 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
     return [fa_entry, rg_entry]
 
 
+def _rwkv_bound(B: int, S: int, H: int, Dk: int, Dv: int,
+                size: int) -> tuple[float, str]:
+    """Least time for one WKV scan without s0: r, k, w, v read once, out
+    and S_last (float32) written once, over the memory rate, against
+    7*Dk*Dv float32 operations per (b, t, h) over the float32 peak."""
+    nbytes = (size * B * S * H * (3 * Dk + 2 * Dv) + 4 * H * Dk
+              + 4 * B * H * Dk * Dv)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 7 * Dk * Dv * B * S * H / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_rwkv_timing(prefill: dict, serve: dict, err: float) -> dict:
+    from repro_torch.kernels import ref, rwkv6
+    r, k, v, w, u, _ = _rwkv_inputs(*RWKV_MAIN)
+    ms = _cuda_ms(lambda: rwkv6.rwkv6_scan(r, k, v, w, u), reps=10)
+    plain_ms = _host_ms(lambda: rwkv6.rwkv6_plain(r, k, v, w, u))
+    # the JAX package's chunk-parallel matmul form, on the card: a
+    # yardstick of its own, not one PyTorch call
+    chunked_ms = _host_ms(lambda: ref.rwkv6_chunked(r, k, v, w, u))
+    bound_ms, bound_by = _rwkv_bound(*RWKV_MAIN, size=4)
+    entry = {
+        "name": "rwkv6", "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6.py:28",
+        "launches": prefill["launches"]["rwkv6"],
+        "launches_serve": serve["launches"]["rwkv6"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library": "none: no single PyTorch call computes the recurrence",
+        "chunked_ms": chunked_ms,
+        "chunked": "rwkv6_chunked (chunk 64, sub-blocks of 8) on the card, "
+                   "host clock",
+        "shape": "r, k, v, w [2,4096,64,64] float32, u [64,64], no s0",
+        "plain_on": "the card (rwkv6_ref: one step of einsum and "
+                    "elementwise ops per time step)"}
+    log(f"timing rwkv6 at {entry['shape']}: kernel {ms!r} ms, plain "
+        f"{plain_ms!r} ms, chunked {chunked_ms!r} ms, bound {bound_ms!r} "
+        f"ms ({bound_by}), library none")
+    del r, k, v, w
+    torch.cuda.empty_cache()
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(HERE, "src"))
+    sys.path[:0] = [os.path.join(HERE, "src"), os.path.join(HERE, "tools")]
     import repro_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
     name = phase_device()
@@ -597,10 +788,25 @@ def main() -> int:
     max_abs_err = phase_kernel_vs_plain()
     runs = phase_main_path()
     errs = phase_model_kernels_vs_plain()
-    prefill = phase_prefill()
-    phase_serve()
+    prefill = phase_prefill(ARCH, N_PARAMS, PREFILL_B, PREFILL_S,
+                            _expect(flash_attention=12, rglru=26))
+    phase_serve(ARCH, _expect(), _expect(flash_attention=12, rglru=26),
+                note=" (its decode computes attention and the recurrence "
+                     "inline, as the JAX launcher's does)")
+    rwkv_err = phase_rwkv_kernel_vs_plain()
+    n_rwkv = RWKV_LAYERS
+    rwkv_prefill = phase_prefill(RWKV_ARCH, RWKV_N_PARAMS, RWKV_PREFILL_B,
+                                 RWKV_PREFILL_S, _expect(rwkv6=n_rwkv))
+    rwkv_serve = phase_serve(RWKV_ARCH, _expect(rwkv6=(32 + 32) * n_rwkv),
+                             _expect(rwkv6=n_rwkv),
+                             note=" (one per layer and decode step, with "
+                                  "the cached state as s0)",
+                             reference=rwkv_logits_f64)
     kernels = phase_timing(runs, max_abs_err)
     kernels["kernels"] += phase_model_timing(prefill, errs)
+    kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
+                                                rwkv_err))
+    check(len(kernels["kernels"]) == 4, "the kernels line lists four")
     check(not any(m in sys.modules for m in ("jax", "repro")),
           "the port imported JAX or the JAX package")
     log(f"chip_smoke: all phases passed in "

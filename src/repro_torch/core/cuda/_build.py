@@ -125,6 +125,11 @@ def load_library() -> ctypes.CDLL:
             # x, a, h0 (may be null), h, h_last, B, S, D, stream
             ("rglru_f32", "rglru_bf16"):
                 [vp, vp, vp, vp, vp, i64, i64, i64, vp],
+            # r, k, v, w, u, s0 (may be null), out, s_last, B, S, H, Dk,
+            # Dv, stream
+            ("rwkv6_f32", "rwkv6_bf16"):
+                [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64,
+                 vp],
         }
         for names, argtypes in signatures.items():
             for name in names:

@@ -5,15 +5,17 @@ Implementations per op:
   * "cuda"    — the hand-written kernel's wrapper: the kernel on a CUDA
                 tensor, its plain version on a CPU tensor;
   * "ref"     — the plain PyTorch version (`ref.py`);
-  * "chunked" — flash-semantics attention in plain PyTorch: a loop over
+  * "chunked" — attention: flash semantics in plain PyTorch, a loop over
                 kv blocks with an online softmax.  It takes what the
                 kernel does not: a tensor `q_offset`, a `kv_len`, and
-                distinct qk and v head dims.
+                distinct qk and v head dims.  RWKV6: `rwkv6_chunked`,
+                the JAX package's chunk-parallel matmul form.  Both run
+                on any device.
 
-`impl="auto"` picks the kernel when the tensor is on a CUDA device; on
-the CPU it keeps the JAX package's choice: ref for short sequences, and
-chunked for attention once Sk exceeds `CHUNK_THRESHOLD`.  A kernel's
-failure is never caught.
+`impl="auto"` picks the kernel for a tensor that is not on the CPU; on
+the CPU it keeps the JAX package's choice: ref for short sequences,
+chunked for attention once Sk exceeds `CHUNK_THRESHOLD`, and chunked for
+RWKV6 whenever S > 1.  A kernel's failure is never caught.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from . import ref as _ref
 from .flash_attention import flash_attention as _flash
 from .rglru import rglru_scan as _rglru_cuda
+from .rwkv6 import rwkv6_scan as _rwkv6_cuda
 
 __all__ = ["attention", "rglru", "rwkv6", "CHUNK_THRESHOLD"]
 
@@ -92,7 +95,7 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     "cuda" goes to "chunked", as the JAX package's "pallas" does.
     """
     if impl == "auto":
-        if q.device.type == "cuda":
+        if q.device.type != "cpu":
             impl = "cuda"
         elif k.shape[1] > CHUNK_THRESHOLD:
             impl = "chunked"
@@ -119,17 +122,40 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
 # ---------------------------------------------------------------------- #
 def rglru(x, a, h0=None, impl: str = "auto"):
     """RG-LRU scan; returns (h, h_last).  Every impl other than "cuda"
-    (and "auto" on a CUDA tensor) runs the plain version, as in the JAX
+    (and "auto" off the CPU) runs the plain version, as in the JAX
     package, so a model's impl="chunked" reaches it too."""
     if impl == "auto":
-        impl = "cuda" if x.device.type == "cuda" else "ref"
+        impl = "ref" if x.device.type == "cpu" else "cuda"
     if impl == "cuda":
         return _rglru_cuda(x, a, h0)
     return _ref.rglru_ref(x, a, h0=h0)
 
 
 def rwkv6(r, k, v, w, u, s0=None, impl: str = "auto"):
-    """RWKV6 WKV scan: not ported yet."""
-    raise NotImplementedError(
-        "rwkv6 is not ported yet: the RWKV6 slice (its kernel, rwkv6_ref "
-        "and rwkv6_chunked) is ROADMAP.md queue 1, item 4")
+    """RWKV6 WKV scan; returns (out, state_last).
+
+    "auto" launches the kernel for a tensor that is not on the CPU, in
+    prefill and in single-token decode alike.  On the CPU it keeps the JAX
+    package's choice: the chunk-parallel form for sequences (state carried
+    once per 64 steps) and the per-step form for single-token decode.
+    """
+    if impl == "auto":
+        if r.device.type != "cpu":
+            impl = "cuda"
+        elif r.shape[1] > 1:
+            impl = "chunked"
+        else:
+            impl = "ref"
+    if impl == "cuda":
+        return _rwkv6_cuda(r, k, v, w, u, s0)
+    if impl == "chunked":
+        S = r.shape[1]
+        chunk = 64 if S % 64 == 0 else (S if S <= 64 else 1)
+        if chunk > 1:
+            sub = 8 if chunk % 8 == 0 else chunk
+            return _ref.rwkv6_chunked(r, k, v, w, u, s0=s0, chunk=chunk,
+                                      subchunk=sub)
+        impl = "ref"
+    if impl == "ref":
+        return _ref.rwkv6_ref(r, k, v, w, u, s0=s0)
+    raise ValueError(f"unknown impl {impl!r}")

@@ -1,17 +1,18 @@
-"""Plain PyTorch versions of the attention and RG-LRU kernels.
+"""Plain PyTorch versions of the attention, RG-LRU and RWKV6 kernels.
 
 They are the ground truth the tests hold the kernels to, the path every
 CPU tensor takes, and what `chip_smoke.py` compares each CUDA kernel
 with on the card.  Each mirrors the JAX package's `repro.kernels.ref`
-(`attention_ref`, `rglru_ref`): float32 inside, the `-1e30` mask, and
-the result in the input's dtype.  The RWKV6 versions come with the RWKV6
-slice (ROADMAP.md queue 1, item 4).
+(`attention_ref`, `rglru_ref`, `rwkv6_ref`, `rwkv6_chunked`): float32
+inside, the `-1e30` mask, and the result in the input's dtype (the RWKV6
+state in float32).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "rglru_ref", "NEG_INF"]
+__all__ = ["attention_ref", "rglru_ref", "rwkv6_ref", "rwkv6_chunked",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -80,3 +81,88 @@ def rglru_ref(x: torch.Tensor, a: torch.Tensor,
         h = af[:, t] * h + gated[:, t]
         hs[:, t] = h
     return hs.to(x.dtype), h.to(x.dtype)
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              s0: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 (Finch) WKV recurrence with data-dependent decay.
+
+    Per head with state S [D_k, D_v]:
+
+        out_t = r_t @ (S + u^T ⊙ (k_t^T v_t))
+        S    <- diag(w_t) S + k_t^T v_t
+
+    Shapes: r/k/w [B, S, H, Dk], v [B, S, H, Dv], u [H, Dk], s0
+    [B, H, Dk, Dv].  Returns (out [B, S, H, Dv] in r.dtype, S_last
+    [B, H, Dk, Dv] float32).  The state update is `w*S + kv`, two
+    rounded operations, as the kernel computes it.
+    """
+    B, S, H, Dk = r.shape
+    Dv = v.shape[-1]
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    state = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32,
+                         device=r.device)
+             if s0 is None else s0.float())
+    out = torch.empty((B, S, H, Dv), dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # [B,H,Dk,Dv]
+        out[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv)
+        state = wf[:, t, :, :, None] * state + kv
+    return out.to(r.dtype), state
+
+
+def rwkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  s0: torch.Tensor | None = None, chunk: int = 64,
+                  subchunk: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-parallel WKV6, exact w.r.t. `rwkv6_ref` up to float32
+    rounding: the JAX package's matmul form.
+
+    The state is carried once per `chunk` steps; inside a chunk,
+    `chunk/subchunk` sub-blocks each compute their pairwise decays in a
+    factorised form whose exponents stay bounded (subchunk·|log w|), and
+    pass the state on.  Differentiable under autograd.
+    """
+    B, S, H, Dk = r.shape
+    Dv = v.shape[-1]
+    L = min(chunk, S)
+    q = min(subchunk, L)
+    assert S % L == 0 and L % q == 0, (S, L, q)
+    uf = u.float()
+    state = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32,
+                         device=r.device)
+             if s0 is None else s0.float())
+    tri = torch.tril(torch.ones((q, q), dtype=torch.float32,
+                                device=r.device), diagonal=-1)
+
+    def sub_block(state, rc, kc, vc, lw):
+        """One q-length sub-block: exact factorised pairwise decays."""
+        out_dtype = rc.dtype
+        rc, kc, vc = rc.float(), kc.float(), vc.float()
+        lw = torch.log(torch.clamp(lw.float(), 1e-30, 1.0))
+        Lc = torch.cumsum(lw, dim=1)            # inclusive prefix [B,q,H,D]
+        Lprev = Lc - lw                         # exclusive prefix
+        rd = rc * torch.exp(Lprev)              # <= rc (decays)
+        ki = kc * torch.exp(-Lc)                # bounded: q*|log w| <= ~88
+        sc = torch.einsum("bthd,bihd->bhti", rd, ki) * tri[None, None]
+        diag = torch.einsum("bthd,bthd->bth", rc, uf[None, None] * kc)
+        out = torch.einsum("bhti,bihd->bthd", sc, vc)
+        out = out + diag[..., None] * vc
+        out = out + torch.einsum("bthk,bhkv->bthv", rd, state)
+        decay_all = torch.exp(Lc[:, -1])        # [B,H,Dk]
+        kd = kc * torch.exp(Lc[:, -1][:, None] - Lc)
+        state = (decay_all[..., None] * state
+                 + torch.einsum("bthk,bthv->bhkv", kd, vc))
+        return state, out.to(out_dtype)
+
+    outs = []
+    for c0 in range(0, S, L):                   # the chunks, in order
+        for j0 in range(c0, c0 + L, q):         # the sub-blocks of a chunk
+            sl = slice(j0, j0 + q)
+            state, o = sub_block(state, r[:, sl], k[:, sl], v[:, sl],
+                                 w[:, sl])
+            outs.append(o)
+    return torch.cat(outs, dim=1).to(r.dtype), state

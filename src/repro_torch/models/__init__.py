@@ -1,5 +1,5 @@
-"""The model stack's serving half: GQA and RG-LRU blocks, the model as an
-`nn.Module`, and weights carried across from the JAX package."""
+"""The model stack's serving half: GQA, RG-LRU and RWKV6 blocks, the model
+as an `nn.Module`, and weights carried across from the JAX package."""
 from .convert import from_jax_params, to_jax_params
 from .model import (Model, decode_step, forward, init_cache, init_params,
                     loss_fn, prefill)

@@ -1,5 +1,5 @@
 """The model: a stack of pattern-typed blocks (attn / local / global /
-rec) between an embedding and an unembedding.
+rec / rwkv) between an embedding and an unembedding.
 
 The port of `repro.models.model`, serving half.  The JAX package stacks
 the layers of each repeat of `cfg.layer_pattern` along a leading axis and
@@ -30,6 +30,7 @@ from .attention import GQA
 from .layers import (Params, embed, init_embedding, init_mlp,
                      init_rms_norm, mlp, rms_norm, unembed)
 from .recurrent import RGLRUBlock
+from .rwkv import RWKV6Block
 
 __all__ = ["Model", "init_params", "layer_kinds", "forward", "loss_fn",
            "init_cache", "prefill", "decode_step"]
@@ -39,10 +40,6 @@ __all__ = ["Model", "init_params", "layer_kinds", "forward", "loss_fn",
 # what this slice runs
 # ---------------------------------------------------------------------- #
 def _check_supported(cfg: ModelConfig) -> None:
-    if "rwkv" in cfg.layer_pattern:
-        raise NotImplementedError(
-            "RWKV6 blocks are not ported yet: the RWKV6 slice is "
-            "ROADMAP.md queue 1, item 4 (next)")
     for present, what in ((cfg.is_moe, "MoE"), (cfg.use_mla, "MLA"),
                           (cfg.n_encoder_layers, "the encoder"),
                           (cfg.mtp_depth, "the MTP head")):
@@ -71,6 +68,9 @@ def _window_for(cfg: ModelConfig, kind: str) -> int | None:
 # block-level init / apply
 # ---------------------------------------------------------------------- #
 def _block_init(gen, cfg: ModelConfig, kind: str, dtype) -> dict:
+    if kind == "rwkv":
+        return {"ln": init_rms_norm(cfg.d_model, gen, dtype),
+                "rwkv": RWKV6Block.init(gen, cfg, dtype)}
     p = {"ln1": init_rms_norm(cfg.d_model, gen, dtype),
          "ln2": init_rms_norm(cfg.d_model, gen, dtype)}
     if kind == "rec":
@@ -83,6 +83,9 @@ def _block_init(gen, cfg: ModelConfig, kind: str, dtype) -> dict:
 
 def _block_apply(p, cfg: ModelConfig, kind: str, h, positions,
                  impl: str = "auto"):
+    if kind == "rwkv":      # the block carries its own residuals
+        return RWKV6Block.apply(p["rwkv"], cfg, rms_norm(p["ln"], h),
+                                impl=impl)
     if kind == "rec":
         h = h + RGLRUBlock.apply(p["rec"], cfg, rms_norm(p["ln1"], h),
                                  impl=impl)
@@ -94,6 +97,8 @@ def _block_apply(p, cfg: ModelConfig, kind: str, h, positions,
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  dtype, device) -> dict:
+    if kind == "rwkv":
+        return RWKV6Block.init_cache(cfg, batch, dtype, device)
     if kind == "rec":
         return RGLRUBlock.init_cache(cfg, batch, dtype, device)
     return GQA.init_cache(cfg, batch, max_len, window=_window_for(cfg, kind),
@@ -101,6 +106,9 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int):
+    if kind == "rwkv":
+        return RWKV6Block.apply_decode(p["rwkv"], cfg, rms_norm(p["ln"], h),
+                                       cache, pos)
     if kind == "rec":
         y, cache = RGLRUBlock.apply_decode(p["rec"], cfg,
                                            rms_norm(p["ln1"], h), cache, pos)

@@ -1,4 +1,4 @@
-"""The port's attention and RG-LRU kernels against the JAX package's.
+"""The port's attention, RG-LRU and RWKV6 kernels against the JAX package's.
 
 On the CPU the port's wrappers run their plain versions; they are held
 against the JAX package's Pallas kernels in interpret mode (as
@@ -14,8 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import ops, rglru  # noqa: E402
-from repro_torch.kernels.ref import attention_ref, rglru_ref  # noqa: E402
+from repro_torch.kernels import ops, rglru, rwkv6  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref, rglru_ref,  # noqa: E402
+                                     rwkv6_chunked, rwkv6_ref)
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype): the cases of
 # tests/test_kernels.py::FA_CASES
@@ -47,8 +48,9 @@ def jx():
     from repro.kernels import ref
     from repro.kernels.flash_attention import flash_attention
     from repro.kernels.rglru import rglru_scan
+    from repro.kernels.rwkv6 import rwkv6_scan
     return types.SimpleNamespace(
-        ref=ref, flash=flash_attention, rglru=rglru_scan,
+        ref=ref, flash=flash_attention, rglru=rglru_scan, rwkv6=rwkv6_scan,
         a=lambda x, dt="float32": jnp.asarray(x, getattr(jnp, dt)))
 
 
@@ -230,9 +232,163 @@ def test_rglru_ref_matches_jax_ref(jx):
     assert np.abs(_np(last) - _np(want_last)).max() < 1e-6
 
 
-def test_rwkv6_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
-        ops.rwkv6(*[torch.zeros(1)] * 5)
+# ---------------------------------------------------------------------- #
+# RWKV6, CPU: the port against the Pallas kernel and the jnp oracles
+# ---------------------------------------------------------------------- #
+# (B, S, H, Dk, Dv): the cases of tests/test_kernels.py::test_rwkv6_kernel_vs_ref
+RWKV_CASES = [
+    (2, 32, 2, 16, 16),
+    (1, 48, 4, 32, 32),
+    (1, 16, 1, 8, 24),     # Dk != Dv
+]
+# (B, S, H, D, chunk): the cases of tests/test_kernels.py::test_rwkv6_chunked_vs_ref
+CHUNKED_CASES = [(2, 128, 2, 16, 32), (1, 256, 4, 32, 64), (1, 64, 2, 16, 64)]
+
+
+def _rkvwu(B, S, H, Dk, Dv, seed=0, w_lo=0.4, w_hi=0.99):
+    """r, v normal; k normal * 0.3; w uniform; u normal * 0.1 — the draws
+    of tests/test_kernels.py::test_rwkv6_kernel_vs_ref, in its order."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((B, S, H, Dk)).astype(np.float32)
+    k = (rng.standard_normal((B, S, H, Dk)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((B, S, H, Dv)).astype(np.float32)
+    w = rng.uniform(w_lo, w_hi, (B, S, H, Dk)).astype(np.float32)
+    u = (rng.standard_normal((H, Dk)) * 0.1).astype(np.float32)
+    return r, k, v, w, u
+
+
+def _chunked_inputs(B, S, H, D, seed=0, logw_lo=-6):
+    """The draws of tests/test_kernels.py::test_rwkv6_chunked_vs_ref:
+    w = exp(-exp(uniform)), with an s0."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = (rng.standard_normal((B, S, H, D)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    w = np.exp(-np.exp(rng.uniform(logw_lo, 1.5, (B, S, H, D))))
+    u = (rng.standard_normal((H, D)) * 0.1).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, D, D)) * 0.1).astype(np.float32)
+    return r, k, v, w.astype(np.float32), u, s0
+
+
+@pytest.mark.parametrize("B,S,H,Dk,Dv", RWKV_CASES)
+def test_rwkv6_matches_pallas(B, S, H, Dk, Dv, jx):
+    arrays = _rkvwu(B, S, H, Dk, Dv)
+    want_o, want_s = jx.rwkv6(*map(jx.a, arrays), interpret=True)
+    before = rwkv6.launches
+    out, s_last = rwkv6.rwkv6_scan(*map(_t, arrays))
+    assert rwkv6.launches == before     # a CPU tensor runs the plain version
+    assert out.shape == (B, S, H, Dv) and out.dtype == torch.float32
+    assert s_last.shape == (B, H, Dk, Dv) and s_last.dtype == torch.float32
+    assert np.abs(_np(out) - _np(want_o)).max() < 1e-5
+    assert np.abs(_np(s_last) - _np(want_s)).max() < 1e-5
+
+
+@pytest.mark.parametrize("B,S,H,Dk,Dv", RWKV_CASES)
+def test_rwkv6_ref_matches_jax_ref(B, S, H, Dk, Dv, jx):
+    arrays = _rkvwu(B, S, H, Dk, Dv, seed=3)
+    s0 = np.random.default_rng(4).standard_normal(
+        (B, H, Dk, Dv)).astype(np.float32)
+    want_o, want_s = jx.ref.rwkv6_ref(*map(jx.a, arrays), s0=jx.a(s0))
+    out, s_last = rwkv6_ref(*map(_t, arrays), s0=_t(s0))
+    assert np.abs(_np(out) - _np(want_o)).max() < 1e-5
+    assert np.abs(_np(s_last) - _np(want_s)).max() < 1e-5
+
+
+def test_rwkv6_state_carry():
+    """tests/test_kernels.py::test_rwkv6_state_carry, through the port's
+    scan: two halves with the state carried equal the whole."""
+    r, k, v, w, u = map(_t, _rkvwu(1, 20, 2, 8, 8, seed=1, w_lo=0.5,
+                                   w_hi=0.95))
+    full, s_full = rwkv6.rwkv6_scan(r, k, v, w, u)
+    o1, s1 = rwkv6.rwkv6_scan(r[:, :10], k[:, :10], v[:, :10], w[:, :10], u)
+    o2, s2 = rwkv6.rwkv6_scan(r[:, 10:], k[:, 10:], v[:, 10:], w[:, 10:], u,
+                              s0=s1)
+    np.testing.assert_allclose(_np(full), np.concatenate(
+        [_np(o1), _np(o2)], axis=1), atol=1e-5)
+    np.testing.assert_allclose(_np(s_full), _np(s2), atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,D,chunk", CHUNKED_CASES)
+def test_rwkv6_chunked_vs_ref(B, S, H, D, chunk):
+    r, k, v, w, u, s0 = map(_t, _chunked_inputs(B, S, H, D))
+    o_ref, s_ref = rwkv6_ref(r, k, v, w, u, s0=s0)
+    o_ch, s_ch = rwkv6_chunked(r, k, v, w, u, s0=s0, chunk=chunk)
+    assert float((o_ref - o_ch).abs().max()) < 5e-4
+    assert float((s_ref - s_ch).abs().max()) < 5e-4
+
+
+@pytest.mark.parametrize("B,S,H,D,chunk", CHUNKED_CASES)
+def test_rwkv6_chunked_matches_jax_chunked(B, S, H, D, chunk, jx):
+    arrays = _chunked_inputs(B, S, H, D, seed=5)
+    want_o, want_s = jx.ref.rwkv6_chunked(*map(jx.a, arrays[:5]),
+                                          s0=jx.a(arrays[5]), chunk=chunk)
+    out, s_last = rwkv6_chunked(*map(_t, arrays[:5]), s0=_t(arrays[5]),
+                                chunk=chunk)
+    assert np.abs(_np(out) - _np(want_o)).max() < 5e-5
+    assert np.abs(_np(s_last) - _np(want_s)).max() < 5e-5
+
+
+def test_rwkv6_chunked_adversarial_decay():
+    """Harsh constant decay channel: the two-level factorisation must not
+    overflow (the failure mode of a single-level log-space split)."""
+    rng = np.random.default_rng(1)
+    B, S, H, D = 1, 128, 2, 16
+    r = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = (rng.standard_normal((B, S, H, D)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    wnp = np.exp(-np.exp(rng.uniform(-6, 1.5, (B, S, H, D))))
+    wnp[..., 0] = np.exp(-np.exp(2.3))    # ~1e-4 decay every step
+    u = (rng.standard_normal((H, D)) * 0.1).astype(np.float32)
+    r, k, v, w, u = map(_t, (r, k, v, wnp.astype(np.float32), u))
+    o_ref, _ = rwkv6_ref(r, k, v, w, u)
+    o_ch, _ = rwkv6_chunked(r, k, v, w, u, chunk=64)
+    assert bool(torch.isfinite(o_ch).all())
+    assert float((o_ref - o_ch).abs().max()) < 5e-4
+
+
+def test_rwkv6_chunked_grad_finite():
+    r, k, v, w, u, _ = _chunked_inputs(1, 64, 2, 8, seed=2, logw_lo=-4)
+    leaves = [_t(a).requires_grad_() for a in (r, k, v, w)]
+    out, _ = rwkv6_chunked(*leaves, _t(u), chunk=32)
+    (out ** 2).mean().backward()
+    for leaf in leaves:
+        assert leaf.grad is not None
+        assert bool(torch.isfinite(leaf.grad).all())
+
+
+@pytest.mark.parametrize("S,picked", [
+    (1, ("ref", None)), (10, ("chunked", 10, 10)), (64, ("chunked", 64, 8)),
+    (128, ("chunked", 64, 8)), (100, ("ref", None))])
+def test_rwkv6_auto_on_the_cpu_keeps_the_jax_choice(monkeypatch, S, picked):
+    calls = []
+    monkeypatch.setattr(ops._ref, "rwkv6_chunked", lambda *a, chunk, subchunk,
+                        **kw: calls.append(("chunked", chunk, subchunk)))
+    monkeypatch.setattr(ops._ref, "rwkv6_ref",
+                        lambda *a, s0=None: calls.append(("ref", s0)))
+    monkeypatch.setattr(ops, "_rwkv6_cuda",
+                        lambda *a: calls.append(("cuda",)))
+    r = torch.zeros((1, S, 2, 8))
+    u = torch.zeros((2, 8))
+    ops.rwkv6(r, r, r, r, u)
+    ops.rwkv6(r, r, r, r, u, impl="cuda")
+    assert calls == [picked, ("cuda",)]
+
+
+def test_rwkv6_rejects_what_the_kernel_cannot_take():
+    r = torch.zeros((1, 4, 2, 8))
+    u = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="parallel"):
+        rwkv6.rwkv6_scan(r, torch.zeros((1, 4, 2, 4)), r, r, u)
+    with pytest.raises(ValueError, match="v must be"):
+        rwkv6.rwkv6_scan(r, r, torch.zeros((1, 3, 2, 8)), r, u)
+    with pytest.raises(ValueError, match="u must be"):
+        rwkv6.rwkv6_scan(r, r, r, r, torch.zeros((8,)))
+    with pytest.raises(ValueError, match="s0 must be"):
+        rwkv6.rwkv6_scan(r, r, r, r, u, s0=torch.zeros((1, 2, 8)))
+    with pytest.raises(TypeError, match="one dtype"):
+        rwkv6.rwkv6_scan(r, r, r.double(), r, u)
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.rwkv6(r, r, r, r, u, impl="pallas")
 
 
 # ---------------------------------------------------------------------- #
@@ -272,3 +428,56 @@ def test_rglru_kernel_matches_plain(B, S, D, bd, dt, with_h0, cuda_device):
     tol = 1e-5 if dt == "float32" else 3e-2
     assert float((h.float() - want_h.float()).abs().max()) < tol
     assert float((last.float() - want_last.float()).abs().max()) < tol
+
+
+def _rwkv_on(device, dtype, B, S, H, Dk, Dv, seed=0):
+    return tuple(_t(a, dtype, device)
+                 for a in _rkvwu(B, S, H, Dk, Dv, seed=seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Dk,Dv,dt", [
+    *(c + ("float32",) for c in RWKV_CASES),
+    (2, 100, 4, 64, 64, "float32"),     # a ragged last round of steps
+    (1, 70, 3, 40, 20, "float32"),      # Dk not a multiple of 16
+    (2, 48, 4, 64, 64, "bfloat16"),
+])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_kernel_matches_plain(B, S, H, Dk, Dv, dt, with_s0,
+                                    cuda_device):
+    """out to 1e-5 (the JAX package's kernel tolerance; bfloat16 2e-2),
+    both relative to max(1, max|out|); S_last exactly: the kernel rounds
+    w*S + kv as the plain version's two operations do."""
+    r, k, v, w, _ = _rwkv_on(cuda_device, dt, B, S, H, Dk, Dv)
+    u = _t(_rkvwu(B, S, H, Dk, Dv)[4], device=cuda_device)
+    s0 = (torch.randn((B, H, Dk, Dv), device=cuda_device)
+          if with_s0 else None)
+    before = rwkv6.launches
+    out, s_last = rwkv6.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert rwkv6.launches == before + 1
+    want_o, want_s = rwkv6.rwkv6_plain(r, k, v, w, u, s0)
+    assert out.dtype == r.dtype and s_last.dtype == torch.float32
+    tol = (1e-5 if dt == "float32" else 2e-2) * max(
+        1.0, float(want_o.float().abs().max()))
+    assert float((out.float() - want_o.float()).abs().max()) < tol
+    assert torch.equal(s_last, want_s)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_decode_step_with_state(cuda_device):
+    """S=1 with s0: the decode shape, as every decode step launches it."""
+    r, k, v, w, _ = _rwkv_on(cuda_device, "float32", 4, 1, 64, 64, 64)
+    u = _t(_rkvwu(4, 1, 64, 64, 64)[4], device=cuda_device)
+    s0 = torch.randn((4, 64, 64, 64), device=cuda_device)
+    out, s_last = ops.rwkv6(r, k, v, w, u, s0=s0)
+    torch.cuda.synchronize()
+    want_o, want_s = rwkv6.rwkv6_plain(r, k, v, w, u, s0)
+    tol = 1e-5 * max(1.0, float(want_o.abs().max()))
+    assert float((out - want_o).abs().max()) < tol
+    assert torch.equal(s_last, want_s)
+    empty = r[:, :0].contiguous()
+    before = rwkv6.launches
+    out, s_last = rwkv6.rwkv6_scan(empty, empty, empty, empty, u, s0)
+    assert rwkv6.launches == before and out.shape == (4, 0, 64, 64)
+    assert torch.equal(s_last, s0)

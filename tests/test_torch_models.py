@@ -1,7 +1,7 @@
 """The port's serving path against the JAX package's model stack.
 
-Reduced recurrentgemma-9b and gemma2-27b (local/global windows, softcap)
-are built by the JAX package, their weights carried across with
+Reduced recurrentgemma-9b, gemma2-27b (local/global windows, softcap)
+and rwkv6-7b are built by the JAX package, their weights carried across with
 `repro_torch.models.convert`, and the two packages' `forward` and
 `decode_step` compared on the same tokens: the JAX side with
 `impl="pallas"` (its kernels in interpret mode), the port with
@@ -19,13 +19,13 @@ torch = pytest.importorskip("torch")
 from repro_torch import models  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import rglru  # noqa: E402
+from repro_torch.kernels import rglru, rwkv6  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models import layers  # noqa: E402
 
-SLICE_ARCHS = ["recurrentgemma-9b", "gemma2-27b"]
+SLICE_ARCHS = ["recurrentgemma-9b", "gemma2-27b", "rwkv6-7b"]
 S_FWD = 12
 
 
@@ -82,6 +82,22 @@ def _batch(model, toks, device="cpu"):
     return {"tokens": torch.as_tensor(toks, device=device)}
 
 
+def _launches():
+    return fa.launches, rglru.launches, rwkv6.launches
+
+
+def _zero_launches():
+    fa.launches = rglru.launches = rwkv6.launches = 0
+
+
+def _expected_launches(kinds, steps=1):
+    """(flash attention, RG-LRU, RWKV6) launches of a pass over `kinds`:
+    one per layer of each kind, `steps` times."""
+    n_attn = sum(k not in ("rec", "rwkv") for k in kinds)
+    return (n_attn * steps, kinds.count("rec") * steps,
+            kinds.count("rwkv") * steps)
+
+
 # ---------------------------------------------------------------------- #
 # configs and weights
 # ---------------------------------------------------------------------- #
@@ -132,10 +148,10 @@ def test_initialiser_builds_the_jax_shapes(name, jx):
 @pytest.mark.parametrize("impl", ["cuda", "auto", "chunked"])
 def test_forward_matches_jax(setups, name, impl):
     model, jcfg, _, want = setups(name)
-    before = (fa.launches, rglru.launches)
+    before = _launches()
     logits, aux = models.forward(
         model, _batch(model, _tokens(jcfg.vocab_size)), impl=impl)
-    assert (fa.launches, rglru.launches) == before   # CPU: plain versions
+    assert _launches() == before    # CPU: plain versions
     assert logits.shape == want.shape and float(aux) == 0.0
     assert np.abs(logits.numpy() - want).max() < 1e-4
 
@@ -161,12 +177,17 @@ def test_decode_steps_match_jax(setups, name, jx):
 
 @pytest.mark.parametrize("name,S", [("recurrentgemma-9b", 10),
                                     ("gemma2-27b", 10),
-                                    ("gemma2-27b", 40)])
+                                    ("gemma2-27b", 40),
+                                    ("rwkv6-7b", 10),
+                                    ("rwkv6-7b", 64)])
 def test_decode_matches_forward(setups, name, S):
     """The port's own decode-vs-forward equivalence; gemma2 at S=40
-    decodes past its reduced window of 32 through the ring buffer."""
+    decodes past its reduced window of 32 through the ring buffer, and
+    rwkv6 at S=64 holds decode against a forward that runs the chunked
+    form in 8 sub-blocks (auto on the CPU: chunked for the forward, ref
+    for each step)."""
     model = setups(name)[0]
-    if S > 32:
+    if name == "gemma2-27b" and S > 32:
         assert model.cfg.local_window == 32
     toks = _tokens(model.cfg.vocab_size, B=1, S=S, seed=2)
     ref, _ = models.forward(model, _batch(model, toks))
@@ -249,8 +270,7 @@ def test_text_models_outside_the_slice_run_too():
         assert bool(torch.isfinite(logits).all())
 
 
-@pytest.mark.parametrize("name", ["rwkv6-7b", "dbrx-132b",
-                                  "deepseek-v3-671b",
+@pytest.mark.parametrize("name", ["dbrx-132b", "deepseek-v3-671b",
                                   "seamless-m4t-large-v2"])
 def test_blocks_outside_the_slice_raise(name):
     cfg = reduced_config(get_config(name))
@@ -279,12 +299,10 @@ def test_default_prefill_launches_both_kernels(cuda_device):
     gpu = models.from_jax_params(cfg, models.to_jax_params(model))
     assert gpu.device.type == "cuda"
     toks = _tokens(model.cfg.vocab_size)
-    fa.launches = rglru.launches = 0
+    _zero_launches()
     last, _ = models.prefill(gpu, _batch(gpu, toks, cuda_device), max_len=16)
     torch.cuda.synchronize()
-    kinds = gpu.kinds
-    assert fa.launches == kinds.count("attn")
-    assert rglru.launches == kinds.count("rec")
+    assert _launches() == _expected_launches(gpu.kinds)
     want, _ = models.prefill(model, _batch(model, toks), max_len=16)
     assert float((last.cpu() - want).abs().max()) < 1e-4
 
@@ -292,17 +310,17 @@ def test_default_prefill_launches_both_kernels(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SLICE_ARCHS)
 def test_forward_on_the_card_matches_the_cpu(name, cuda_device):
-    """The kernel path on the card (GQA windows, softcap, head_dim 16)
-    against the plain versions on the host, on the same weights."""
+    """The kernel path on the card (GQA windows, softcap, head_dim 16, the
+    WKV scan) against the plain versions on the host, on the same
+    weights: one launch per layer of each kind."""
     cfg = reduced_config(get_config(name))
     model = models.Model(cfg, device="cpu")
     gpu = models.from_jax_params(cfg, models.to_jax_params(model))
     toks = _tokens(cfg.vocab_size, S=40)
-    fa.launches = rglru.launches = 0
+    _zero_launches()
     got, _ = models.forward(gpu, _batch(gpu, toks, cuda_device))
     torch.cuda.synchronize()
-    assert fa.launches == sum(k != "rec" for k in gpu.kinds)
-    assert rglru.launches == gpu.kinds.count("rec")
+    assert _launches() == _expected_launches(gpu.kinds)
     want, _ = models.forward(model, _batch(model, toks))
     assert float((got.cpu() - want).abs().max()) < 1e-4
 
@@ -315,3 +333,42 @@ def test_launcher_on_the_card(cuda_device):
     last, _ = models.prefill(out["model"], {"tokens": out["prompts"]},
                              max_len=12)
     assert float((out["last_logits"] - last).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_rwkv6_prefill_makes_one_launch_per_layer(cuda_device):
+    """A reduced rwkv6-7b prefill on the card makes `n_layers` WKV
+    launches and no other kernel's, and agrees with the host."""
+    cfg = reduced_config(get_config("rwkv6-7b"))
+    model = models.Model(cfg, device="cpu")
+    gpu = models.from_jax_params(cfg, models.to_jax_params(model))
+    toks = _tokens(cfg.vocab_size, S=70)
+    _zero_launches()
+    last = make_prefill_step(cfg)(gpu, _batch(gpu, toks, cuda_device))
+    torch.cuda.synchronize()
+    assert _launches() == (0, 0, cfg.n_layers)
+    want = make_prefill_step(cfg)(model, _batch(model, toks))
+    assert float((last.cpu() - want).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_rwkv6_decode_on_the_card_launches_the_kernel(cuda_device):
+    """Each decode step launches the kernel once per layer with the cached
+    state as s0, and the logits agree with the host's per-step form."""
+    cfg = reduced_config(get_config("rwkv6-7b"))
+    model = models.Model(cfg, device="cpu")
+    gpu = models.from_jax_params(cfg, models.to_jax_params(model))
+    S = 8
+    toks = _tokens(cfg.vocab_size, S=S, seed=3)
+    cache = models.init_cache(model, 2, max_len=S)
+    gcache = models.init_cache(gpu, 2, max_len=S)
+    _zero_launches()
+    errs = []
+    for t in range(S):
+        want, cache = models.decode_step(model, cache,
+                                         torch.as_tensor(toks[:, t]), t)
+        got, gcache = models.decode_step(
+            gpu, gcache, torch.as_tensor(toks[:, t], device=cuda_device), t)
+        errs.append(float((got.cpu() - want).abs().max()))
+    assert _launches() == _expected_launches(gpu.kinds, steps=S)
+    assert max(errs) < 1e-4, errs

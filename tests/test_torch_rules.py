@@ -202,24 +202,50 @@ def test_model_stack_asks_for_the_card_and_raises_without_one(no_gpu):
 
 def test_model_kernels_have_no_path_to_the_plain_version(monkeypatch):
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, rglru
+    from repro_torch.kernels import ops, rglru, rwkv6
 
     def no_plain(*args, **kw):
         raise AssertionError("the plain version ran for a non-CPU tensor")
 
     monkeypatch.setattr(fa, "flash_attention_plain", no_plain)
     monkeypatch.setattr(rglru, "rglru_plain", no_plain)
-    monkeypatch.setattr(ops._ref, "attention_ref", no_plain)
-    monkeypatch.setattr(ops._ref, "rglru_ref", no_plain)
+    monkeypatch.setattr(rwkv6, "rwkv6_plain", no_plain)
+    for name in ("attention_ref", "rglru_ref", "rwkv6_ref"):
+        monkeypatch.setattr(ops._ref, name, no_plain)
     q = torch.ones((1, 4, 2, 16), device="meta")
     x = torch.ones((1, 4, 16), device="meta")
-    before = (fa.launches, rglru.launches)
+    u = torch.ones((2, 16), device="meta")
+    before = (fa.launches, rglru.launches, rwkv6.launches)
+    for impl in ("cuda", "auto"):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            ops.attention(q, q, q, impl=impl)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            ops.rglru(x, x, impl=impl)
+        for S in (4, 1):        # prefill and decode
+            r = q[:, :S]
+            with pytest.raises(ValueError, match="CPU or CUDA"):
+                ops.rwkv6(r, r, r, r, u, impl=impl)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        ops.attention(q, q, q, impl="cuda")
-    with pytest.raises(ValueError, match="CPU or CUDA"):
         rglru.rglru_scan(x, x)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        ops.rglru(x, x, impl="cuda")
-    assert (fa.launches, rglru.launches) == before
+        rwkv6.rwkv6_scan(q, q, q, q, u,
+                         s0=torch.ones((1, 2, 16, 16), device="meta"))
+    assert (fa.launches, rglru.launches, rwkv6.launches) == before
+
+
+def test_rwkv6_model_builds_and_serves_on_the_cpu():
+    """rwkv6-7b is in the slice: it builds, and the launcher serves it
+    reduced on the CPU through the plain versions."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import rwkv6
+    from repro_torch.launch import serve
+    cfg = reduced_config(get_config("rwkv6-7b"))
+    model = models.Model(cfg, device="cpu")
+    assert model.kinds == ["rwkv"] * cfg.n_layers
+    before = rwkv6.launches
+    out = serve.serve(cfg, batch=2, prompt_len=4, gen=3, device="cpu")
+    assert out["generated"].shape == (2, 3)
+    assert rwkv6.launches == before

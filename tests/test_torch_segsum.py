@@ -210,7 +210,7 @@ def test_build_flags_keep_ieee_adds():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "--fmad=false" in flags and "fast_math" not in flags
     assert [s.rsplit("/", 1)[-1] for s in _build.sources()] == [
-        "flash_attention.cu", "rglru.cu", "segsum.cu"]
+        "flash_attention.cu", "rglru.cu", "rwkv6.cu", "segsum.cu"]
 
 
 # deeper randomized search when the [test] extra is installed ----------- #
