@@ -11,7 +11,8 @@ Phases, each reported on its own line(s):
 3. kernels: the segment-sum kernel against its plain version and
    `np.add.at`, exactly, on float64 and int64 layouts (empty segments,
    one segment of millions of elements, p, p+1 and p^2+1 segments at
-   p=1024, a random sorted layout from a fixed seed);
+   p=1024, a random sorted layout from a fixed seed, segments of 31 to
+   34 values around the kernel's short/long threshold);
 4. partition path: `run_pipeline(..., backend="cuda")` on the
    n=3,000,000 power-law graph (5,528,199 edges) at p=1024 and p=64,
    held against the port's host engine `backend="fast"` (cut, replica
@@ -44,10 +45,13 @@ Phases, each reported on its own line(s):
 10. rwkv6-7b serving path: the launcher at its defaults, exactly
    (32 + 32) x 32 = 2,048 RWKV6 launches (one per layer and decode step,
    with the cached state as s0), prefill vs prompt replay (1e-3);
-11. timing: each kernel, its plain version and, where one exists, one
-   PyTorch call computing the same function (timed only, as a
-   yardstick) at the main paths' largest shapes, then one JSON line
-   `{"kernels": [...]}` with all four kernels.
+11. timing: each kernel and, where one exists, one PyTorch call
+   computing the same function (timed only, as a yardstick) on the
+   card's clock (CUDA events after a sleep that lets the host queue
+   every call first), and its plain version on the host's clock, at the
+   main paths' largest shapes; then one JSON line `{"kernels": [...]}`
+   with all four kernels (flash attention's bound on the tensor cores,
+   and on the CUDA cores as `bound_cuda_core_ms`).
 
 The last line is `{"ok": true, "device": {...}}`.  Any failure raises
 and the script exits non-zero before that line.  It imports nothing of
@@ -68,10 +72,13 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM3; 34 TFLOP/s float64 and
-# 67 TFLOP/s float32 outside the tensor cores (the kernels' arithmetic)
+# 67 TFLOP/s float32 outside the tensor cores; dense tensor cores 495
+# TFLOP/s TF32 and 989 TFLOP/s bf16
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_OPS_PER_S = 34e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_TF32_OPS_PER_S = 495e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 ARCH = "recurrentgemma-9b"
 N_PARAMS = 9_396_195_328
@@ -169,6 +176,9 @@ def _layouts(rng: np.random.Generator):
     nseg = 200_003
     lens = rng.geometric(0.02, size=nseg) * (rng.random(nseg) < 0.6)
     yield "random-runs", np.repeat(np.arange(nseg), lens), nseg
+    # runs of 31..34 values, a short segment's most being 32
+    lens = rng.integers(31, 35, 100_000) * (rng.random(100_000) < 0.9)
+    yield "lengths-31-to-34", np.repeat(np.arange(100_000), lens), 100_000
 
 
 def phase_kernel_vs_plain() -> float:
@@ -573,10 +583,15 @@ def phase_rwkv_kernel_vs_plain() -> float:
 # 11. timing of the segment sum at the partition path's largest shapes
 # ---------------------------------------------------------------------- #
 def _cuda_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: CUDA events around `reps` calls, after a
+    warm-up.  The card first sleeps ~0.1 s, so the host has queued every
+    call before the card reaches the first: the events measure the card's
+    work, not the host's dispatch of a call that takes microseconds."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -648,10 +663,13 @@ def phase_timing(runs: dict, max_abs_err: float) -> dict:
 # ---------------------------------------------------------------------- #
 # 11b. timing of the model kernels at the serving shapes
 # ---------------------------------------------------------------------- #
-def _fa_bound(case) -> tuple[float, str]:
+def _fa_bound(case) -> tuple[float, str, float]:
     """Least time for one flash attention call: its unmasked (query, key)
-    pairs at 4*D float32 operations each over the float32 peak, against
-    q, k, v read once and the output written once over the memory rate."""
+    pairs at 4*D operations each on the tensor cores (float32 as three
+    TF32 products, the split that meets the float32 tolerance; bf16 at the
+    bf16 rate), against q, k, v read once and the output written once over
+    the memory rate.  Also the operations' time on the CUDA cores' float32
+    peak, the bound of the kernel's first, CUDA-core design."""
     B, Sq, Sk, Hq, Hkv, D, causal, window, _, dt = case
     pos = np.arange(Sq)[:, None]
     kp = np.arange(Sk)[None, :]
@@ -663,9 +681,12 @@ def _fa_bound(case) -> tuple[float, str]:
     pairs = int(ok.sum()) * B * Hq
     size = torch.tensor([], dtype=getattr(torch, dt)).element_size()
     nbytes = size * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
-    t_ops = 4 * D * pairs / PEAK_F32_OPS_PER_S * 1e3
+    ops = 4 * D * pairs
+    t_ops = (3 * ops / PEAK_TF32_OPS_PER_S if dt == "float32"
+             else ops / PEAK_BF16_OPS_PER_S) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+            "bytes", ops / PEAK_F32_OPS_PER_S * 1e3)
 
 
 def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
@@ -687,7 +708,7 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=10)
-    bound_ms, bound_by = _fa_bound(FA_MAIN)
+    bound_ms, bound_by, cuda_core_ms = _fa_bound(FA_MAIN)
     fa_entry = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -695,6 +716,7 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
         "launches": prefill["launches"]["flash_attention"],
         "max_abs_err": errs["flash_attention"], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_cuda_core_ms": cuda_core_ms,
         "library_ms": library_ms,
         "shape": "q [2,3072,16,256] k/v [2,3072,1,256] float32, causal, "
                  "window 2048",

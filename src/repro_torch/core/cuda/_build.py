@@ -115,8 +115,8 @@ def load_library() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         f32 = ctypes.c_float
         signatures = {
-            # data, ids, m, out, num_segments, stream
-            ("segsum_f64", "segsum_i64"): [vp, vp, i64, vp, i64, vp],
+            # data, ids, m, out, num_segments, scratch, stream
+            ("segsum_f64", "segsum_i64"): [vp, vp, i64, vp, i64, vp, vp],
             # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, has_window,
             # window, has_softcap, softcap, scale, q_offset, stream
             ("flash_attention_f32", "flash_attention_bf16"):
@@ -136,5 +136,8 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = argtypes
+        # m, num_segments -> int64 elements of segsum scratch
+        lib.segsum_scratch_len.restype = i64
+        lib.segsum_scratch_len.argtypes = [i64, i64]
         _lib = lib
     return _lib

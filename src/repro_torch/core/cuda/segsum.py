@@ -17,8 +17,10 @@ same stream, for float64 and int64 alike.  `validate=True` checks the
 sort and range contract (a debug aid: a violation otherwise misreduces
 silently).
 
-`launches` counts the kernel launches made by `segment_sum`; a run sets
-it to 0 and reads it back to show that a path went through the kernel.
+`launches` counts the calls of `segment_sum` that reach the card, one per
+call: the kernel runs as up to two launches (one pass over the stream,
+then the long segments), counted once.  A run sets it to 0 and reads it
+back to show that a path went through the kernel.
 """
 from __future__ import annotations
 
@@ -56,11 +58,15 @@ def _launch(data: torch.Tensor, segment_ids: torch.Tensor,
         raise ValueError(f"segment_sum takes CPU or CUDA tensors, "
                          f"not {data.device.type!r}")
     fn = lib.segsum_f64 if data.dtype == torch.float64 else lib.segsum_i64
+    m = data.numel()
     out = torch.empty(num_segments, dtype=data.dtype, device=data.device)
+    # the long segments' ends and list, written by the kernel itself
+    scratch = torch.empty(lib.segsum_scratch_len(m, num_segments),
+                          dtype=torch.int64, device=data.device)
     with torch.cuda.device(data.device):   # launch on the tensors' card
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(data.data_ptr(), segment_ids.data_ptr(), data.numel(),
-                out.data_ptr(), num_segments, stream)
+        rc = fn(data.data_ptr(), segment_ids.data_ptr(), m, out.data_ptr(),
+                num_segments, scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"segsum kernel launch failed: CUDA error {rc}")
     launches += 1

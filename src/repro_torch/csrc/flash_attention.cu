@@ -8,40 +8,77 @@
 // package's layout, read in place with row strides Hq*D and Hkv*D; nothing
 // is repeated or transposed in device memory),
 // out[b, i, h] = softmax_j(s_ij) . v[b, j, h']
-// with h' = h / (Hq / Hkv) (GQA), s_ij = (q_i * scale) . k_j, then the
+// with h' = h / (Hq / Hkv) (GQA), s_ij = (q_i . k_j) * scale, then the
 // optional tanh softcap s = tanh(s / cap) * cap, then the mask: j < Sk,
 // j <= pos_i when causal, j > pos_i - window when windowed, where
 // pos_i = q_offset + i.  A masked score is -1e30, not -inf, as in the TPU
 // kernel; the softmax is the online one (running max m, running sum l and
 // the accumulator, all float32), and a row whose sum is 0 divides by 1.
-// float32 or bfloat16 in, float32 inside, out in the input's type.
+// k tiles wholly outside the causal / window band of a q tile are not
+// visited: the TPU kernel visits them, and its rescale
+// alpha = exp(m_prev - m_new) wipes what they added (or they add exactly
+// 0), so the result is the same.  Rows of the k and v tiles past Sk are
+// zeros (0 * garbage would be NaN).  float32 or bfloat16 in, float32
+// inside, out in the input's type.
 //
-// Design.  The TPU grid walks (batch, head, q block, k block) with the k
-// axis sequential and the softmax state in VMEM scratch.  Here one block
-// of 256 threads owns one (batch, head, 64-row q tile) and loops over the
-// k tiles (32 keys each) itself.  The q tile (pre-scaled) and one k and v
-// tile live in shared memory as float32, rows padded by 4 floats so that
-// the float4 reads of 8 neighbouring threads fall in distinct banks.  At
-// head_dim 256 that is 142 KB, above the 48 KB static limit, so it is
-// dynamic shared memory, raised per instantiation with
-// cudaFuncSetAttribute.  Thread (ty, tx) of the 16 x 16 layout owns rows
-// 4*ty .. 4*ty+3 of the tile: their scores against keys tx and tx + 16,
-// their softmax state (replicated across the 16 threads of a half warp,
-// which reduce row max and row sum with shuffles), and D/16 columns of
-// their output accumulator in registers.  Products use fmaf explicitly, so
-// the library's --fmad=false does not split them.  k tiles wholly outside
-// the causal / window band of the q tile are not visited: the TPU kernel
-// visits them, and its rescale alpha = exp(m_prev - m_new) wipes what they
-// added (or they add exactly 0), so the result is the same.  Rows of the
-// k and v tiles past Sk are loaded as zeros (0 * garbage would be NaN).
+// Bound.  Every unmasked (query, key) pair costs 4*D operations (two
+// products of length D).  On the tensor cores that is, at the serving
+// shape (B=2, S=3072, 16 heads, 1 kv head, head_dim 256, window 2048),
+// 1.4e11 operations; float32 needs three TF32 products for each (below),
+// so 4.1e11 over 495 TFLOP/s = 0.83 ms.  On the CUDA cores (the previous
+// design) the same work is 2.05 ms at 67 TFLOP/s.
 //
-// Bound.  At the serving shape (head_dim 256, window 2048, one kv head)
-// the kernel is bound by operations: every unmasked (query, key) pair
-// costs 4*D float32 multiply-adds on the CUDA cores (the TPU's MXU work;
-// this simple kernel uses no tensor cores), about 1.4e11 operations a
-// layer at B=2, S=3072, against 67 TFLOP/s; it reads q once and k, v once
-// per q tile (from L2: one kv head serves all 16 heads).  The inner loops
-// are shared-memory-bandwidth limited at about half the FMA rate.
+// Previous design (CUDA cores): 256 threads per (batch, head, 64-row q
+// tile), float32 FMAs on the CUDA cores limited by shared-memory
+// bandwidth, synchronous K/V loads and three __syncthreads per 32-key
+// tile, 142 KB of shared memory at head_dim 256: 6.85 ms at the serving
+// shape (H100 80GB HBM3, 700 W; PERF.md).
+//
+// This design:
+// - Tensor cores through mma.sync.  A warp owns 16 q rows; S = Q K^T and
+//   O += P V are m16n8 tiles.  bfloat16: m16n8k16 with float32
+//   accumulators.  float32: split TF32 ("3xTF32"): each operand x is
+//   split into hi = cvt.rna.tf32(x) (two integer operations) and lo =
+//   x - hi, which the tensor core reads rounded toward zero, and a
+//   product is hi*hi + hi*lo + lo*hi (m16n8k8), which keeps errors near
+//   float32's (plain TF32 misses the 2e-5 tolerance at head_dim 256;
+//   tests/test_torch_kernels.py emulates both) at a third of the TF32
+//   rate.  The splits, not the mma, are most of the instructions: every
+//   warp splits every K and V element it reads.  S's hi*hi terms and
+//   its two small terms go to separate accumulators, so the three
+//   products of a tile do not wait on each other.
+// - Fragments without shuffles.  The order of the contraction index
+//   inside one mma is free, so it is permuted to suit the loads: for
+//   S = Q K^T, float32 k index t <-> d 2t and t+4 <-> 2t+1 (bf16:
+//   (2t, 2t+1) <-> (4t, 4t+1) and (2t+8, 2t+9) <-> (4t+2, 4t+3)), so the
+//   Q and K fragments are single 8-byte shared loads; for O += P V,
+//   float32 k index t <-> key 2t and t+4 <-> key 2t+1, so S's accumulator
+//   fragment is P's operand fragment as it stands (bf16: the standard
+//   pairing).  The output columns of two neighbouring n tiles interleave
+//   (tile 2c column g <-> d 16c+2g, tile 2c+1 <-> 16c+2g+1), so one
+//   8-byte (4-byte in bf16) load of a V row serves both, and each thread
+//   ends up owning 4 consecutive output columns: one 16-byte store.
+// - Shared-memory rows are padded so that every fragment load of a warp
+//   touches 32 distinct banks: Q and K rows by 32 bytes (a word stride
+//   of 8 mod 32), V rows by 16 bytes (4 mod 32).
+// - Asynchronous copies.  The block's Q tile and K/V tiles come in with
+//   cp.async (16 bytes per copy, zero-filled past Sq or Sk); K/V tiles are
+//   double-buffered: after the one __syncthreads of a tile, tile t+1 is
+//   requested into the other buffer and tile t is computed while it
+//   loads.
+// - Masks only where needed: a k tile inside the band for all of a warp's
+//   rows skips the per-score position tests.
+// - q tiles are walked last to first, so the causal tiles with the most
+//   keys start first and the short ones fill the tail.
+// - Warp layout, decided at head_dim 256 in float32 (the pinch) by
+//   tools/fa_sweep.py (PERF.md has its table): 8 warps of 16 rows (a
+//   128-row q tile) and 16-key tiles.  The 16 x 256 accumulator is 128 of
+//   a thread's 237 registers; Q (132 KB) and two K/V buffers (66 KB) take
+//   198 KB of shared memory, so one block of 8 warps per SM: two warps
+//   per scheduler hide more of the mma and load latency than 4 warps
+//   with 32-key tiles (one per scheduler), which in turn beat 2 warps.
+//   The loop over head_dim that forms S is unrolled 8 times: faster than
+//   2 or 4 in the same sweep, level with 32 at fewer registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -Xcompiler -fPIC -c, then linked -shared (see
@@ -52,70 +89,303 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;      // q rows per block
-constexpr int kBlockK = 32;      // keys per k tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kPad = 4;          // floats of padding per tile row
-constexpr int kLdP = kBlockK + 4;  // row stride of the probability tile
+constexpr int kWarps = 8;               // warps per block, 16 q rows each
+constexpr int kBlockK = 16;             // keys per k tile
+constexpr int kBlockQ = 16 * kWarps;    // q rows per block
+constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
+static_assert(kBlockK % 16 == 0, "bf16 P.V takes 16 keys per mma");
+
+// ------------------------------------------------------------------ //
+// PTX wrappers
+// ------------------------------------------------------------------ //
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    const int n = valid ? 16 : 0;   // 0: fill the 16 bytes with zeros
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// cvt.rna.tf32.f32 for finite x that do not round past the float32 range:
+// the magnitude rounded to 10 mantissa bits, ties away from zero.  Two
+// integer operations, where the PTX instruction compiles to a sequence
+// that also handles infinities and NaN (which no operand here is).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi a TF32 value, x - hi exact in float32.  lo is passed
+// with all its bits; the tensor core reads a TF32 operand's top 19 bits,
+// so it takes lo rounded toward zero (CUTLASS's "fast" 3xTF32 does the
+// same).  That drops 2 of 5 instructions a split against rounding lo to
+// nearest, and moves the product's error from about 2^-22 to 2^-21 of
+// |x| (tests/test_torch_kernels.py emulates both).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rna(x);
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------------ //
+// Fragment layouts of m16n8kK (lane = 4*g + t): A rows g and g+8, B
+// column g, C (row g: c0, c1; row g+8: c2, c3) columns 2t and 2t+1.
+// ------------------------------------------------------------------ //
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<float> {
+    // s[j] = Q K^T for keys 8j..8j+7: qw is the warp's 16 rows, ks the k
+    // tile; contraction index t <-> d 2t, t+4 <-> d 2t+1
+    template <int D, int Ld>
+    __device__ __forceinline__ static void scores(const float* qw,
+                                                  const float* ks, int g,
+                                                  int t,
+                                                  float s[kBlockK / 8][4]) {
+        float small[kBlockK / 8][4];
+#pragma unroll
+        for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] = 0.f;
+                small[j][e] = 0.f;
+            }
+        }
+#pragma unroll 8
+        for (int d0 = 0; d0 < D; d0 += 8) {
+            const float2 q0 =
+                *reinterpret_cast<const float2*>(qw + g * Ld + d0 + 2 * t);
+            const float2 q1 = *reinterpret_cast<const float2*>(
+                qw + (g + 8) * Ld + d0 + 2 * t);
+            uint32_t ah[4], al[4];
+            split(q0.x, ah[0], al[0]);
+            split(q1.x, ah[1], al[1]);
+            split(q0.y, ah[2], al[2]);
+            split(q1.y, ah[3], al[3]);
+#pragma unroll
+            for (int j = 0; j < kBlockK / 8; ++j) {
+                const float2 kv = *reinterpret_cast<const float2*>(
+                    ks + (8 * j + g) * Ld + d0 + 2 * t);
+                uint32_t bh[2], bl[2];
+                split(kv.x, bh[0], bl[0]);
+                split(kv.y, bh[1], bl[1]);
+                mma_tf32(s[j], ah, bh);
+                mma_tf32(small[j], ah, bl);
+                mma_tf32(small[j], al, bh);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] += small[j][e];
+            }
+        }
+    }
+
+    // o += P V: p[j] holds S's fragment of keys 8j..8j+7 (k index
+    // t <-> key 2t, t+4 <-> key 2t+1); o[2c], o[2c+1] are the interleaved
+    // column tiles of d 16c..16c+15
+    template <int D, int Ld>
+    __device__ __forceinline__ static void pv(const float p[kBlockK / 8][4],
+                                              const float* vs, int g, int t,
+                                              float o[D / 8][4]) {
+#pragma unroll
+        for (int j = 0; j < kBlockK / 8; ++j) {
+            uint32_t ah[4], al[4];
+            split(p[j][0], ah[0], al[0]);
+            split(p[j][2], ah[1], al[1]);
+            split(p[j][1], ah[2], al[2]);
+            split(p[j][3], ah[3], al[3]);
+            const float* v0 = vs + (8 * j + 2 * t) * Ld + 2 * g;
+#pragma unroll
+            for (int c = 0; c < D / 16; ++c) {
+                const float2 x0 =
+                    *reinterpret_cast<const float2*>(v0 + 16 * c);
+                const float2 x1 =
+                    *reinterpret_cast<const float2*>(v0 + Ld + 16 * c);
+                uint32_t bh[2], bl[2];
+                split(x0.x, bh[0], bl[0]);
+                split(x1.x, bh[1], bl[1]);
+                mma_tf32(o[2 * c], al, bh);
+                mma_tf32(o[2 * c], ah, bl);
+                mma_tf32(o[2 * c], ah, bh);
+                split(x0.y, bh[0], bl[0]);
+                split(x1.y, bh[1], bl[1]);
+                mma_tf32(o[2 * c + 1], al, bh);
+                mma_tf32(o[2 * c + 1], ah, bl);
+                mma_tf32(o[2 * c + 1], ah, bh);
+            }
+        }
+    }
+};
+
+template <>
+struct Mma<__nv_bfloat16> {
+    // contraction index (2t, 2t+1) <-> d (4t, 4t+1), (2t+8, 2t+9) <->
+    // (4t+2, 4t+3) within each 16
+    template <int D, int Ld>
+    __device__ __forceinline__ static void scores(const __nv_bfloat16* qw,
+                                                  const __nv_bfloat16* ks,
+                                                  int g, int t,
+                                                  float s[kBlockK / 8][4]) {
+#pragma unroll
+        for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] = 0.f;
+            }
+        }
+#pragma unroll 4
+        for (int d0 = 0; d0 < D; d0 += 16) {
+            const uint2 q0 =
+                *reinterpret_cast<const uint2*>(qw + g * Ld + d0 + 4 * t);
+            const uint2 q1 = *reinterpret_cast<const uint2*>(
+                qw + (g + 8) * Ld + d0 + 4 * t);
+            const uint32_t a[4] = {q0.x, q1.x, q0.y, q1.y};
+#pragma unroll
+            for (int j = 0; j < kBlockK / 8; ++j) {
+                const uint2 kv = *reinterpret_cast<const uint2*>(
+                    ks + (8 * j + g) * Ld + d0 + 4 * t);
+                const uint32_t b[2] = {kv.x, kv.y};
+                mma_bf16(s[j], a, b);
+            }
+        }
+    }
+
+    template <int D, int Ld>
+    __device__ __forceinline__ static void pv(const float p[kBlockK / 8][4],
+                                              const __nv_bfloat16* vs, int g,
+                                              int t, float o[D / 8][4]) {
+#pragma unroll
+        for (int j = 0; j < kBlockK / 16; ++j) {
+            const uint32_t a[4] = {
+                pack_bf16(p[2 * j][0], p[2 * j][1]),
+                pack_bf16(p[2 * j][2], p[2 * j][3]),
+                pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
+                pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
+            const __nv_bfloat16* v0 = vs + (16 * j + 2 * t) * Ld + 2 * g;
+#pragma unroll
+            for (int c = 0; c < D / 16; ++c) {
+                // rows 2t, 2t+1, 2t+8, 2t+9; low half d 16c+2g, high half
+                // d 16c+2g+1
+                const uint32_t r0 =
+                    *reinterpret_cast<const uint32_t*>(v0 + 16 * c);
+                const uint32_t r1 =
+                    *reinterpret_cast<const uint32_t*>(v0 + Ld + 16 * c);
+                const uint32_t r8 =
+                    *reinterpret_cast<const uint32_t*>(v0 + 8 * Ld + 16 * c);
+                const uint32_t r9 =
+                    *reinterpret_cast<const uint32_t*>(v0 + 9 * Ld + 16 * c);
+                const uint32_t even[2] = {__byte_perm(r0, r1, 0x5410),
+                                          __byte_perm(r8, r9, 0x5410)};
+                const uint32_t odd[2] = {__byte_perm(r0, r1, 0x7632),
+                                         __byte_perm(r8, r9, 0x7632)};
+                mma_bf16(o[2 * c], a, even);
+                mma_bf16(o[2 * c + 1], a, odd);
+            }
+        }
+    }
+};
 
 template <typename T>
-struct Io;
+__device__ __forceinline__ void store4(T* p, float a, float b, float c,
+                                       float d);
 
 template <>
-struct Io<float> {
-    __device__ __forceinline__ static float4 load4(const float* p) {
-        return *reinterpret_cast<const float4*>(p);
-    }
-    __device__ __forceinline__ static void store(float* p, float v) { *p = v; }
-};
+__device__ __forceinline__ void store4<float>(float* p, float a, float b,
+                                              float c, float d) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
 
 template <>
-struct Io<__nv_bfloat16> {
-    __device__ __forceinline__ static float4 load4(const __nv_bfloat16* p) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(p);
-        const float2 lo =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        const float2 hi =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-        return make_float4(lo.x, lo.y, hi.x, hi.y);
-    }
-    __device__ __forceinline__ static void store(__nv_bfloat16* p, float v) {
-        *p = __float2bfloat16(v);  // round to nearest even, as astype does
-    }
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float a, float b,
+                                                      float c, float d) {
+    // round to nearest even, as astype does
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(a, b),
+                                              pack_bf16(c, d));
+}
+
+// Shared-memory layout of one block (elements of T).
+template <typename T, int D>
+struct Tiles {
+    static constexpr int kLdQK = D + 32 / static_cast<int>(sizeof(T));
+    static constexpr int kLdV = D + 16 / static_cast<int>(sizeof(T));
+    static constexpr int kQ = kBlockQ * kLdQK;
+    static constexpr int kK = kBlockK * kLdQK;
+    static constexpr int kStage = kK + kBlockK * kLdV;   // one K and one V
+    static constexpr int kBytes =
+        static_cast<int>(sizeof(T)) * (kQ + 2 * kStage);
 };
 
-// Column of the c-th of the D/16 output columns that thread tx owns.  With
-// D a multiple of 64 they come in float4 groups: 64*g + 4*tx + e.
-template <int D>
-__device__ __forceinline__ int out_col(int tx, int c) {
-    if constexpr (D % 64 == 0) {
-        return (c / 4) * 64 + tx * 4 + (c % 4);
-    } else {
-        return tx + 16 * c;
+// rows [row0, row0 + Rows) of a [S, H*D] matrix into shared memory with
+// row stride Ld, zero-filled from row `valid` on
+template <typename T, int D, int Rows, int Ld>
+__device__ __forceinline__ void load_rows(T* dst, const T* src,
+                                          int64_t stride, int64_t row0,
+                                          int64_t valid) {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // per copy
+    constexpr int kChunks = D / kPer;                         // per row
+    for (int i = threadIdx.x; i < Rows * kChunks; i += kThreads) {
+        const int r = i / kChunks;
+        const int c = (i % kChunks) * kPer;
+        const bool ok = row0 + r < valid;
+        cp_async16(dst + r * Ld + c, src + (ok ? row0 + r : 0) * stride + c,
+                   ok);
     }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out, int64_t Sq,
           int64_t Sk, int Hq, int Hkv, int causal, int has_window,
           int64_t window, int has_softcap, float softcap, float scale,
           int64_t q_offset) {
-    constexpr int kLd = D + kPad;
-    constexpr int kCols = D / 16;
-    constexpr int kVecs = D / 4;  // float4 per row
-    extern __shared__ float4 smem4[];
-    float* qs = reinterpret_cast<float*>(smem4);  // [kBlockQ][kLd]
-    float* ks = qs + kBlockQ * kLd;               // [kBlockK][kLd]
-    float* vs = ks + kBlockK * kLd;               // [kBlockK][kLd]
-    float* ps = vs + kBlockK * kLd;               // [kBlockQ][kLdP]
+    using L = Tiles<T, D>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* qs = reinterpret_cast<T*>(smem_raw);
+    T* stages = qs + L::kQ;
 
-    const int tx = threadIdx.x & 15;
-    const int ty = threadIdx.x >> 4;
-    const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBlockQ;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // the last q tile first: under a causal mask it has the most keys
+    const int64_t q0 =
+        static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kBlockQ;
     const int h = blockIdx.y;
     const int64_t b = blockIdx.z;
     const int hk = h / (Hq / Hkv);
@@ -125,21 +395,6 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* kb = k + (b * Sk * Hkv + hk) * D;
     const T* vb = v + (b * Sk * Hkv + hk) * D;
     T* ob = out + (b * Sq * Hq + h) * D;
-
-    // the q tile, as q * scale in float32 (rows past Sq are zeros)
-    for (int i = threadIdx.x; i < kBlockQ * kVecs; i += kThreads) {
-        const int r = i / kVecs;
-        const int c = (i % kVecs) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q0 + r < Sq) {
-            val = Io<T>::load4(qb + (q0 + r) * q_stride + c);
-            val.x *= scale;
-            val.y *= scale;
-            val.z *= scale;
-            val.w *= scale;
-        }
-        *reinterpret_cast<float4*>(qs + r * kLd + c) = val;
-    }
 
     // the k tiles this q tile can see
     const int64_t rows = (Sq - q0 < kBlockQ) ? (Sq - q0) : kBlockQ;
@@ -156,159 +411,126 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t t_begin = k_begin / kBlockK;
     const int64_t t_end = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
 
-    float m[4], l[4], acc[4][kCols];
+    load_rows<T, D, kBlockQ, L::kLdQK>(qs, qb, q_stride, q0, Sq);
+    if (t_begin < t_end) {
+        const int64_t k0 = t_begin * kBlockK;
+        load_rows<T, D, kBlockK, L::kLdQK>(stages, kb, kv_stride, k0, Sk);
+        load_rows<T, D, kBlockK, L::kLdV>(stages + L::kK, vb, kv_stride, k0,
+                                          Sk);
+    }
+    cp_async_commit();
+
+    // this thread's rows of the tile: r_lo = 16*warp + g and r_lo + 8
+    const int64_t wpos_lo = pos_lo + 16 * warp;   // the warp's first row
+    const int64_t my_pos[2] = {wpos_lo + g, wpos_lo + g + 8};
+    float o[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = kNegInf;
-        l[i] = 0.f;
+    for (int c = 0; c < D / 8; ++c) {
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-            acc[i][c] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+            o[c][e] = 0.f;
         }
     }
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+    const T* qw = qs + 16 * warp * L::kLdQK;
 
-    for (int64_t t = t_begin; t < t_end; ++t) {
-        const int64_t k0 = t * kBlockK;
-        __syncthreads();  // the previous tile's k, v and p are consumed
-        for (int i = threadIdx.x; i < kBlockK * kVecs; i += kThreads) {
-            const int r = i / kVecs;
-            const int c = (i % kVecs) * 4;
-            float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-            float4 vv = kv;
-            if (k0 + r < Sk) {
-                kv = Io<T>::load4(kb + (k0 + r) * kv_stride + c);
-                vv = Io<T>::load4(vb + (k0 + r) * kv_stride + c);
-            }
-            *reinterpret_cast<float4*>(ks + r * kLd + c) = kv;
-            *reinterpret_cast<float4*>(vs + r * kLd + c) = vv;
-        }
-        __syncthreads();
-
-        // scores of rows 4*ty+i against keys tx and tx+16
-        float s[4][2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            s[i][0] = 0.f;
-            s[i][1] = 0.f;
-        }
-#pragma unroll 4
-        for (int d = 0; d < D; d += 4) {
-            const float4 k0v = *reinterpret_cast<const float4*>(ks + tx * kLd + d);
-            const float4 k1v =
-                *reinterpret_cast<const float4*>(ks + (tx + 16) * kLd + d);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float4 qv =
-                    *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * kLd + d);
-                s[i][0] = fmaf(qv.x, k0v.x, s[i][0]);
-                s[i][0] = fmaf(qv.y, k0v.y, s[i][0]);
-                s[i][0] = fmaf(qv.z, k0v.z, s[i][0]);
-                s[i][0] = fmaf(qv.w, k0v.w, s[i][0]);
-                s[i][1] = fmaf(qv.x, k1v.x, s[i][1]);
-                s[i][1] = fmaf(qv.y, k1v.y, s[i][1]);
-                s[i][1] = fmaf(qv.z, k1v.z, s[i][1]);
-                s[i][1] = fmaf(qv.w, k1v.w, s[i][1]);
-            }
+    for (int64_t kt = t_begin; kt < t_end; ++kt) {
+        const int64_t k0 = kt * kBlockK;
+        T* ks = stages + ((kt - t_begin) & 1) * L::kStage;
+        const T* vs = ks + L::kK;
+        cp_async_wait_all();
+        __syncthreads();   // tile kt is in; every warp is done with kt-1
+        if (kt + 1 < t_end) {   // tile kt+1 loads while kt is computed
+            T* nxt = stages + ((kt + 1 - t_begin) & 1) * L::kStage;
+            load_rows<T, D, kBlockK, L::kLdQK>(nxt, kb, kv_stride,
+                                               k0 + kBlockK, Sk);
+            load_rows<T, D, kBlockK, L::kLdV>(nxt + L::kK, vb, kv_stride,
+                                              k0 + kBlockK, Sk);
+            cp_async_commit();
         }
 
-        // softcap, mask, and the online softmax update of each row
+        float s[kBlockK / 8][4];
+        Mma<T>::template scores<D, L::kLdQK>(qw, ks, g, t, s);
+
+        // scale, softcap and mask; a tile inside the band for every row
+        // of the warp needs no position tests
+        const bool inside =
+            k0 + kBlockK <= Sk &&
+            (!causal || k0 + kBlockK - 1 <= wpos_lo) &&
+            (!has_window || k0 > wpos_lo + 15 - window);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int64_t pos = pos_lo + ty * 4 + i;
-            float mx = kNegInf;
+        for (int j = 0; j < kBlockK / 8; ++j) {
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                const int64_t kp = k0 + tx + 16 * j;
-                float val = s[i][j];
+            for (int e = 0; e < 4; ++e) {
+                float val = s[j][e] * scale;
                 if (has_softcap) {
                     val = tanhf(val / softcap) * softcap;
                 }
-                bool ok = kp < Sk;
-                if (causal) {
-                    ok = ok && kp <= pos;
+                if (!inside) {
+                    const int64_t kp = k0 + 8 * j + 2 * t + (e & 1);
+                    const int64_t pos = my_pos[e >> 1];
+                    bool ok = kp < Sk;
+                    if (causal) {
+                        ok = ok && kp <= pos;
+                    }
+                    if (has_window) {
+                        ok = ok && kp > pos - window;
+                    }
+                    val = ok ? val : kNegInf;
                 }
-                if (has_window) {
-                    ok = ok && kp > pos - window;
-                }
-                s[i][j] = ok ? val : kNegInf;
-                mx = fmaxf(mx, s[i][j]);
+                s[j][e] = val;
             }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1) {
-                mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
-            }
-            const float m_new = fmaxf(m[i], mx);
-            const float p0 = expf(s[i][0] - m_new);
-            const float p1 = expf(s[i][1] - m_new);
-            float sum = p0 + p1;
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1) {
-                sum += __shfl_xor_sync(kFullMask, sum, off);
-            }
-            const float alpha = expf(m[i] - m_new);
-            l[i] = alpha * l[i] + sum;
-            m[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-                acc[i][c] *= alpha;
-            }
-            ps[(ty * 4 + i) * kLdP + tx] = p0;
-            ps[(ty * 4 + i) * kLdP + tx + 16] = p1;
         }
-        __syncthreads();
 
-        // acc += p . v over the tile's keys, four keys at a time
-#pragma unroll 2
-        for (int kk = 0; kk < kBlockK; kk += 4) {
-            float p[4][4];
+        // the online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3),
+        // each spread over the 4 threads of a quad
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float4 pv =
-                    *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * kLdP + kk);
-                p[i][0] = pv.x;
-                p[i][1] = pv.y;
-                p[i][2] = pv.z;
-                p[i][3] = pv.w;
+        for (int r = 0; r < 2; ++r) {
+            float mx = kNegInf;
+#pragma unroll
+            for (int j = 0; j < kBlockK / 8; ++j) {
+                mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
             }
+            mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 2));
+            const float m_new = fmaxf(m[r], mx);
+            float sum = 0.f;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float* vrow = vs + (kk + e) * kLd;
-                if constexpr (D % 64 == 0) {
+            for (int j = 0; j < kBlockK / 8; ++j) {
+                s[j][2 * r] = expf(s[j][2 * r] - m_new);
+                s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_new);
+                sum += s[j][2 * r] + s[j][2 * r + 1];
+            }
+            sum += __shfl_xor_sync(kFullMask, sum, 1);
+            sum += __shfl_xor_sync(kFullMask, sum, 2);
+            const float alpha = expf(m[r] - m_new);
+            l[r] = alpha * l[r] + sum;
+            m[r] = m_new;
 #pragma unroll
-                    for (int g = 0; g < kCols / 4; ++g) {
-                        const float4 vv =
-                            *reinterpret_cast<const float4*>(vrow + g * 64 + tx * 4);
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) {
-                            acc[i][4 * g + 0] = fmaf(p[i][e], vv.x, acc[i][4 * g + 0]);
-                            acc[i][4 * g + 1] = fmaf(p[i][e], vv.y, acc[i][4 * g + 1]);
-                            acc[i][4 * g + 2] = fmaf(p[i][e], vv.z, acc[i][4 * g + 2]);
-                            acc[i][4 * g + 3] = fmaf(p[i][e], vv.w, acc[i][4 * g + 3]);
-                        }
-                    }
-                } else {
-#pragma unroll
-                    for (int c = 0; c < kCols; ++c) {
-                        const float vv = vrow[out_col<D>(tx, c)];
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) {
-                            acc[i][c] = fmaf(p[i][e], vv, acc[i][c]);
-                        }
-                    }
-                }
+            for (int c = 0; c < D / 8; ++c) {
+                o[c][2 * r] *= alpha;
+                o[c][2 * r + 1] *= alpha;
             }
         }
+
+        Mma<T>::template pv<D, L::kLdV>(s, vs, g, t, o);
     }
+    cp_async_wait_all();   // no copy outlives the block (no k tile: Q's)
 
+    // thread (g, t) owns columns 16c + 4t .. 16c + 4t + 3 of rows g, g+8
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int64_t r = q0 + ty * 4 + i;
-        if (r < Sq) {
-            const float denom = (l[i] == 0.f) ? 1.f : l[i];
+    for (int r = 0; r < 2; ++r) {
+        const int64_t row = q0 + 16 * warp + g + 8 * r;
+        if (row < Sq) {
+            const float denom = (l[r] == 0.f) ? 1.f : l[r];
+            T* dst = ob + row * q_stride + 4 * t;
 #pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-                Io<T>::store(ob + r * q_stride + out_col<D>(tx, c),
-                             acc[i][c] / denom);
+            for (int c = 0; c < D / 16; ++c) {
+                store4<T>(dst + 16 * c, o[2 * c][2 * r] / denom,
+                          o[2 * c + 1][2 * r] / denom,
+                          o[2 * c][2 * r + 1] / denom,
+                          o[2 * c + 1][2 * r + 1] / denom);
             }
         }
     }
@@ -319,12 +541,11 @@ int launch(const T* q, const T* k, const T* v, T* out, int64_t B, int64_t Sq,
            int64_t Sk, int64_t Hq, int64_t Hkv, int causal, int has_window,
            int64_t window, int has_softcap, float softcap, float scale,
            int64_t q_offset, void* stream) {
-    constexpr int kLd = D + kPad;
-    const int smem = static_cast<int>(
-        sizeof(float) * (kBlockQ * kLd + 2 * kBlockK * kLd + kBlockQ * kLdP));
+    const int smem = Tiles<T, D>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
         fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) {
+    if (err != cudaSuccess) {   // returned here, so cleared for later calls
+        cudaGetLastError();
         return static_cast<int>(err);
     }
     const dim3 grid(static_cast<unsigned>((Sq + kBlockQ - 1) / kBlockQ),
@@ -367,7 +588,7 @@ extern "C" {
 
 // Each entry launches on `stream` without synchronising and returns a CUDA
 // error code: 0 when the launch was accepted.  head_dim must be 16, 32,
-// 64, 128 or 256.
+// 64, 128 or 256; q, k, v and out 16-byte aligned.
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* out, int64_t B, int64_t Sq, int64_t Sk,
                         int64_t Hq, int64_t Hkv, int64_t D, int causal,

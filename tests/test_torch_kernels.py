@@ -175,6 +175,93 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take():
 
 
 # ---------------------------------------------------------------------- #
+# flash attention, CPU: the split-TF32 arithmetic of the float32 kernel
+# ---------------------------------------------------------------------- #
+def _tf32_rna(x):
+    """`cvt.rna.tf32.f32` on float32 bits: round the magnitude to 10
+    mantissa bits, ties away from zero (finite inputs)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
+        np.float32)
+
+
+def _tf32_rz(x):
+    """What the tensor core reads of a float32 register given as a TF32
+    operand: its top 19 bits, i.e. the value rounded toward zero."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _split_tf32(x, lo_round=_tf32_rna):
+    hi = _tf32_rna(x)
+    return hi, lo_round((x - hi).astype(np.float32))
+
+
+def _mm_3xtf32(a, b, lo_round=_tf32_rna):
+    """a @ b.T as the kernel's float32 path forms it: hi*hi + (hi*lo +
+    lo*hi) with TF32 operands (their products are exact in float32) and
+    float32 sums."""
+    ah, al = _split_tf32(a, lo_round)
+    bh, bl = _split_tf32(b, lo_round)
+    return ah @ bh.T + (ah @ bl.T + al @ bh.T)
+
+
+def _mm_1xtf32(a, b):
+    return _tf32_rna(a) @ _tf32_rna(b).T
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)            # TF32's at 1.0
+    x = np.array([1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11, -(1 + 2.0 ** -11),
+                  1 + 2.0 ** -12, 1 + 2.0 ** -11 + 2.0 ** -20, 3.0],
+                 np.float32)
+    want = np.array([one + ulp, one + 2 * ulp, -(one + ulp), one,
+                     one + ulp, 3.0], np.float32)
+    np.testing.assert_array_equal(_tf32_rna(x), want)
+    np.testing.assert_array_equal(
+        _tf32_rz(x), np.array([one, one + ulp, -one, one, one, 3.0],
+                              np.float32))
+    hi, lo = _split_tf32(x)
+    np.testing.assert_array_equal(hi.astype(np.float64) + lo, x)
+    assert not (hi.view(np.uint32) & 0x1fff).any()
+    assert not (lo.view(np.uint32) & 0x1fff).any()
+
+
+@pytest.mark.parametrize("lo_round", ["nearest", "toward_zero"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_tf32_meets_the_float32_tolerance_where_tf32_does_not(
+        seed, lo_round):
+    """Attention at head_dim 256 over a 2,048-key window (the serving
+    shape's), with both products (scores and P.V) on TF32 operands: the
+    split form stays within FA_TOL["float32"] (2e-5) of a float64
+    evaluation, one TF32 product per operand pair does not.  The kernel
+    passes lo unrounded, which the tensor core reads rounded toward zero;
+    rounding it to nearest is the textbook split."""
+    rounding = {"nearest": _tf32_rna, "toward_zero": _tf32_rz}[lo_round]
+    D, keys, rows = 256, 2048, 8
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((rows, D)).astype(np.float32)
+    k = rng.standard_normal((keys, D)).astype(np.float32)
+    v = rng.standard_normal((keys, D)).astype(np.float32)
+    scale = np.float32(D ** -0.5)
+
+    def attention(mm):
+        s = mm(q, k) * scale
+        p = np.exp(s - s.max(axis=1, keepdims=True)).astype(np.float32)
+        return mm(p, v.T) / p.sum(axis=1, keepdims=True)
+
+    s64 = q.astype(np.float64) @ k.T.astype(np.float64) * float(scale)
+    p64 = np.exp(s64 - s64.max(axis=1, keepdims=True))
+    want = p64 @ v / p64.sum(axis=1, keepdims=True)
+    split_err = np.abs(attention(
+        lambda a, b: _mm_3xtf32(a, b, rounding)) - want).max()
+    single_err = np.abs(attention(_mm_1xtf32) - want).max()
+    assert split_err < TOL["float32"] / 20, split_err
+    assert single_err > TOL["float32"], single_err
+
+
+# ---------------------------------------------------------------------- #
 # RG-LRU, CPU: the port against the Pallas kernel
 # ---------------------------------------------------------------------- #
 RGLRU_CASES = [
@@ -411,6 +498,36 @@ def test_flash_attention_kernel_matches_plain(case, cuda_device):
                                     softcap=cap)
     assert got.device.type == "cuda" and got.dtype == q.dtype
     assert float((got.float() - want.float()).abs().max()) < TOL[dt], case
+
+
+# (Sq, Sk, Hq, Hkv, causal, window, softcap, q_offset): edges of the
+# 64-row q tile and 32-key k tile
+FA_EDGES = [
+    (77, 77, 2, 1, True, None, None, 0),        # Sq, Sk not tile multiples
+    (20, 9, 2, 2, False, None, None, 0),        # Sk shorter than one tile
+    (100, 100, 4, 2, True, 7, None, 0),         # window smaller than a tile
+    (70, 130, 2, 1, True, 48, 30.0, 60),        # softcap, static q_offset
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", FA_EDGES)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_flash_attention_kernel_every_head_dim(D, dt, edge, cuda_device):
+    Sq, Sk, Hq, Hkv, causal, window, cap, q_offset = edge
+    q, k, v = (_t(a, dt, cuda_device) for a in _qkv(
+        (2, Sq, Sk, Hq, Hkv, D), seed=D))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cap, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    softcap=cap, q_offset=q_offset)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err < TOL[dt], (D, dt, edge, err)
 
 
 @pytest.mark.cuda

@@ -273,3 +273,51 @@ def test_kernel_counts_launches_and_keyed_sum(cuda_device):
     assert segsum.launches == before + 1
     np.testing.assert_array_equal(
         got.cpu().numpy(), np.bincount(keys, weights=vals, minlength=1025))
+
+
+STRESS = ["one-1e6-segment-among-empties", "p^2-with-empty-runs",
+          "lengths-around-32", "leading-trailing-empties", "segments>>m"]
+
+
+def _stress_layout(name):
+    """(sorted ids, num_segments): the shapes that stress the kernel's
+    bounds pass and its short/long fold (32 values at most are short)."""
+    rng = np.random.default_rng(21)
+    if name == "one-1e6-segment-among-empties":
+        return np.full(10**6, 777, np.int64), 2000
+    if name == "p^2-with-empty-runs":
+        # p^2 segments at p=1024, about 2 values each, with runs of
+        # thousands of empty segments
+        nseg = 1024 * 1024
+        ids = np.sort(rng.integers(0, nseg, 2 * nseg))
+        return ids[(ids // 4096) % 3 != 1], nseg
+    if name == "lengths-around-32":
+        lens = np.array([1, 31, 32, 33, 34, 63, 64, 65, 255, 256, 257, 513,
+                         0, 2, 5000])
+        lens = np.concatenate([lens, rng.permutation(np.tile(lens, 20))])
+        return np.repeat(np.arange(len(lens)) * 2, lens), 2 * len(lens)
+    if name == "leading-trailing-empties":
+        return np.sort(rng.integers(300, 700, 50_000)), 1000
+    assert name == "segments>>m"
+    return np.sort(rng.integers(0, 10**7, 1000)), 10**7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", STRESS)
+@pytest.mark.parametrize("dtype", [np.float64, np.int64])
+def test_kernel_on_layouts_that_stress_its_design(name, dtype, cuda_device):
+    ids, nseg = _stress_layout(name)
+    rng = np.random.default_rng(len(ids))
+    if dtype is np.float64:
+        data = rng.standard_normal(len(ids)) * np.pi
+    else:
+        data = rng.integers(-2**62, 2**62, len(ids))   # sums wrap around
+    d, i = _t(data).to(cuda_device), _t(ids).to(cuda_device)
+    before = segsum.launches
+    got = segment_sum(d, i, nseg, validate=True)
+    torch.cuda.synchronize()
+    assert segsum.launches == before + 1
+    assert torch.equal(got.cpu(), segsum.segment_sum_plain(d, i, nseg).cpu())
+    want = np.zeros(nseg, dtype)
+    np.add.at(want, ids, data)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
