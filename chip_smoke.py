@@ -21,9 +21,13 @@ Phases, each reported on its own line(s):
    around each run;
 5. model kernels: flash attention on the shapes of the JAX package's
    `FA_CASES` and at the serving shape (B=2, S=3072, 16 heads, 1 kv head,
-   head_dim 256, causal, window 2048), and the RG-LRU scan at the serving
-   shape (B=2, S=3072, D=4096, with and without h0) and at D=96, each
-   against its plain version (float32 2e-5, bfloat16 2e-2, RG-LRU 1e-5);
+   head_dim 256, causal, window 2048) against its plain version (float32
+   2e-5, bfloat16 2e-2); the RG-LRU scan at the serving shape (B=2,
+   S=3072, D=4096) and on layouts that stress its ring (D of 33, 96 and
+   4,096 by S of 1, 33 and 3,071; a view that is not 16-byte aligned; in
+   bfloat16), with and without h0, h and h_last equal to the plain
+   version's bit for bit in float32 and within 3e-2 in bfloat16, and at
+   S=1 with x = 1 on every float a in [0, 1] (its gate, bit for bit);
 6. prefill path: recurrentgemma-9b at full width and depth (9,396,195,328
    float32 parameters from a seeded generator) runs `make_prefill_step`
    on 2 prompts of 3,072 tokens, with the launch counts of both kernels
@@ -35,7 +39,9 @@ Phases, each reported on its own line(s):
 8. RWKV6 kernel: the WKV scan against its plain version on the shapes
    of the JAX package's `test_rwkv6_kernel_vs_ref` (1e-5), at the
    prefill shape (B=2, S=4096, H=64, Dk=Dv=64) with and without s0, at
-   the decode shape (B=4, S=1, with s0), both with out within
+   the decode shape (B=4, S=1, with s0) and on layouts that stress its
+   register tiles (Dk of 8, 40 and 64 by Dv of 20, 24 and 64, 33 steps,
+   with s0; Dk 40 by Dv 24 in bfloat16, one step), all with out within
    1e-5·max(1, max|out|), and in bfloat16 (2e-2·max(1, max|out|));
    S_last exactly equal everywhere;
 9. rwkv6-7b prefill path, after the recurrentgemma-9b model is freed: at
@@ -49,9 +55,11 @@ Phases, each reported on its own line(s):
    computing the same function (timed only, as a yardstick) on the
    card's clock (CUDA events after a sleep that lets the host queue
    every call first), and its plain version on the host's clock, at the
-   main paths' largest shapes; then one JSON line `{"kernels": [...]}`
-   with all four kernels (flash attention's bound on the tensor cores,
-   and on the CUDA cores as `bound_cuda_core_ms`).
+   main paths' largest shapes, with RG-LRU also timed with h0 (`ms_h0`)
+   and RWKV6 also at its decode shape with s0 (`ms_decode`, the launch
+   the launcher makes 2,048 times); then one JSON line `{"kernels":
+   [...]}` with all four kernels (flash attention's bound on the tensor
+   cores, and on the CUDA cores as `bound_cuda_core_ms`).
 
 The last line is `{"ok": true, "device": {...}}`.  Any failure raises
 and the script exits non-zero before that line.  It imports nothing of
@@ -92,6 +100,11 @@ RWKV_MAIN = (RWKV_PREFILL_B, RWKV_PREFILL_S, 64, 64, 64)
 RWKV_DECODE = (4, 1, 64, 64, 64)
 RWKV_CASES = [(2, 32, 2, 16, 16), (1, 48, 4, 32, 32), (1, 16, 1, 8, 24)]
 RWKV_BF16 = (2, 256, 64, 64, 64)
+# layouts that stress the kernel's register tiles: Dk short of and at its
+# 64 rows by Dv short of a block's 64 columns, over 33 steps (a ragged
+# last round)
+RWKV_STRESS = [(1, 33, 2, Dk, Dv) for Dk in (8, 40, 64)
+               for Dv in (20, 24, 64)]
 RWKV_TOL = 1e-5
 RWKV_BF16_TOL = 2e-2
 PREFILL_B, PREFILL_S = 2, 3072
@@ -111,7 +124,16 @@ FA_CASES = [
     (1, 128, 128, 6, 3, 32, True, 32, 30.0, "float32"),
 ]
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-RG_TOL = 1e-5
+# RG-LRU: float32 is held bit for bit; bfloat16 to this
+RG_BF16_TOL = 3e-2
+# (B, S, D, dtype): the serving shape, then layouts that stress the ring:
+# D ragged, 16-byte aligned but not a multiple of 32, and full; S of one
+# step, shorter than a tile, one short of a tile multiple
+RG_CASES = [RG_MAIN + ("float32",)] + [
+    (2 if D == 4096 else 1, S, D, "float32") for D in (33, 96, 4096)
+    for S in (1, 33, 3071)] + [
+    (1, 33, 33, "bfloat16"), (2, 3071, 96, "bfloat16"),
+    (2, 3072, 4096, "bfloat16")]
 SERVE_TOL = 1e-3
 
 GRAPH_N, GRAPH_ALPHA, GRAPH_SEED = 3_000_000, 2.2, 0
@@ -299,17 +321,40 @@ def _fa_inputs(case, seed: int = 0):
                                (B, Sk, Hkv, D)))
 
 
-def _rg_inputs(B: int, S: int, D: int, seed: int = 0):
+def _rg_inputs(B: int, S: int, D: int, seed: int = 0,
+               dtype=torch.float32, offset: int = 0):
+    """x normal, a uniform(0.05, 0.99) (the JAX package's test draws), h0
+    normal; x and a start `offset` elements into their storage."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((B, S, D), generator=g, device="cuda")
-    a = torch.rand((B, S, D), generator=g, device="cuda") * 0.94 + 0.05
+    n = B * S * D
+    x = torch.randn(n + offset, generator=g, device="cuda")
+    a = torch.rand(n + offset, generator=g, device="cuda") * 0.94 + 0.05
     h0 = torch.randn((B, D), generator=g, device="cuda")
-    return x, a, h0
+    return (x.to(dtype)[offset:].view(B, S, D),
+            a.to(dtype)[offset:].view(B, S, D), h0)
+
+
+def _rg_check(x, a, h0, what: str) -> float:
+    """The RG-LRU kernel against its plain version: bit for bit in
+    float32, within RG_BF16_TOL in bfloat16; returns the largest error."""
+    from repro_torch.kernels import rglru
+    h, last = rglru.rglru_scan(x, a, h0)
+    torch.cuda.synchronize()
+    want_h, want_last = rglru.rglru_plain(x, a, h0)
+    check(h.dtype == x.dtype and h.shape == x.shape
+          and last.dtype == x.dtype, f"rglru {what}: dtype or shape")
+    err = max(float((h.float() - want_h.float()).abs().max()),
+              float((last.float() - want_last.float()).abs().max()))
+    if x.dtype == torch.float32:
+        check(torch.equal(h, want_h) and torch.equal(last, want_last),
+              f"rglru {what}: not bit for bit the plain version ({err!r})")
+    else:
+        check(err <= RG_BF16_TOL, f"rglru {what}: error {err!r}")
+    return err
 
 
 def phase_model_kernels_vs_plain() -> dict:
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru
     worst = {}
     for case in FA_CASES + [FA_MAIN]:
         causal, window, cap, dt = case[6:]
@@ -328,20 +373,30 @@ def phase_model_kernels_vs_plain() -> dict:
         log(f"kernel flash_attention {case}: max abs error {err!r} "
             f"(tolerance {FA_TOL[dt]})")
         del q, k, v, got, want
-    for B, S, D in (RG_MAIN, (1, 33, 96)):
-        x, a, h0 = _rg_inputs(B, S, D)
-        for init in (None, h0):
-            h, last = rglru.rglru_scan(x, a, init)
-            torch.cuda.synchronize()
-            want_h, want_last = rglru.rglru_plain(x, a, init)
-            err = max(float((h - want_h).abs().max()),
-                      float((last - want_last).abs().max()))
-            check(err <= RG_TOL, f"rglru {B, S, D}: error {err!r}")
-            if (B, S, D) == RG_MAIN:
-                worst["rglru"] = max(worst.get("rglru", 0.0), err)
-            log(f"kernel rglru B={B} S={S} D={D} "
-                f"h0={'given' if init is not None else 'none'}: max abs "
-                f"error {err!r} (tolerance {RG_TOL})")
+    for B, S, D, dt in RG_CASES:
+        for offset in ((0, 1) if (B, S, D) == RG_MAIN else (0,)):
+            x, a, h0 = _rg_inputs(B, S, D, dtype=getattr(torch, dt),
+                                  offset=offset)
+            for init in (None, h0):
+                what = (f"B={B} S={S} D={D} {dt} h0="
+                        f"{'given' if init is not None else 'none'}"
+                        f"{' one element into its storage' if offset else ''}")
+                err = _rg_check(x, a, init, what)
+                if (B, S, D, dt) == RG_MAIN + ("float32",):
+                    worst["rglru"] = max(worst.get("rglru", 0.0), err)
+                log(f"kernel rglru {what}: "
+                    + ("h and h_last equal to the plain version"
+                       if dt == "float32" else
+                       f"max abs error {err!r} (tolerance {RG_BF16_TOL})"))
+            del x, a, h0
+    # the gate of every float a in [0, 1] (and -0.5, 1.5, 2): S = 1, x = 1
+    a = torch.arange(0, 0x3F800001, dtype=torch.int32, device="cuda")
+    a = torch.cat([a.view(torch.float32), torch.tensor(
+        [-0.5, 1.5, 2.0], device="cuda")]).view(1, 1, -1)
+    _rg_check(torch.ones_like(a), a, None, "every a in [0, 1]")
+    log(f"kernel rglru gate of every float a in [0, 1] ({a.numel()} "
+        f"values): equal to the plain version")
+    del a
     torch.cuda.empty_cache()
     return worst
 
@@ -548,7 +603,9 @@ def phase_rwkv_kernel_vs_plain() -> float:
     cases = ([(c, torch.float32, False, False) for c in RWKV_CASES]
              + [(RWKV_MAIN, torch.float32, s0, True) for s0 in (False, True)]
              + [(RWKV_DECODE, torch.float32, True, True),
-                (RWKV_BF16, torch.bfloat16, True, True)])
+                (RWKV_BF16, torch.bfloat16, True, True)]
+             + [(c, torch.float32, True, True) for c in RWKV_STRESS]
+             + [((2, 1, 3, 40, 24), torch.bfloat16, True, True)])
     worst = 0.0
     for shape, dtype, with_s0, relative in cases:
         r, k, v, w, u, s0 = _rwkv_inputs(*shape, dtype=dtype)
@@ -727,8 +784,9 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
     torch.cuda.empty_cache()
 
     B, S, D = RG_MAIN
-    x, a, _ = _rg_inputs(B, S, D)
+    x, a, h0 = _rg_inputs(B, S, D)
     ms = _cuda_ms(lambda: rglru.rglru_scan(x, a), reps=10)
+    ms_h0 = _cuda_ms(lambda: rglru.rglru_scan(x, a, h0), reps=10)
     plain_ms = _host_ms(lambda: rglru.rglru_plain(x, a))
     n = B * S * D
     t_bytes = 4 * (3 * n + B * D) / PEAK_BYTES_PER_S * 1e3
@@ -738,8 +796,8 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
         "source": "src/repro_torch/csrc/rglru.cu",
         "replaces": "src/repro/kernels/rglru.py:25",
         "launches": prefill["launches"]["rglru"],
-        "max_abs_err": errs["rglru"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
+        "max_abs_err": errs["rglru"], "ms": ms, "ms_h0": ms_h0,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "library": "none: no single PyTorch call computes the recurrence",
@@ -750,6 +808,7 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
         log(f"timing {e['name']} at {e['shape']}: kernel {e['ms']!r} ms, "
             f"plain {e['plain_ms']!r} ms, bound {e['bound_ms']!r} ms "
             f"({e['bound_by']}), library {e['library_ms']!r} ms")
+    log(f"timing rglru with h0: kernel {ms_h0!r} ms")
     return [fa_entry, rg_entry]
 
 
@@ -767,6 +826,9 @@ def _rwkv_bound(B: int, S: int, H: int, Dk: int, Dv: int,
 
 def phase_rwkv_timing(prefill: dict, serve: dict, err: float) -> dict:
     from repro_torch.kernels import ref, rwkv6
+    r, k, v, w, u, s0 = _rwkv_inputs(*RWKV_DECODE)
+    ms_decode = _cuda_ms(lambda: rwkv6.rwkv6_scan(r, k, v, w, u, s0),
+                         reps=200)
     r, k, v, w, u, _ = _rwkv_inputs(*RWKV_MAIN)
     ms = _cuda_ms(lambda: rwkv6.rwkv6_scan(r, k, v, w, u), reps=10)
     plain_ms = _host_ms(lambda: rwkv6.rwkv6_plain(r, k, v, w, u))
@@ -783,6 +845,8 @@ def phase_rwkv_timing(prefill: dict, serve: dict, err: float) -> dict:
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "library": "none: no single PyTorch call computes the recurrence",
+        "ms_decode": ms_decode,
+        "decode_shape": "r, k, v, w [4,1,64,64] float32, s0 [4,64,64,64]",
         "chunked_ms": chunked_ms,
         "chunked": "rwkv6_chunked (chunk 64, sub-blocks of 8) on the card, "
                    "host clock",
@@ -791,7 +855,8 @@ def phase_rwkv_timing(prefill: dict, serve: dict, err: float) -> dict:
                     "elementwise ops per time step)"}
     log(f"timing rwkv6 at {entry['shape']}: kernel {ms!r} ms, plain "
         f"{plain_ms!r} ms, chunked {chunked_ms!r} ms, bound {bound_ms!r} "
-        f"ms ({bound_by}), library none")
+        f"ms ({bound_by}), library none; at {entry['decode_shape']}: "
+        f"kernel {ms_decode!r} ms")
     del r, k, v, w
     torch.cuda.empty_cache()
     return entry

@@ -11,7 +11,11 @@ inside the kernel, in float32; on a CPU tensor it runs the plain version,
 cannot take raises.
 
 What the kernel takes: x and a of one dtype, float32 or bfloat16,
-contiguous, on one card; h0, when given, is read as float32.
+contiguous, on one card; h0, when given, is read as float32.  It streams
+rows as 16-byte copies when D * itemsize is a multiple of 16 and x, a and
+h are 16-byte aligned, and element by element otherwise (the kernel's
+launch picks the path); h and h_last equal the plain version's bit for
+bit in float32.
 
 `launches` counts the kernel launches; a run sets it to 0 and reads it
 back to show that a path went through the kernel.

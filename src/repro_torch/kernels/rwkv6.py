@@ -30,7 +30,7 @@ __all__ = ["rwkv6_scan", "rwkv6_plain"]
 
 launches = 0
 
-# the kernel keeps Dk / 8 rows of a state column in each of 8 lanes
+# the kernel tiles 64 rows of the state over the lanes of a column group
 MAX_DK = 64
 
 _ENTRIES = {torch.float32: "rwkv6_f32", torch.bfloat16: "rwkv6_bf16"}

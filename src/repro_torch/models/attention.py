@@ -4,7 +4,7 @@ The port of `repro.models.attention`.  `GQA` provides:
   init(gen, cfg, dtype)                              -> params
   apply(p, cfg, x, positions, window, impl)          -> y          (full seq)
   apply_bidirectional(p, cfg, x, positions, impl)    -> y          (encoder)
-  init_cache(cfg, batch, max_len, window, dtype, device) -> cache  (decode)
+  init_cache(cfg, batch, max_len, window, dtype, *, device) -> cache  (decode)
   apply_decode(p, cfg, x, cache, pos, window)        -> y, cache   (one token)
 
 Caches for windowed layers are ring buffers of size min(window, max_len).
@@ -81,8 +81,8 @@ class GQA:
     # -- decode ---------------------------------------------------------- #
     @staticmethod
     def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-                   window: int | None = None, dtype=torch.float32,
-                   device="cpu") -> dict:
+                   window: int | None = None, dtype=torch.float32, *,
+                   device) -> dict:
         W = min(window, max_len) if window else max_len
         shape = (batch, W, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -98,9 +98,9 @@ def _block_apply(p, cfg: ModelConfig, kind: str, h, positions,
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  dtype, device) -> dict:
     if kind == "rwkv":
-        return RWKV6Block.init_cache(cfg, batch, dtype, device)
+        return RWKV6Block.init_cache(cfg, batch, dtype, device=device)
     if kind == "rec":
-        return RGLRUBlock.init_cache(cfg, batch, dtype, device)
+        return RGLRUBlock.init_cache(cfg, batch, dtype, device=device)
     return GQA.init_cache(cfg, batch, max_len, window=_window_for(cfg, kind),
                           dtype=dtype, device=device)
 

@@ -82,8 +82,8 @@ class RGLRUBlock:
 
     # -- decode ---------------------------------------------------------- #
     @staticmethod
-    def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                   device="cpu") -> dict:
+    def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, *,
+                   device) -> dict:
         rw = cfg.rglru_width or cfg.d_model
         return {
             "h": torch.zeros((batch, rw), dtype=torch.float32,

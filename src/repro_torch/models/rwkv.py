@@ -118,8 +118,8 @@ class RWKV6Block:
 
     # -- decode ---------------------------------------------------------- #
     @staticmethod
-    def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                   device="cpu") -> dict:
+    def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, *,
+                   device) -> dict:
         H, hd = cfg.n_heads, cfg.head_dim
         d = cfg.d_model
         return {

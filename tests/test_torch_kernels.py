@@ -479,6 +479,102 @@ def test_rwkv6_rejects_what_the_kernel_cannot_take():
 
 
 # ---------------------------------------------------------------------- #
+# RWKV6, CPU: the arithmetic of the register-tiled CUDA kernel
+# ---------------------------------------------------------------------- #
+def _fmaf(a, b, c):
+    """`fmaf` in float32: a*b is exact in float64, the sum is rounded to
+    float64 and then to float32 (one fma, up to double rounding)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _pairwise(x):
+    """Sum over the last dim as ((x0 + x1) + (x2 + x3)) + ..., in float32."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _rwkv6_kernel_arithmetic(r, k, v, w, u, s0=None, rows=8):
+    """`csrc/rwkv6.cu`'s operations in its order, float32 on the CPU.
+
+    Dk is padded to the kernel's 64 rows with zeros; lane `l` of a column
+    group holds rows l*rows .. l*rows + rows - 1.  Per step the lane sums
+    r*S_old over its rows (a product, then fmaf row by row) and updates S
+    as w*S + kv (two rounded operations); the shuffle tree adds the lanes'
+    sums pairwise, ((l0 + l1) + (l2 + l3)) + ....  The u term,
+    sum_rows (r*u)*k, is summed pairwise over the 64 rows by the staging
+    threads, and out = fmaf(v, u term, the lanes' total)."""
+    B, S, H, Dk = r.shape
+    Dv = v.shape[-1]
+    lanes = 64 // rows
+
+    def padded(x):      # [..., Dk] -> [..., 64]
+        return torch.nn.functional.pad(x.float(), (0, 64 - Dk))
+
+    rp, kp, wp, up = padded(r), padded(k), padded(w), padded(u)
+    vf = v.float()
+    state = torch.zeros((B, H, 64, Dv))
+    if s0 is not None:
+        state[:, :, :Dk] = s0.float()
+    state = state.reshape(B, H, lanes, rows, Dv)
+    out = torch.empty((B, S, H, Dv))
+    for t in range(S):
+        rr, kr, wr = (x[:, t].reshape(B, H, lanes, rows)
+                      for x in (rp, kp, wp))
+        vv = vf[:, t, :, None, :]                      # [B, H, 1, Dv]
+        acc = rr[..., 0, None] * state[:, :, :, 0]     # [B, H, lanes, Dv]
+        for i in range(rows):
+            old = state[:, :, :, i]
+            if i:
+                acc = _fmaf(rr[..., i, None], old, acc)
+            state[:, :, :, i] = wr[..., i, None] * old + kr[..., i, None] * vv
+        total = _pairwise(acc.transpose(2, 3))         # [B, H, Dv]
+        u_term = _pairwise(rp[:, t] * up * kp[:, t])   # [B, H]
+        out[:, t] = _fmaf(vf[:, t], u_term[..., None], total)
+    return out, state.reshape(B, H, 64, Dv)[:, :, :Dk].contiguous()
+
+
+def _rwkv6_f64(r, k, v, w, u, s0=None):
+    """The recurrence evaluated in float64."""
+    B, S, H, Dk = r.shape
+    rd, kd, vd, wd = (x.double() for x in (r, k, v, w))
+    ud = u.double()[None, :, :, None]
+    state = (torch.zeros((B, H, Dk, v.shape[-1]), dtype=torch.float64)
+             if s0 is None else s0.double())
+    out = []
+    for t in range(S):
+        kv = kd[:, t, :, :, None] * vd[:, t, :, None, :]
+        out.append(torch.einsum("bhk,bhkv->bhv", rd[:, t], state + ud * kv))
+        state = wd[:, t, :, :, None] * state + kv
+    return torch.stack(out, dim=1), state
+
+
+@pytest.mark.parametrize("rows", [8, 4])     # the source's tile, another
+@pytest.mark.parametrize("B,S,H,Dk,Dv,with_s0", [
+    (1, 256, 64, 64, 64, False),
+    (1, 256, 64, 64, 64, True),
+    (2, 64, 3, 40, 20, True),       # rows and columns the tiles mask
+])
+def test_rwkv6_kernel_arithmetic_meets_the_tolerance(B, S, H, Dk, Dv,
+                                                     with_s0, rows):
+    """The kernel's output arithmetic (lane partial sums over contiguous
+    rows, the v * sum r u k term folded in, the shuffle tree) stays within
+    1e-5 * max(1, max|out|) of a float64 evaluation and of `rwkv6_ref`, on
+    the draws of the JAX package's kernel test; its state update equals
+    `rwkv6_ref`'s S_last bit for bit."""
+    r, k, v, w, u = map(_t, _rkvwu(B, S, H, Dk, Dv, seed=7))
+    s0 = (_t(np.random.default_rng(8).standard_normal(
+        (B, H, Dk, Dv)).astype(np.float32)) if with_s0 else None)
+    got_o, got_s = _rwkv6_kernel_arithmetic(r, k, v, w, u, s0, rows)
+    ref_o, ref_s = rwkv6_ref(r, k, v, w, u, s0=s0)
+    f64_o, _ = _rwkv6_f64(r, k, v, w, u, s0)
+    assert torch.equal(got_s, ref_s)
+    tol = 1e-5 * max(1.0, float(f64_o.abs().max()))
+    assert float((got_o.double() - f64_o).abs().max()) < tol
+    assert float((got_o - ref_o).abs().max()) < tol
+
+
+# ---------------------------------------------------------------------- #
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------- #
 @pytest.mark.cuda
@@ -530,21 +626,69 @@ def test_flash_attention_kernel_every_head_dim(D, dt, edge, cuda_device):
     assert err < TOL[dt], (D, dt, edge, err)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,D,bd,dt", RGLRU_CASES + [
-    (2, 300, 4096, 128, "float32")])
-@pytest.mark.parametrize("with_h0", [False, True])
-def test_rglru_kernel_matches_plain(B, S, D, bd, dt, with_h0, cuda_device):
-    x, a = (_t(t, dt, cuda_device) for t in _xa(B, S, D))
-    h0 = torch.randn((B, D), device=cuda_device) if with_h0 else None
+# (B, S, D, dtype): D of a ragged, an unaligned and a full row; S of one
+# step, shorter than a tile and one short of a tile multiple
+RGLRU_STRESS = [(2 if D == 4096 else 1, S, D, "float32")
+                for D in (33, 96, 4096) for S in (1, 33, 3071)] + [
+    (1, 33, 33, "bfloat16"), (2, 3071, 96, "bfloat16"),
+    (2, 33, 4096, "bfloat16"), (1, 1, 4096, "bfloat16")]
+
+
+def _rglru_on_card(x, a, h0, dt):
+    """Run the kernel once and hold it to the plain version: float32 bit
+    for bit (the kernel rounds each operation as the plain version does),
+    bfloat16 within 3e-2."""
     before = rglru.launches
     h, last = rglru.rglru_scan(x, a, h0)
     torch.cuda.synchronize()
     assert rglru.launches == before + 1
     want_h, want_last = rglru.rglru_plain(x, a, h0)
-    tol = 1e-5 if dt == "float32" else 3e-2
-    assert float((h.float() - want_h.float()).abs().max()) < tol
-    assert float((last.float() - want_last.float()).abs().max()) < tol
+    assert h.dtype == x.dtype and last.dtype == x.dtype
+    if dt == "float32":
+        assert torch.equal(h, want_h) and torch.equal(last, want_last)
+    else:
+        assert float((h.float() - want_h.float()).abs().max()) < 3e-2
+        assert float((last.float() - want_last.float()).abs().max()) < 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,bd,dt", RGLRU_CASES + [
+    (2, 300, 4096, 128, "float32")] + [
+    (B, S, D, 0, dt) for B, S, D, dt in RGLRU_STRESS])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_kernel_matches_plain(B, S, D, bd, dt, with_h0, cuda_device):
+    x, a = (_t(t, dt, cuda_device) for t in _xa(B, S, D))
+    h0 = torch.randn((B, D), device=cuda_device) if with_h0 else None
+    _rglru_on_card(x, a, h0, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rglru_kernel_on_an_unaligned_view(dt, cuda_device):
+    """x and a one element into their storage: contiguous, but not 16-byte
+    aligned, so the kernel takes its element-wise path."""
+    B, S, D = 2, 70, 4096
+    xs, as_ = (np.concatenate([[0.5], t.ravel()]).astype(np.float32)
+               for t in _xa(B, S, D, seed=3))
+    x = _t(xs, dt, cuda_device)[1:].view(B, S, D)
+    a = _t(as_, dt, cuda_device)[1:].view(B, S, D)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _rglru_on_card(x, a, torch.randn((B, D), device=cuda_device), dt)
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_gate_is_exact_for_every_a(cuda_device):
+    """S = 1, x = 1, h0 = 0: h is the kernel's gate sqrt(clip(1 - a^2, 0,
+    1)), whose square root is branch-free and not sqrtf.  It equals the
+    plain version's for every float a in [0, 1] and for -0.5, 1.5 and 2."""
+    a = torch.arange(0, 0x3F800001, dtype=torch.int32, device=cuda_device)
+    a = torch.cat([a.view(torch.float32), torch.tensor(
+        [-0.5, 1.5, 2.0], device=cuda_device)]).view(1, 1, -1)
+    x = torch.ones_like(a)
+    h, last = rglru.rglru_scan(x, a)
+    torch.cuda.synchronize()
+    want_h, want_last = rglru.rglru_plain(x, a)
+    assert torch.equal(h, want_h) and torch.equal(last, want_last)
 
 
 def _rwkv_on(device, dtype, B, S, H, Dk, Dv, seed=0):
@@ -558,6 +702,13 @@ def _rwkv_on(device, dtype, B, S, H, Dk, Dv, seed=0):
     (2, 100, 4, 64, 64, "float32"),     # a ragged last round of steps
     (1, 70, 3, 40, 20, "float32"),      # Dk not a multiple of 16
     (2, 48, 4, 64, 64, "bfloat16"),
+    # the register tiles: Dk of 1, 5 and all 8 row lanes, Dv short of the
+    # block's 64 columns, 33 steps (not a multiple of a round)
+    *((1, 33, 2, Dk, Dv, "float32") for Dk in (8, 40, 64)
+      for Dv in (20, 24, 64)),
+    (4, 1, 8, 64, 64, "float32"),       # one step: the decode shape
+    (2, 1, 3, 40, 24, "bfloat16"),
+    (1, 37, 2, 8, 20, "bfloat16"),
 ])
 @pytest.mark.parametrize("with_s0", [False, True])
 def test_rwkv6_kernel_matches_plain(B, S, H, Dk, Dv, dt, with_s0,

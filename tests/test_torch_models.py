@@ -24,6 +24,9 @@ from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models.attention import GQA  # noqa: E402
+from repro_torch.models.recurrent import RGLRUBlock  # noqa: E402
+from repro_torch.models.rwkv import RWKV6Block  # noqa: E402
 
 SLICE_ARCHS = ["recurrentgemma-9b", "gemma2-27b", "rwkv6-7b"]
 S_FWD = 12
@@ -209,6 +212,24 @@ def test_prefill_returns_last_logits_and_an_empty_cache(setups):
     assert torch.equal(make_prefill_step(model.cfg)(model, batch), last)
     assert len(cache) == model.cfg.n_layers
     assert all(float(t.abs().max()) == 0 for c in cache for t in c.values())
+
+
+@pytest.mark.parametrize("name", SLICE_ARCHS)
+def test_block_caches_take_no_default_device(name):
+    """A block's `init_cache` has no default device, so a call without
+    `device` raises instead of putting the cache on the CPU; the model's
+    `init_cache` puts every tensor on the model's device, here `meta`."""
+    cfg = reduced_config(get_config(name))
+    for build in (lambda: GQA.init_cache(cfg, 2, 8),
+                  lambda: RGLRUBlock.init_cache(cfg, 2),
+                  lambda: RWKV6Block.init_cache(cfg, 2)):
+        with pytest.raises(TypeError, match="device"):
+            build()
+    model = models.Model(cfg, device="cpu").to("meta")
+    assert model.device.type == "meta"
+    cache = models.init_cache(model, 2, max_len=8)
+    assert len(cache) == cfg.n_layers
+    assert all(t.device.type == "meta" for c in cache for t in c.values())
 
 
 def test_serve_step_greedy(setups):
