@@ -19,6 +19,17 @@ Phases, each reported on its own line(s):
    CSR, core_of and core_times bit-identical; exec_time and
    data_comm_bytes to rtol 1e-12), with the kernel's launch count read
    around each run;
+4b. trace path: the port's `synthesize_trace` writes the JAX package's
+   headline ingest input (1,000,000 lines, seed 0), the default dispatch
+   ingests it to exactly 1,148,081 vertices and 1,849,605 edges, the
+   graph round-trips through `.rtb` array-equal, the scanner (forced on)
+   and the streaming engine (forced off) give equal graphs on 100,000
+   lines; then `run_pipeline(<.rtb path>, p, backend="cuda",
+   profile=...)` at p=1024 and p=64, held against `fast` as in phase 4
+   with the segment sum's launches counted around each run, the
+   profile's phase table logged, and `python -m repro_torch.trace
+   partition <.rtb> -p 64` in a subprocess, whose plan must have the
+   in-process `est_exec_time`;
 5. model kernels: flash attention on the shapes of the JAX package's
    `FA_CASES` and at the serving shape (B=2, S=3072, 16 heads, 1 kv head,
    head_dim 256, causal, window 2048) against its plain version (float32
@@ -138,6 +149,11 @@ SERVE_TOL = 1e-3
 
 GRAPH_N, GRAPH_ALPHA, GRAPH_SEED = 3_000_000, 2.2, 0
 P_MAIN = (1024, 64)
+# the trace path: the JAX package's headline ingest size
+# (benchmarks/trace_ingest.py) and the graph it ingests to
+TRACE_LINES, TRACE_SEED = 1_000_000, 0
+TRACE_VERTICES, TRACE_EDGES = 1_148_081, 1_849_605
+TRACE_CHECK_LINES = 100_000     # scanner forced on vs the stream engine
 
 
 def log(*args) -> None:
@@ -255,20 +271,19 @@ def _compare(cuda, fast, p: int) -> None:
 
 def _timed_run(g, p: int, backend: str):
     """One `run_pipeline` on the card's default device: (result, wall
-    seconds, {span name: seconds}) with the port's spans recorded."""
+    seconds, {span name: seconds}) with the port's spans recorded (the
+    collector keeps microseconds)."""
     from repro_torch import obs
     from repro_torch.core import run_pipeline
     torch.cuda.synchronize()
-    obs.enable()
-    try:
+    with obs.scoped(merge=False) as col:
         t0 = time.perf_counter()
         out = run_pipeline(g, p, "wb_libra", backend=backend)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        spans = obs.disable()
-    stages = {e["name"]: round(e["dur_s"], 6) for e in spans
-              if e["name"].startswith(("pipeline.", "cut.", "map.", "sim."))}
+    stages = {e["name"]: round(e["dur"] / 1e6, 6) for e in col.events
+              if e["ph"] == "X" and e["name"].startswith(
+                  ("pipeline.", "cut.", "map.", "sim."))}
     return out, wall, stages
 
 
@@ -307,6 +322,143 @@ def phase_main_path() -> dict:
         log(f"stages p={p} fast (host clock, s): {json.dumps(fast_stages)}")
         runs[p] = {"launches": launches, "part": cuda[0], "graph": g}
     return runs
+
+
+# ---------------------------------------------------------------------- #
+# 4b. the trace path: NDJSON file -> IRGraph -> .rtb -> plan on the card
+# ---------------------------------------------------------------------- #
+def _same_graph(a, b) -> bool:
+    return (a.n == b.n and all(
+        getattr(a, f).dtype == getattr(b, f).dtype
+        and np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("src", "dst", "w")))
+
+
+def _ingest_timed(path: str, scanner: "str | None" = None):
+    """`ingest_trace_with_stats(path)` under the scanner policy `scanner`
+    (None: the default dispatch); (graph, stats, host seconds)."""
+    from repro_torch.trace import SCANNER_ENV, ingest_trace_with_stats
+    old = os.environ.pop(SCANNER_ENV, None)
+    if scanner is not None:
+        os.environ[SCANNER_ENV] = scanner
+    try:
+        t0 = time.perf_counter()
+        g, st = ingest_trace_with_stats(path)
+        return g, st, time.perf_counter() - t0
+    finally:
+        os.environ.pop(SCANNER_ENV, None)
+        if old is not None:
+            os.environ[SCANNER_ENV] = old
+
+
+def phase_trace_path() -> dict:
+    """The port's trace front end at the JAX package's headline ingest
+    size, then the `cuda` plan of the ingested graph from its `.rtb`
+    path, with the telemetry profile that `run_pipeline(profile=)`
+    writes, and the `partition` CLI in a subprocess."""
+    import tempfile
+
+    from repro_torch.core import run_pipeline
+    from repro_torch.obs.export import events_from_chrome, load_profile
+    from repro_torch.obs.summarize import render_summary, summarize_events
+    from repro_torch.trace import (read_trace_bin, synthesize_trace,
+                                   write_trace_bin)
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        ndjson = os.path.join(tmp, "synth.ndjson")
+        t0 = time.perf_counter()
+        lines = synthesize_trace(ndjson, TRACE_LINES, seed=TRACE_SEED)
+        t_synth = time.perf_counter() - t0
+        nbytes = os.path.getsize(ndjson)
+        check(lines == TRACE_LINES, "synthesize_trace wrote too few lines")
+        log(f"trace synth: {lines} lines, seed {TRACE_SEED}, {nbytes} "
+            f"bytes in {t_synth:.3f} s (host clock)")
+        g, st, t_ingest = _ingest_timed(ndjson)
+        check(g.n == TRACE_VERTICES and g.num_edges == TRACE_EDGES,
+              f"ingested {g.n} vertices and {g.num_edges} edges, expected "
+              f"{TRACE_VERTICES} and {TRACE_EDGES}")
+        log(f"trace ingest: engine {st.engine}, {g.n} vertices, "
+            f"{g.num_edges} edges, {st.records} records in {t_ingest:.3f} s "
+            f"({g.num_edges / t_ingest:.1f} edges/s, host clock)")
+        rtb = os.path.join(tmp, "synth.rtb")
+        t0 = time.perf_counter()
+        write_trace_bin(rtb, g, st)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g_bin, st_bin = read_trace_bin(rtb)
+        t_read = time.perf_counter() - t0
+        check(st_bin.engine == "binary" and _same_graph(g_bin, g),
+              ".rtb round trip changed the graph")
+        log(f"trace .rtb: {os.path.getsize(rtb)} bytes, write "
+            f"{t_write:.3f} s, read {t_read:.3f} s "
+            f"({g.num_edges / t_read:.1f} edges/s, {t_ingest / t_read:.1f}x "
+            f"the NDJSON ingest; host clock): src, dst, w and n equal")
+        small = os.path.join(tmp, "small.ndjson")
+        synthesize_trace(small, TRACE_CHECK_LINES, seed=TRACE_SEED)
+        g_scan, st_scan, t_scan = _ingest_timed(small, scanner="1")
+        g_seq, st_seq, t_seq = _ingest_timed(small, scanner="0")
+        check(st_scan.engine == "scan" and st_seq.engine == "stream",
+              f"engines {st_scan.engine} and {st_seq.engine}")
+        check(_same_graph(g_scan, g_seq),
+              "the scanner and the streaming engine built different graphs")
+        log(f"trace scanner vs stream, {TRACE_CHECK_LINES} lines: equal "
+            f"graphs ({g_seq.num_edges} edges); scan {t_scan:.3f} s, "
+            f"stream {t_seq:.3f} s (host clock)")
+        del g_bin, g_scan, g_seq
+        for p in P_MAIN:
+            t0 = time.perf_counter()
+            fast = run_pipeline(rtb, p, "wb_libra", backend="fast")
+            t_fast = time.perf_counter() - t0
+            prof = os.path.join(tmp, f"profile_p{p}.json")
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            cuda = run_pipeline(rtb, p, "wb_libra", backend="cuda",
+                                profile=prof)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            _compare(cuda, fast, p)
+            check(launches["segment_sum"] > 0
+                  and launches == _expect(
+                      segment_sum=launches["segment_sum"]),
+                  f"trace p={p}: launches {launches}")
+            out["launches"][p] = launches["segment_sum"]
+            out[p] = cuda[2].exec_time
+            doc = load_profile(prof)
+            events = events_from_chrome(doc)
+            names = {e["name"] for e in events}
+            want = {"pipeline.ingest", "trace.ingest", "pipeline.partition",
+                    "cut.stream", "cut.finalize", "map.cluster_graphs",
+                    "map.place", "sim.run"}
+            check(want <= names, f"profile lacks {sorted(want - names)}")
+            log(f"trace path p={p}: segment_sum launches "
+                f"{launches['segment_sum']}, exec_time "
+                f"{cuda[2].exec_time!r}, replication_factor "
+                f"{cuda[0].replication_factor!r}: bit-identical to fast; "
+                f"wall {wall:.6f} s, fast {t_fast:.6f} s (host clock, one "
+                f"run each, .rtb read included)")
+            summary = render_summary(summarize_events(events),
+                                     doc.get("repro", {}).get("counters"))
+            for line in summary.splitlines():
+                log(f"trace profile p={p} | {line}")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+            os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")))))
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.trace", "partition", rtb,
+             "-p", "64"], capture_output=True, text=True, timeout=600,
+            env=env)
+        t_cli = time.perf_counter() - t0
+        check(cli.returncode == 0,
+              f"partition CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+        plan = json.loads(cli.stdout)
+        check(plan["est_exec_time"] == out[64],
+              f"partition CLI est_exec_time {plan['est_exec_time']!r}, "
+              f"in-process {out[64]!r}")
+        log(f"trace CLI partition -p 64: exit 0 in {t_cli:.3f} s (host "
+            f"clock, process start included), plan {json.dumps(plan)}")
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -874,6 +1026,7 @@ def main() -> int:
     phase_build()
     max_abs_err = phase_kernel_vs_plain()
     runs = phase_main_path()
+    trace = phase_trace_path()
     errs = phase_model_kernels_vs_plain()
     prefill = phase_prefill(ARCH, N_PARAMS, PREFILL_B, PREFILL_S,
                             _expect(flash_attention=12, rglru=26))
@@ -890,6 +1043,7 @@ def main() -> int:
                                   "the cached state as s0)",
                              reference=rwkv_logits_f64)
     kernels = phase_timing(runs, max_abs_err)
+    kernels["kernels"][0]["launches_trace"] = trace["launches"]
     kernels["kernels"] += phase_model_timing(prefill, errs)
     kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
                                                 rwkv_err))

@@ -1,8 +1,9 @@
 """Plan a graph: WB-Libra cut, Algorithm-2 mapping, simulated cost.
 
-`plan_graph` is the planner's graph half: partition an `IRGraph` (or an
-`.npz` snapshot), map the clusters with the memory-centric mapper, and
-return the simulated cost.  The program-capture half of the JAX
+`plan_graph` is the planner's graph half: partition an `IRGraph` (or a
+path to an `.npz` snapshot, a `.rtb` container or an NDJSON trace), map
+the clusters with the memory-centric mapper, and return the simulated
+cost.  The program-capture half of the JAX
 package's planner (`plan_step`, `optimal_parallelism`,
 `expert_placement`, `mesh_device_order`) needs a graph built from a
 traced program, and is still to be ported (ROADMAP.md, queue 1,
@@ -48,7 +49,8 @@ def plan_graph(g, p: int, method: str = "wb_libra",
                merge_period: "int | None" = None,
                divergence: "float | None" = None,
                device: str = "cuda") -> PlanReport:
-    """Plan `g` — an `IRGraph`, or a path to an `.npz` snapshot.
+    """Plan `g` — an `IRGraph`, or a path to an `.npz` snapshot, a
+    `.rtb` binary trace or an NDJSON dynamic trace (`coerce_graph`).
     `backend` threads through every stage
     ("cuda"/"fast"/"native"/"python"/"reference"); "cuda", the default,
     keeps the finalize/metrics/simulator reductions on `device` (the

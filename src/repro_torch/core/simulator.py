@@ -261,17 +261,17 @@ def _simulate_edge_cut(g: IRGraph, r: EdgeCutResult,
 
 # ---------------------------------------------------------------------- #
 def coerce_graph(g) -> IRGraph:
-    """Accept an `IRGraph` or a path to an `.npz` snapshot (the layout
-    that the JAX package's `IRGraph.save_npz` writes too).  Trace paths
-    (NDJSON, `.rtb`) need the trace front end, which is not ported yet."""
+    """Accept an `IRGraph` or a path to one, in any serialization the
+    repo knows: an `.npz` snapshot, a `.rtb[.gz|.zst]` binary trace
+    container, or a TRACE_SCHEMA v0 NDJSON dynamic trace (plain or
+    compressed — see `repro_torch.trace.load_graph` for the suffix
+    dispatch).  The files are those the JAX package reads and writes.
+    The whole pipeline takes either an object or a path."""
     if isinstance(g, IRGraph):
         return g
     if isinstance(g, (str, os.PathLike)):
-        if os.fspath(g).endswith(".npz"):
-            return IRGraph.load_npz(g)
-        raise NotImplementedError(
-            f"trace paths are not ported yet (ROADMAP.md, queue 1, item 2): "
-            f"{os.fspath(g)!r}; pass an IRGraph or an .npz snapshot")
+        from ..trace import load_graph
+        return load_graph(g)
     raise TypeError(f"expected IRGraph or path, got {type(g).__name__}")
 
 
@@ -285,9 +285,10 @@ def run_pipeline(g, p: int, method: str, lam: float = 1.0,
     """partition -> map -> simulate, returning (partition, mapping, report).
 
     The end-to-end path of Fig. 1: structure analysis is already in `g`
-    (an `IRGraph`, or a path to an `.npz` snapshot), vertex/edge cut
-    produces clusters, the memory-centric mapping schedules them, and the
-    simulator scores the result.  `backend` selects the engine for every
+    (an `IRGraph`, or a path to an `.npz` snapshot, a `.rtb` container or
+    an NDJSON dynamic trace), vertex/edge cut produces clusters, the
+    memory-centric mapping schedules them, and the simulator scores the
+    result.  `backend` selects the engine for every
     stage: the partitioner accepts any of its backends
     ("cuda"/"fast"/"native"/"python"/"reference"); the mapping and
     simulator run their reference oracle iff `backend == "reference"`
@@ -297,13 +298,19 @@ def run_pipeline(g, p: int, method: str, lam: float = 1.0,
     host with `device="cpu"`.  The host backends ignore `device`.
 
     `workers`, `merge_period` and `divergence` belong to
-    `backend="dist"`, and `profile=` to the full telemetry layer; neither
-    is ported yet, and both raise NotImplementedError.
+    `backend="dist"`, which is not ported yet and raises
+    NotImplementedError.
+
+    `profile="out.json"` records the run's telemetry (ingest /
+    partition / map / simulate stage spans plus every engine-level span
+    beneath them) and writes a Perfetto-loadable profile to that path —
+    the call-site twin of the `REPRO_PROFILE` env hook; render it with
+    `python -m repro_torch.obs summarize out.json`.
     """
     if profile is not None:
-        raise NotImplementedError(
-            "profile= needs the full obs layer, which is not ported yet "
-            "(ROADMAP.md, queue 1, item 6)")
+        with obs.profiled(profile):
+            return run_pipeline(g, p, method, lam, machine, seed, backend,
+                                device=device)
     from .edge_cut import EDGE_CUT_METHODS, edge_cut as _edge_cut
     from .vertex_cut import ALGORITHMS, vertex_cut as _vertex_cut
     from .mapping import memory_centric_mapping

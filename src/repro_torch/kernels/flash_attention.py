@@ -9,6 +9,9 @@ which replaces the Pallas kernel `_fa_kernel` of
 version, `attention_ref`.  There is no other path: a CUDA tensor that the
 kernel cannot take raises.
 
+A tensor off the CPU that requires grad while autograd records raises
+too: the kernel has no backward yet (`_grad.refuse_grad`).
+
 What the kernel takes: float32 or bfloat16, q, k and v of one dtype, on
 one card, contiguous and 16-byte aligned, with D one of `HEAD_DIMS` and
 Hq a multiple of Hkv.  It supports the causal mask, a sliding window
@@ -24,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..core.cuda import _build
+from ._grad import refuse_grad
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
@@ -111,6 +115,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     _check(q, k, v, window, q_offset)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type != "cpu":
+        refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,

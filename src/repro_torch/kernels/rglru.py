@@ -10,6 +10,9 @@ inside the kernel, in float32; on a CPU tensor it runs the plain version,
 `rglru_ref`.  There is no other path: a CUDA tensor that the kernel
 cannot take raises.
 
+A tensor off the CPU that requires grad while autograd records raises
+too: the kernel has no backward yet (`_grad.refuse_grad`).
+
 What the kernel takes: x and a of one dtype, float32 or bfloat16,
 contiguous, on one card; h0, when given, is read as float32.  It streams
 rows as 16-byte copies when D * itemsize is a multiple of 16 and x, a and
@@ -25,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..core.cuda import _build
+from ._grad import refuse_grad
 from .ref import rglru_ref
 
 __all__ = ["rglru_scan", "rglru_plain"]
@@ -91,6 +95,8 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
     devices = {x.device, a.device} | ({h0.device} if h0 is not None else set())
     if len(devices) != 1:
         raise ValueError("x, a and h0 must be on one device")
+    if x.device.type != "cpu":
+        refuse_grad("rglru_scan", x, a, h0)
     if x.device.type == "cpu":
         return rglru_plain(x, a, h0)
     return _launch(x, a, h0)

@@ -13,6 +13,9 @@ hand-written kernel `csrc/rwkv6.cu`, which replaces the Pallas kernel
 layout as it is; on a CPU tensor it runs the plain version, `rwkv6_ref`.
 There is no other path: a CUDA tensor that the kernel cannot take raises.
 
+A tensor off the CPU that requires grad while autograd records raises
+too: the kernel has no backward yet (`_grad.refuse_grad`).
+
 What the kernel takes: r, k, v and w of one dtype, float32 or bfloat16,
 contiguous, on one card, with Dk <= 64; u and s0 are read as float32.
 
@@ -24,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..core.cuda import _build
+from ._grad import refuse_grad
 from .ref import rwkv6_ref
 
 __all__ = ["rwkv6_scan", "rwkv6_plain"]
@@ -111,6 +115,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         {s0.device} if s0 is not None else set())
     if len(devices) != 1:
         raise ValueError("r, k, v, w, u and s0 must be on one device")
+    if r.device.type != "cpu":
+        refuse_grad("rwkv6_scan", r, k, v, w, u, s0)
     if r.device.type == "cpu":
         return rwkv6_plain(r, k, v, w, u, s0)
     return _launch(r, k, v, w, u, s0)

@@ -1,58 +1,55 @@
-"""Minimal telemetry for the port: `span`, `observe` and `enabled`.
+"""repro_torch.obs — structured telemetry (spans, counters, Perfetto export).
 
-The names and call shapes are those of the JAX package's `obs`, so the
-core modules keep their instrumentation points unchanged.  Recording is
-off by default, and then every call is a no-op.  `enable()` starts a
-plain in-memory list of events, `disable()` stops it and returns what it
-holds.  Profile export, histograms and the CLI belong to the full layer,
-which is still to be ported (ROADMAP.md, queue 1, item 6).
+The JAX package's `obs`, ported whole: the same names, event layout,
+profile file and CLI.  Quick start::
+
+    from repro_torch import obs
+
+    with obs.scoped() as col:
+        with obs.span("my.phase", lane="main", k=3):
+            ...
+    from repro_torch.obs.export import write_profile
+    write_profile("out.json", col)           # open in ui.perfetto.dev
+
+Or set ``REPRO_PROFILE=out.json`` in the environment to profile a whole
+process, then ``python -m repro_torch.obs summarize out.json``.
+`run_pipeline(..., profile="out.json")` profiles one plan.
 """
-from __future__ import annotations
 
-import contextlib
-import time
-from typing import Any, Iterator
+from .core import (
+    PROFILE_ENV,
+    Collector,
+    complete,
+    counter,
+    current,
+    disable,
+    enable,
+    enabled,
+    event,
+    gauge,
+    observe,
+    profiled,
+    scoped,
+    span,
+)
+from .metrics import DEFAULT_BUCKETS_US, Histogram, MetricsRegistry
 
-__all__ = ["span", "observe", "enabled", "enable", "disable"]
-
-_events: "list[dict] | None" = None
-
-
-def enabled() -> bool:
-    """True while events are being recorded."""
-    return _events is not None
-
-
-def enable() -> None:
-    """Start recording into a fresh event list."""
-    global _events
-    _events = []
-
-
-def disable() -> "list[dict]":
-    """Stop recording; return the events recorded since `enable()`."""
-    global _events
-    events, _events = _events or [], None
-    return events
-
-
-@contextlib.contextmanager
-def span(name: str, lane: str = "main", cat: str = "op",
-         **args: Any) -> Iterator[None]:
-    """Time the enclosed block as one complete event (no-op when off)."""
-    if _events is None:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _events.append({"name": name, "lane": lane, "cat": cat,
-                        "t0_s": t0, "dur_s": time.perf_counter() - t0,
-                        "args": args})
-
-
-def observe(name: str, value: float) -> None:
-    """Record one sample of a named quantity (no-op when off)."""
-    if _events is not None:
-        _events.append({"name": name, "value": float(value)})
+__all__ = [
+    "Collector",
+    "DEFAULT_BUCKETS_US",
+    "Histogram",
+    "MetricsRegistry",
+    "PROFILE_ENV",
+    "complete",
+    "counter",
+    "current",
+    "disable",
+    "enable",
+    "enabled",
+    "event",
+    "gauge",
+    "observe",
+    "profiled",
+    "scoped",
+    "span",
+]

@@ -575,6 +575,69 @@ def test_rwkv6_kernel_arithmetic_meets_the_tolerance(B, S, H, Dk, Dv,
 
 
 # ---------------------------------------------------------------------- #
+# the kernels have no backward: a tensor off the CPU that autograd would
+# follow is refused, and the CPU keeps the differentiable plain version
+# ---------------------------------------------------------------------- #
+def _wrapper_calls(device):
+    """Each wrapper's call, taking its inputs as a list so one of them can
+    be made to require grad: (name, inputs, call)."""
+    q = torch.ones((1, 4, 2, 16), device=device)
+    x = torch.full((1, 4, 16), 0.5, device=device)
+    u = torch.ones((2, 16), device=device)
+    s0 = torch.ones((1, 2, 16, 16), device=device)
+    return [
+        ("flash_attention", [q, q.clone(), q.clone()],
+         lambda t: fa.flash_attention(*t)),
+        ("rglru_scan", [x, x.clone(), torch.ones((1, 16), device=device)],
+         lambda t: rglru.rglru_scan(*t)),
+        ("rwkv6_scan", [q, q.clone(), q.clone(), q.clone(), u, s0],
+         lambda t: rwkv6.rwkv6_scan(*t)),
+    ]
+
+
+GRAD_CASES = [(w, i) for w, n in (("flash_attention", 3), ("rglru_scan", 3),
+                                  ("rwkv6_scan", 6)) for i in range(n)]
+
+
+def _grad_case(device, wrapper, i):
+    name, inputs, call = next(c for c in _wrapper_calls(device)
+                              if c[0] == wrapper)
+    inputs = [t.clone() for t in inputs]
+    inputs[i].requires_grad_(True)
+    return inputs, call
+
+
+@pytest.mark.parametrize("wrapper,i", GRAD_CASES)
+def test_kernel_wrappers_refuse_grad_off_the_cpu(wrapper, i):
+    """A `meta` input that requires grad raises before the device-type
+    check; under no_grad the same call passes the check (and then finds
+    no kernel for a meta tensor)."""
+    inputs, call = _grad_case("meta", wrapper, i)
+    before = (fa.launches, rglru.launches, rwkv6.launches)
+    with pytest.raises(NotImplementedError,
+                       match=f"{wrapper}.*no backward.*item 9"):
+        call(inputs)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            call(inputs)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            call([t.detach() for t in inputs])
+    assert (fa.launches, rglru.launches, rwkv6.launches) == before
+
+
+@pytest.mark.parametrize("wrapper,i", GRAD_CASES)
+def test_kernel_wrappers_stay_differentiable_on_the_cpu(wrapper, i):
+    inputs, call = _grad_case("cpu", wrapper, i)
+    out = call(inputs)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert inputs[i].grad is not None
+    assert bool(torch.isfinite(inputs[i].grad).all())
+
+
+# ---------------------------------------------------------------------- #
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------- #
 @pytest.mark.cuda
@@ -749,3 +812,22 @@ def test_rwkv6_kernel_decode_step_with_state(cuda_device):
     out, s_last = rwkv6.rwkv6_scan(empty, empty, empty, empty, u, s0)
     assert rwkv6.launches == before and out.shape == (4, 0, 64, 64)
     assert torch.equal(s_last, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper,i", GRAD_CASES)
+def test_kernel_wrappers_refuse_grad_on_the_card(wrapper, i, cuda_device):
+    inputs, call = _grad_case(cuda_device, wrapper, i)
+    mod = {"flash_attention": fa, "rglru_scan": rglru,
+           "rwkv6_scan": rwkv6}[wrapper]
+    before = mod.launches
+    with pytest.raises(NotImplementedError,
+                       match=f"{wrapper}.*no backward.*item 9"):
+        call(inputs)
+    assert mod.launches == before
+    with torch.no_grad():
+        out = call(inputs)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.device.type == "cuda" and out.grad_fn is None

@@ -7,8 +7,8 @@ cut (assignment, loads, edge counts, replica CSR) and `core_of` exactly,
 `core_times` exactly against `fast`, and the SimReport within rtol 1e-12
 of the `reference` oracle.  The inputs are the backend-equivalence sweep
 graphs, the paper's 10 benchmark graphs (traced by each package's own
-tracer) and one real NDJSON trace, ingested by the JAX package and handed
-over as an `.npz` snapshot (the port's trace front end is not ported yet).
+tracer) and one real NDJSON trace, ingested by each package's own trace
+front end (the reference's graph is the oracle).
 The reference's `pallas` runs in interpret mode, as its own tests run
 it; its jit compiles cost seconds per shape, so it joins the comparison
 on three cases (one graph at each p and the trace) and `fast` and
@@ -86,18 +86,27 @@ def test_methods_and_lambda_equivalent(method, lam):
 
 
 def test_ingested_trace_equivalent(tmp_path, ref_pallas):
-    """One real NDJSON trace, ingested by the JAX package and handed over
-    as an .npz snapshot that the port reads itself."""
+    """One real NDJSON trace, ingested by the port's own trace front end
+    and held against the JAX package's graph of it; the trace path and an
+    .npz snapshot run the whole pipeline as well."""
     from repro.trace import load_graph
-    g = load_graph(os.path.join(TRACES, "toy_loop.ndjson"))
+    from repro_torch.trace import load_graph as port_load_graph
+    trace = os.path.join(TRACES, "toy_loop.ndjson")
+    g = load_graph(trace)
+    gt = port_load_graph(trace)
+    assert gt.n == g.n
+    for field in ("src", "dst", "w"):
+        a, b = getattr(gt, field), getattr(g, field)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b, err_msg=field)
+    _assert_pipeline_equivalent(g, 8, gt=gt, pallas=True)
     path = os.path.join(tmp_path, "toy_loop.npz")
     g.save_npz(path)
-    gt = T.IRGraph.load_npz(path)
-    _assert_pipeline_equivalent(g, 8, gt=gt, pallas=True)
-    # the snapshot path runs the whole pipeline as well
-    a = T.run_pipeline(path, 8, "wb_libra", device="cpu")
-    b = T.run_pipeline(gt, 8, "wb_libra", device="cpu")
-    np.testing.assert_array_equal(a[2].core_times, b[2].core_times)
+    want = T.run_pipeline(gt, 8, "wb_libra", device="cpu")
+    for source in (trace, path):
+        got = T.run_pipeline(source, 8, "wb_libra", device="cpu")
+        np.testing.assert_array_equal(got[0].assignment, want[0].assignment)
+        np.testing.assert_array_equal(got[2].core_times, want[2].core_times)
 
 
 @pytest.mark.parametrize("name", R.all_benchmark_names())

@@ -40,6 +40,8 @@ def _graph():
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.obs, "
+            "repro_torch.obs.__main__, repro_torch.trace, "
+            "repro_torch.trace.__main__, "
             "repro_torch.core.cuda.metrics, repro_torch.configs, "
             "repro_torch.kernels, repro_torch.kernels.ops, "
             "repro_torch.models, repro_torch.models.convert, "
@@ -60,7 +62,7 @@ def test_no_source_line_imports_repro_or_jax():
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
     assert len(files) > 10
-    for sub in ("configs", "kernels", "models", "launch"):
+    for sub in ("configs", "kernels", "models", "launch", "obs", "trace"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     offending = []
     for path in files:
@@ -144,12 +146,13 @@ def test_unported_paths_raise_and_name_their_roadmap_item(tmp_path):
         T.run_pipeline(g, 4, "wb_libra", backend="dist", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
         T.plan_graph(g, 4, backend="dist", device="cpu")
+    from repro_torch.trace.__main__ import main as trace_cli
     trace = os.path.join(ROOT, "examples", "traces", "toy_loop.ndjson")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 2"):
-        T.run_pipeline(trace, 4, "wb_libra", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
-        T.run_pipeline(g, 4, "wb_libra", device="cpu",
-                       profile=os.path.join(tmp_path, "p.json"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 5"):
+        trace_cli(["record", os.path.join(tmp_path, "r.ndjson")])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
+        trace_cli(["partition", trace, "-p", "4", "--workers", "2",
+                   "--device", "cpu"])
 
 
 def test_chip_smoke_fails_without_a_gpu(no_gpu):
@@ -168,10 +171,11 @@ def test_obs_records_spans_only_when_enabled():
         T.run_pipeline(_graph(), 4, "wb_libra", device="cpu")
         obs.observe("probe", 2)
     finally:
-        events = obs.disable()
-    names = {e["name"] for e in events}
+        col = obs.disable()
+    names = {e["name"] for e in col.events}
     assert {"pipeline.partition", "cut.finalize", "map.cluster_graphs",
-            "sim.run", "probe"} <= names
+            "sim.run"} <= names
+    assert col.metrics.snapshot()["histograms"]["probe"]["count"] == 1
     assert not obs.enabled()
 
 
