@@ -30,6 +30,34 @@ Phases, each reported on its own line(s):
    profile's phase table logged, and `python -m repro_torch.trace
    partition <.rtb> -p 64` in a subprocess, whose plan must have the
    in-process `est_exec_time`;
+4c. dist path, on the host, at the JAX package's `dist_scaling` sizes:
+   the host's core count and the pools' start method logged; a
+   2,760,000-line seed-0 trace (~5.1M edges) parsed on one shard and
+   cut on one worker (the two-phase wall; the cut equal to `vertex_cut(
+   backend="fast")` bit for bit), parsed on 8 shards (the graph equal to
+   the one-shard graph), then the pipelined parse→cut at W=4 and W=8 on
+   the process and the thread pools with p=64 and merge_period=65,536
+   (equal cuts; wall, speedup over W=1, replication factor, the `dist.*`
+   histograms and span totals of a scoped collector), and `run_pipeline(<path>, backend="dist", workers=8)`
+   (its cut equal to the two-phase cut of the 8-shard graph); on a
+   276,000-line trace, W=4 on the thread and the process pools, twice
+   each, with equal assignment, loads and replica CSR, and `python -m
+   repro_torch.trace partition <trace> -p 64 --workers 4` in a
+   subprocess, whose plan must have the in-process `est_exec_time`; no
+   kernel is launched (the dist backend maps and simulates on the host);
+4d. plan service on the card, on phase 4b's trace: `PlanService(backend=
+   "cuda")` plans the `.rtb` (p=64, lam=1.1) cold, then as a memory hit,
+   then as a disk hit in a new service on the same directory (the three
+   bundles equal; the segment sum launched on the cold plan only), the
+   cold bundle equal to a `backend="fast"` service's (cut, replica CSR,
+   core_of and core_times bit for bit, the cost to rtol 1e-12); the
+   incremental planner on the NDJSON, cold over the whole file and warm
+   (90 % then 10 %), the two plans bit-identical to each other and to a
+   `backend="fast"` planner's; the JAX package's Zipf request mix (8
+   sources of 2,000 lines, 1,000 requests, exponent 1.2, 4 hot entries,
+   p=16), hit rate at least 0.9 with evictions, `metrics()` agreeing
+   with the request history; `python -m repro_torch.serve plan` in a
+   subprocess, whose summary must be the cold plan's;
 5. model kernels: flash attention on the shapes of the JAX package's
    `FA_CASES` and at the serving shape (B=2, S=3072, 16 heads, 1 kv head,
    head_dim 256, causal, window 2048) against its plain version (float32
@@ -81,8 +109,10 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -154,6 +184,14 @@ P_MAIN = (1024, 64)
 TRACE_LINES, TRACE_SEED = 1_000_000, 0
 TRACE_VERTICES, TRACE_EDGES = 1_148_081, 1_849_605
 TRACE_CHECK_LINES = 100_000     # scanner forced on vs the stream engine
+# the dist path: the JAX package's benchmarks/dist_scaling.py sizes
+DIST_BIG_LINES, DIST_LINES = 2_760_000, 276_000
+DIST_P, DIST_MERGE_PERIOD = 64, 1 << 16
+DIST_WORKERS = (4, 8)
+# the plan service: the JAX package's benchmarks/plan_service.py knobs
+SERVE_P, SERVE_LAM, SERVE_WARM = 64, 1.1, 0.9
+ZIPF_SOURCES, ZIPF_LINES, ZIPF_REQUESTS = 8, 2_000, 1_000
+ZIPF_EXPONENT, ZIPF_HOT, ZIPF_P, ZIPF_MIN_HIT_RATE = 1.2, 4, 16, 0.9
 
 
 def log(*args) -> None:
@@ -253,10 +291,18 @@ def phase_kernel_vs_plain() -> float:
 # ---------------------------------------------------------------------- #
 # 4. the partition path
 # ---------------------------------------------------------------------- #
+CUT_FIELDS = ("assignment", "loads", "edge_counts", "replica_indptr",
+              "replica_flat")
+
+
+def _close(a: float, b: float) -> bool:
+    """Within the reference's rtol 1e-12."""
+    return np.isfinite(a) and abs(a - b) <= 1e-12 * abs(b)
+
+
 def _compare(cuda, fast, p: int) -> None:
     (cp, cm, cr), (fp, fm, fr) = cuda, fast
-    for field in ("assignment", "loads", "edge_counts", "replica_indptr",
-                  "replica_flat"):
+    for field in CUT_FIELDS:
         a, b = getattr(cp, field), getattr(fp, field)
         check(a.dtype == b.dtype and np.array_equal(a, b),
               f"p={p}: {field} differs from fast")
@@ -265,8 +311,7 @@ def _compare(cuda, fast, p: int) -> None:
           f"p={p}: core_times")
     for field in ("exec_time", "data_comm_bytes"):
         a, b = getattr(cr, field), getattr(fr, field)
-        check(np.isfinite(a) and abs(a - b) <= 1e-12 * abs(b),
-              f"p={p}: {field} {a!r} vs {b!r}")
+        check(_close(a, b), f"p={p}: {field} {a!r} vs {b!r}")
 
 
 def _timed_run(g, p: int, backend: str):
@@ -351,113 +396,464 @@ def _ingest_timed(path: str, scanner: "str | None" = None):
             os.environ[SCANNER_ENV] = old
 
 
-def phase_trace_path() -> dict:
+def phase_trace_path(tmp: str) -> dict:
     """The port's trace front end at the JAX package's headline ingest
     size, then the `cuda` plan of the ingested graph from its `.rtb`
     path, with the telemetry profile that `run_pipeline(profile=)`
-    writes, and the `partition` CLI in a subprocess."""
-    import tempfile
-
+    writes, and the `partition` CLI in a subprocess.  The trace and its
+    `.rtb` stay in `tmp` for phase 4d."""
     from repro_torch.core import run_pipeline
     from repro_torch.obs.export import events_from_chrome, load_profile
     from repro_torch.obs.summarize import render_summary, summarize_events
     from repro_torch.trace import (read_trace_bin, synthesize_trace,
                                    write_trace_bin)
     out = {"launches": {}}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
-        ndjson = os.path.join(tmp, "synth.ndjson")
+    ndjson = os.path.join(tmp, "synth.ndjson")
+    t0 = time.perf_counter()
+    lines = synthesize_trace(ndjson, TRACE_LINES, seed=TRACE_SEED)
+    t_synth = time.perf_counter() - t0
+    nbytes = os.path.getsize(ndjson)
+    check(lines == TRACE_LINES, "synthesize_trace wrote too few lines")
+    log(f"trace synth: {lines} lines, seed {TRACE_SEED}, {nbytes} "
+        f"bytes in {t_synth:.3f} s (host clock)")
+    g, st, t_ingest = _ingest_timed(ndjson)
+    check(g.n == TRACE_VERTICES and g.num_edges == TRACE_EDGES,
+          f"ingested {g.n} vertices and {g.num_edges} edges, expected "
+          f"{TRACE_VERTICES} and {TRACE_EDGES}")
+    log(f"trace ingest: engine {st.engine}, {g.n} vertices, "
+        f"{g.num_edges} edges, {st.records} records in {t_ingest:.3f} s "
+        f"({g.num_edges / t_ingest:.1f} edges/s, host clock)")
+    rtb = os.path.join(tmp, "synth.rtb")
+    t0 = time.perf_counter()
+    write_trace_bin(rtb, g, st)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_bin, st_bin = read_trace_bin(rtb)
+    t_read = time.perf_counter() - t0
+    check(st_bin.engine == "binary" and _same_graph(g_bin, g),
+          ".rtb round trip changed the graph")
+    log(f"trace .rtb: {os.path.getsize(rtb)} bytes, write "
+        f"{t_write:.3f} s, read {t_read:.3f} s "
+        f"({g.num_edges / t_read:.1f} edges/s, {t_ingest / t_read:.1f}x "
+        f"the NDJSON ingest; host clock): src, dst, w and n equal")
+    small = os.path.join(tmp, "small.ndjson")
+    synthesize_trace(small, TRACE_CHECK_LINES, seed=TRACE_SEED)
+    g_scan, st_scan, t_scan = _ingest_timed(small, scanner="1")
+    g_seq, st_seq, t_seq = _ingest_timed(small, scanner="0")
+    check(st_scan.engine == "scan" and st_seq.engine == "stream",
+          f"engines {st_scan.engine} and {st_seq.engine}")
+    check(_same_graph(g_scan, g_seq),
+          "the scanner and the streaming engine built different graphs")
+    log(f"trace scanner vs stream, {TRACE_CHECK_LINES} lines: equal "
+        f"graphs ({g_seq.num_edges} edges); scan {t_scan:.3f} s, "
+        f"stream {t_seq:.3f} s (host clock)")
+    del g_bin, g_scan, g_seq
+    for p in P_MAIN:
         t0 = time.perf_counter()
-        lines = synthesize_trace(ndjson, TRACE_LINES, seed=TRACE_SEED)
-        t_synth = time.perf_counter() - t0
-        nbytes = os.path.getsize(ndjson)
-        check(lines == TRACE_LINES, "synthesize_trace wrote too few lines")
-        log(f"trace synth: {lines} lines, seed {TRACE_SEED}, {nbytes} "
-            f"bytes in {t_synth:.3f} s (host clock)")
-        g, st, t_ingest = _ingest_timed(ndjson)
-        check(g.n == TRACE_VERTICES and g.num_edges == TRACE_EDGES,
-              f"ingested {g.n} vertices and {g.num_edges} edges, expected "
-              f"{TRACE_VERTICES} and {TRACE_EDGES}")
-        log(f"trace ingest: engine {st.engine}, {g.n} vertices, "
-            f"{g.num_edges} edges, {st.records} records in {t_ingest:.3f} s "
-            f"({g.num_edges / t_ingest:.1f} edges/s, host clock)")
-        rtb = os.path.join(tmp, "synth.rtb")
+        fast = run_pipeline(rtb, p, "wb_libra", backend="fast")
+        t_fast = time.perf_counter() - t0
+        prof = os.path.join(tmp, f"profile_p{p}.json")
+        torch.cuda.synchronize()
+        zero_launches()
         t0 = time.perf_counter()
-        write_trace_bin(rtb, g, st)
-        t_write = time.perf_counter() - t0
+        cuda = run_pipeline(rtb, p, "wb_libra", backend="cuda",
+                            profile=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        _compare(cuda, fast, p)
+        check(launches["segment_sum"] > 0
+              and launches == _expect(
+                  segment_sum=launches["segment_sum"]),
+              f"trace p={p}: launches {launches}")
+        out["launches"][p] = launches["segment_sum"]
+        out[p] = cuda[2].exec_time
+        doc = load_profile(prof)
+        events = events_from_chrome(doc)
+        names = {e["name"] for e in events}
+        want = {"pipeline.ingest", "trace.ingest", "pipeline.partition",
+                "cut.stream", "cut.finalize", "map.cluster_graphs",
+                "map.place", "sim.run"}
+        check(want <= names, f"profile lacks {sorted(want - names)}")
+        log(f"trace path p={p}: segment_sum launches "
+            f"{launches['segment_sum']}, exec_time "
+            f"{cuda[2].exec_time!r}, replication_factor "
+            f"{cuda[0].replication_factor!r}: bit-identical to fast; "
+            f"wall {wall:.6f} s, fast {t_fast:.6f} s (host clock, one "
+            f"run each, .rtb read included)")
+        summary = render_summary(summarize_events(events),
+                                 doc.get("repro", {}).get("counters"))
+        for line in summary.splitlines():
+            log(f"trace profile p={p} | {line}")
+    plan, t_cli = _port_cli("trace", "partition", rtb, "-p", "64")
+    check(plan["est_exec_time"] == out[64],
+          f"partition CLI est_exec_time {plan['est_exec_time']!r}, "
+          f"in-process {out[64]!r}")
+    log(f"trace CLI partition -p 64: exit 0 in {t_cli:.3f} s (host "
+        f"clock, process start included), plan {json.dumps(plan)}")
+    out["ndjson"], out["rtb"] = ndjson, rtb
+    return out
+
+
+def _port_cli(module: str, *args: str):
+    """`python -m repro_torch.<module> *args` in a subprocess: (its JSON
+    output, host seconds with the process start)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")))))
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", f"repro_torch.{module}",
+                          *args], capture_output=True, text=True,
+                         timeout=600, env=env)
+    t_cli = time.perf_counter() - t0
+    check(cli.returncode == 0, f"{module} CLI {args[0]} exited "
+          f"{cli.returncode}: {cli.stderr[-2000:]}")
+    return json.loads(cli.stdout), t_cli
+
+
+# ---------------------------------------------------------------------- #
+# 4c. the dist path: sharded parse and cut on the host's cores
+# ---------------------------------------------------------------------- #
+def _same_cut(a, b) -> bool:
+    return all(getattr(a, f).dtype == getattr(b, f).dtype
+               and np.array_equal(getattr(a, f), getattr(b, f))
+               for f in CUT_FIELDS)
+
+
+def _span_totals(events) -> dict:
+    """Host seconds and count of each span name in a collector's events;
+    spans of parallel lanes add up, so a name's total can pass the
+    wall."""
+    out: dict = {}
+    for e in events:
+        if e.get("ph") == "X":
+            t = out.setdefault(e["name"], [0.0, 0])
+            t[0] += e["dur"] / 1e6
+            t[1] += 1
+    return {k: [round(v[0], 3), v[1]] for k, v in sorted(out.items())}
+
+
+def _fork_warnings(rec) -> list:
+    return sorted({re.sub(r" \(pid=\d+\)", "", str(w.message))
+                   for w in rec if "fork" in str(w.message)})
+
+
+def phase_dist_path(tmp: str) -> dict:
+    """The sharded parser and the pipelined parse→cut of `repro_torch.
+    dist` at the JAX package's `dist_scaling` sizes.  Everything runs on
+    the host; the parent holds a CUDA context while its pools fork."""
+    import multiprocessing as mp
+    import warnings
+
+    from repro_torch import obs
+    from repro_torch.core import run_pipeline, vertex_cut
+    from repro_torch.core.planner import plan_graph
+    from repro_torch.dist import dist_ingest, dist_vertex_cut
+    from repro_torch.trace import synthesize_trace
+    cores = os.cpu_count()
+    usable = (len(os.sched_getaffinity(0))
+              if hasattr(os, "sched_getaffinity") else cores)
+    method = "fork" if "fork" in mp.get_all_start_methods() else "default"
+    log(f"dist host: os.cpu_count() {cores}, usable cores {usable}; pools "
+        f"start processes with {method!r} (multiprocessing default "
+        f"{mp.get_start_method()!r}); threads in this process "
+        f"{__import__('threading').active_count()}, CUDA initialised "
+        f"{torch.cuda.is_initialized()}")
+    out = {"cores": cores}
+    zero_launches()
+    big = os.path.join(tmp, f"synth_{DIST_BIG_LINES}_seed0.ndjson")
+    t0 = time.perf_counter()
+    synthesize_trace(big, DIST_BIG_LINES, seed=0)
+    log(f"dist synth: {DIST_BIG_LINES} lines, {os.path.getsize(big)} bytes "
+        f"in {time.perf_counter() - t0:.3f} s (host clock)")
+    kw = dict(method="wb_libra", merge_period=DIST_MERGE_PERIOD)
+    # W=1: the two-phase wall the pipelined speedups are measured against
+    t0 = time.perf_counter()
+    g1 = dist_ingest(big, workers=1)
+    t_ingest1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cut1 = dist_vertex_cut(g1, DIST_P, workers=1, **kw)
+    t_cut1 = time.perf_counter() - t0
+    wall1 = t_ingest1 + t_cut1
+    fast = vertex_cut(g1, DIST_P, method="wb_libra", backend="fast")
+    check(_same_cut(cut1, fast), "dist W=1 differs from backend='fast'")
+    log(f"dist W=1 two-phase: {g1.n} vertices, {g1.num_edges} edges; "
+        f"ingest {t_ingest1:.3f} s + cut {t_cut1:.3f} s = {wall1:.3f} s "
+        f"(host clock); replication_factor {cut1.replication_factor!r}; "
+        f"cut bit-identical to vertex_cut(backend='fast')")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
         t0 = time.perf_counter()
-        g_bin, st_bin = read_trace_bin(rtb)
-        t_read = time.perf_counter() - t0
-        check(st_bin.engine == "binary" and _same_graph(g_bin, g),
-              ".rtb round trip changed the graph")
-        log(f"trace .rtb: {os.path.getsize(rtb)} bytes, write "
-            f"{t_write:.3f} s, read {t_read:.3f} s "
-            f"({g.num_edges / t_read:.1f} edges/s, {t_ingest / t_read:.1f}x "
-            f"the NDJSON ingest; host clock): src, dst, w and n equal")
-        small = os.path.join(tmp, "small.ndjson")
-        synthesize_trace(small, TRACE_CHECK_LINES, seed=TRACE_SEED)
-        g_scan, st_scan, t_scan = _ingest_timed(small, scanner="1")
-        g_seq, st_seq, t_seq = _ingest_timed(small, scanner="0")
-        check(st_scan.engine == "scan" and st_seq.engine == "stream",
-              f"engines {st_scan.engine} and {st_seq.engine}")
-        check(_same_graph(g_scan, g_seq),
-              "the scanner and the streaming engine built different graphs")
-        log(f"trace scanner vs stream, {TRACE_CHECK_LINES} lines: equal "
-            f"graphs ({g_seq.num_edges} edges); scan {t_scan:.3f} s, "
-            f"stream {t_seq:.3f} s (host clock)")
-        del g_bin, g_scan, g_seq
-        for p in P_MAIN:
+        g8 = dist_ingest(big, workers=8)
+        t_ingest8 = time.perf_counter() - t0
+        check(_same_graph(g8, g1), "dist_ingest W=8 differs from W=1")
+        log(f"dist ingest W=8: {t_ingest8:.3f} s ({t_ingest1 / t_ingest8:.2f}"
+            f"x W=1; host clock), graph array-equal to W=1")
+        piped = {}
+        for w, pool in [(w, pool) for w in DIST_WORKERS
+                        for pool in ("process", "thread")]:
+            tl: dict = {}
+            with obs.scoped(merge=False) as col:
+                t0 = time.perf_counter()
+                cut = dist_vertex_cut(big, DIST_P, workers=w, pool=pool,
+                                      timeline=tl, **kw)
+                wall = time.perf_counter() - t0
+            check(tl["mode"] == "pipelined" and tl["pool"] == pool,
+                  f"W={w}: mode {tl['mode']}, pool {tl['pool']}")
+            if (w, "process") in piped:
+                check(_same_cut(cut, piped[w, "process"]),
+                      f"W={w}: the thread pool's cut differs from the "
+                      f"process pool's")
+            piped[w, pool] = cut
+            check(len(cut.assignment) == g1.num_edges
+                  and int(cut.assignment.min()) >= 0
+                  and int(cut.assignment.max()) < DIST_P,
+                  f"W={w}: not a {DIST_P}-way cut of every edge")
+            names = {e["name"] for e in col.events}
+            check({"dist.parse_wait", "dist.cut", "parse.shard"} <= names,
+                  f"W={w} did not pipeline: {sorted(names)}")
+            hists = {k: {"count": h["count"], "p50": h["p50"]}
+                     for k, h in sorted(col.metrics.snapshot()[
+                         "histograms"].items()) if k.startswith("dist.")}
+            out[w, pool] = {"wall": wall, "rf": cut.replication_factor}
+            log(f"dist W={w} pipelined ({pool} pool): wall {wall:.3f} s, "
+                f"speedup {wall1 / wall:.3f}x over W=1, replication_factor "
+                f"{cut.replication_factor!r} ({cut.replication_factor / cut1.replication_factor:.4f}"
+                f"x W=1), full merges {tl['full_merges']} of "
+                f"{tl['round_merges']}, rounds {len(tl['rounds'])}")
+            log(f"dist W={w} {pool} histograms (count, p50 us): "
+                f"{json.dumps(hists)}")
+            log(f"dist W={w} {pool} spans (host s summed over lanes, count): "
+                f"{json.dumps(_span_totals(col.events))}")
+        del piped
+        t0 = time.perf_counter()
+        part, mapping, rep = run_pipeline(big, DIST_P, "wb_libra",
+                                          backend="dist", workers=8,
+                                          merge_period=DIST_MERGE_PERIOD)
+        t_run = time.perf_counter() - t0
+        two_phase = dist_vertex_cut(g8, DIST_P, workers=8, **kw)
+        check(_same_cut(part, two_phase),
+              "run_pipeline(backend='dist') differs from the two-phase cut")
+        check(np.isfinite(rep.exec_time) and rep.exec_time > 0,
+              "run_pipeline(backend='dist') gave no cost")
+        log(f"dist run_pipeline(<path>, backend='dist', workers=8): "
+            f"{t_run:.3f} s (host clock), exec_time {rep.exec_time!r}, "
+            f"replication_factor {part.replication_factor!r}; cut equal to "
+            f"the two-phase W=8 cut of the 8-shard graph")
+        del g1, g8, cut1, fast, part, two_phase
+        small = os.path.join(tmp, f"synth_{DIST_LINES}_seed0.ndjson")
+        synthesize_trace(small, DIST_LINES, seed=0)
+        cuts = {}
+        for pool in ("thread", "process"):
+            for run in (1, 2):
+                t0 = time.perf_counter()
+                cuts[pool, run] = dist_vertex_cut(small, DIST_P, workers=4,
+                                                  pool=pool, **kw)
+                log(f"dist {DIST_LINES} lines W=4 {pool} pool run {run}: "
+                    f"{time.perf_counter() - t0:.3f} s (host clock)")
+        first = cuts["thread", 1]
+        check(all(_same_cut(c, first) for c in cuts.values()),
+              "W=4 differs across pool kinds or runs")
+        log(f"dist {DIST_LINES} lines W=4: {len(first.assignment)} edges, "
+            f"assignment, loads and replica CSR equal on the thread and "
+            f"process pools and across two runs each")
+        plan = plan_graph(small, DIST_P, backend="dist", workers=4)
+    log(f"dist fork warnings: {_fork_warnings(rec) or 'none'}")
+    got, t_cli = _port_cli("trace", "partition", small, "-p", str(DIST_P),
+                           "--workers", "4")
+    check(got["est_exec_time"] == plan.exec_time,
+          f"partition --workers 4 est_exec_time {got['est_exec_time']!r}, "
+          f"in-process {plan.exec_time!r}")
+    log(f"dist CLI partition -p {DIST_P} --workers 4: exit 0 in "
+        f"{t_cli:.3f} s (host clock, process start included), plan "
+        f"{json.dumps(got)}")
+    launches = read_launches()
+    check(launches == _expect(), f"the dist path launched {launches}")
+    log("dist path: no kernel launched (it maps and simulates on the host)")
+    os.remove(big)
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# 4d. the plan service and the incremental planner on the card
+# ---------------------------------------------------------------------- #
+def _same_bundle(a, b) -> bool:
+    return all(np.asarray(getattr(a, f)).dtype
+               == np.asarray(getattr(b, f)).dtype
+               and np.array_equal(getattr(a, f), getattr(b, f))
+               for f in CUT_FIELDS + ("core_of", "core_times")) and all(
+        getattr(a, f) == getattr(b, f)
+        for f in ("exec_time", "comm_bytes", "graph_name", "n_vertices",
+                  "total_weight", "p", "method", "lam"))
+
+
+def _same_plan(a, b) -> bool:
+    """Two incremental plans: the cut, core_of, core_times and exec_time
+    bit for bit (exec_time is the largest core time plus the sync term),
+    the comm bytes to rtol 1e-12 (a device sum may reassociate them)."""
+    (_, ca, ma, ra), (_, cb, mb, rb) = a, b
+    return (_same_cut(ca, cb) and np.array_equal(ma.core_of, mb.core_of)
+            and np.array_equal(ra.core_times, rb.core_times)
+            and ra.exec_time == rb.exec_time
+            and _close(ra.data_comm_bytes, rb.data_comm_bytes))
+
+
+def _incremental(windows, backend: str, warm_windows: int = 0):
+    """Feed `windows` to a fresh planner, planning after the first
+    `warm_windows` (the warm state); (plan, seconds of the appends and
+    the plan after the warm state, segment-sum launches of that plan)."""
+    from repro_torch.serve import IncrementalPlanner
+    pl = IncrementalPlanner(p=SERVE_P, lam=SERVE_LAM, backend=backend)
+    for window in windows[:warm_windows]:
+        pl.append(window)
+    if warm_windows:
+        pl.plan()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for window in windows[warm_windows:]:
+        pl.append(window)
+    zero_launches()
+    plan = pl.plan()
+    torch.cuda.synchronize()
+    return plan, time.perf_counter() - t0, read_launches()
+
+
+def phase_plan_service(tmp: str, trace: dict) -> dict:
+    """`PlanService` on the card over phase 4b's trace: cold, memory and
+    disk tiers; the incremental planner cold and warm; the Zipf mix."""
+    import io
+
+    from repro_torch.serve import PlanRequest, PlanService
+    from repro_torch.trace import synthesize_trace
+    out = {}
+    req = PlanRequest(trace["rtb"], p=SERVE_P, lam=SERVE_LAM)
+    cache = os.path.join(tmp, "plans_cuda")
+    svc = PlanService(cache_dir=cache, backend="cuda")
+    responses, times = {}, {}
+    from repro_torch import obs
+    for tier, service in (("cold", svc), ("memory", svc),
+                          ("disk", PlanService(cache_dir=cache))):
+        torch.cuda.synchronize()
+        zero_launches()
+        with obs.scoped(merge=False) as col:
             t0 = time.perf_counter()
-            fast = run_pipeline(rtb, p, "wb_libra", backend="fast")
-            t_fast = time.perf_counter() - t0
-            prof = os.path.join(tmp, f"profile_p{p}.json")
+            responses[tier] = service.plan(req)
             torch.cuda.synchronize()
-            zero_launches()
-            t0 = time.perf_counter()
-            cuda = run_pipeline(rtb, p, "wb_libra", backend="cuda",
-                                profile=prof)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = read_launches()
-            _compare(cuda, fast, p)
-            check(launches["segment_sum"] > 0
-                  and launches == _expect(
-                      segment_sum=launches["segment_sum"]),
-                  f"trace p={p}: launches {launches}")
-            out["launches"][p] = launches["segment_sum"]
-            out[p] = cuda[2].exec_time
-            doc = load_profile(prof)
-            events = events_from_chrome(doc)
-            names = {e["name"] for e in events}
-            want = {"pipeline.ingest", "trace.ingest", "pipeline.partition",
-                    "cut.stream", "cut.finalize", "map.cluster_graphs",
-                    "map.place", "sim.run"}
-            check(want <= names, f"profile lacks {sorted(want - names)}")
-            log(f"trace path p={p}: segment_sum launches "
-                f"{launches['segment_sum']}, exec_time "
-                f"{cuda[2].exec_time!r}, replication_factor "
-                f"{cuda[0].replication_factor!r}: bit-identical to fast; "
-                f"wall {wall:.6f} s, fast {t_fast:.6f} s (host clock, one "
-                f"run each, .rtb read included)")
-            summary = render_summary(summarize_events(events),
-                                     doc.get("repro", {}).get("counters"))
-            for line in summary.splitlines():
-                log(f"trace profile p={p} | {line}")
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
-            os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")))))
-        t0 = time.perf_counter()
-        cli = subprocess.run(
-            [sys.executable, "-m", "repro_torch.trace", "partition", rtb,
-             "-p", "64"], capture_output=True, text=True, timeout=600,
-            env=env)
-        t_cli = time.perf_counter() - t0
-        check(cli.returncode == 0,
-              f"partition CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
-        plan = json.loads(cli.stdout)
-        check(plan["est_exec_time"] == out[64],
-              f"partition CLI est_exec_time {plan['est_exec_time']!r}, "
-              f"in-process {out[64]!r}")
-        log(f"trace CLI partition -p 64: exit 0 in {t_cli:.3f} s (host "
-            f"clock, process start included), plan {json.dumps(plan)}")
+            times[tier] = time.perf_counter() - t0
+        log(f"serve {tier} spans (host s, count): "
+            f"{json.dumps(_span_totals(col.events))}")
+        launches = read_launches()
+        check(responses[tier].cache == tier,
+              f"expected a {tier} plan, got {responses[tier].cache}")
+        if tier == "cold":
+            out["launches_serve"] = launches["segment_sum"]
+            check(launches == _expect(segment_sum=out["launches_serve"])
+                  and out["launches_serve"] > 0,
+                  f"the cold plan launched {launches}")
+        else:
+            check(launches == _expect(), f"the {tier} hit launched "
+                  f"{launches}")
+    cold = responses["cold"]
+    check(all(_same_bundle(r.bundle, cold.bundle)
+              for r in responses.values()),
+          "the memory or disk bundle differs from the cold bundle")
+    t0 = time.perf_counter()
+    fast = PlanService(cache_dir=os.path.join(tmp, "plans_fast"),
+                       backend="fast").plan(req)
+    t_fast = time.perf_counter() - t0
+    b, f = cold.bundle, fast.bundle
+    check(fast.fingerprint == cold.fingerprint, "fingerprints differ")
+    check(all(np.array_equal(getattr(b, k), getattr(f, k))
+              for k in CUT_FIELDS + ("core_of", "core_times")),
+          "the cuda service's cold bundle differs from fast's")
+    check(_close(b.exec_time, f.exec_time)
+          and _close(b.comm_bytes, f.comm_bytes),
+          f"cost {b.exec_time!r}/{b.comm_bytes!r} vs fast "
+          f"{f.exec_time!r}/{f.comm_bytes!r}")
+    log(f"serve PlanService(backend='cuda') p={SERVE_P} lam={SERVE_LAM}: "
+        f"cold {times['cold']:.6f} s (segment_sum launches "
+        f"{out['launches_serve']}), memory {times['memory']:.6f} s, disk "
+        f"{times['disk']:.6f} s (0 launches each; host clock); bundles "
+        f"equal; cold {cold.summary()}")
+    log(f"serve fast service cold {t_fast:.6f} s: bundle equal to the cuda "
+        f"one (cut, core_of, core_times bit for bit; exec_time "
+        f"{'equal' if b.exec_time == f.exec_time else 'within 1e-12'})")
+    with open(trace["ndjson"]) as fh:
+        text = fh.readlines()
+    cut_at = int(len(text) * SERVE_WARM)
+    head, tail = "".join(text[:cut_at]), "".join(text[cut_at:])
+    del text
+    cold_plan, t_cold, l_cold = _incremental([io.StringIO(head + tail)],
+                                             "cuda")
+    warm_plan, t_warm, l_warm = _incremental(
+        [io.StringIO(head), io.StringIO(tail)], "cuda", warm_windows=1)
+    fast_plan, t_ifast, l_fast = _incremental([io.StringIO(head + tail)],
+                                              "fast")
+    del head, tail
+    check(l_cold["segment_sum"] > 0 and l_warm["segment_sum"] > 0,
+          f"the incremental plans launched {l_cold} and {l_warm}")
+    check(l_fast == _expect(), f"the fast planner launched {l_fast}")
+    check(_same_plan(warm_plan, cold_plan) and warm_plan[3].data_comm_bytes
+          == cold_plan[3].data_comm_bytes,
+          "the warm incremental plan differs from the cold one")
+    check(_same_plan(cold_plan, fast_plan),
+          "the cuda incremental plan differs from fast's")
+    exact = cold_plan[3].data_comm_bytes == fast_plan[3].data_comm_bytes
+    out["launches_incremental"] = l_cold["segment_sum"]
+    log(f"serve IncrementalPlanner p={SERVE_P}: cold (whole file) "
+        f"{t_cold:.3f} s, warm (last {1 - SERVE_WARM:.0%} after "
+        f"{SERVE_WARM:.0%}) {t_warm:.3f} s, speedup {t_cold / t_warm:.3f}x, "
+        f"fast cold {t_ifast:.3f} s (host clock, parse included); "
+        f"segment_sum launches {l_cold['segment_sum']} a plan; warm == cold "
+        f"== fast (cut, core_of, core_times, exec_time bit for bit; comm "
+        f"bytes {'equal' if exact else 'within 1e-12'}); exec_time "
+        f"{cold_plan[3].exec_time!r}, replication_factor "
+        f"{cold_plan[1].replication_factor!r}")
+    paths = []
+    for i in range(ZIPF_SOURCES):
+        path = os.path.join(tmp, f"zipf_{i}.ndjson")
+        synthesize_trace(path, ZIPF_LINES, seed=100 + i)
+        paths.append(path)
+    pop = 1.0 / np.arange(1, ZIPF_SOURCES + 1) ** ZIPF_EXPONENT
+    picks = np.random.default_rng(0).choice(
+        ZIPF_SOURCES, size=ZIPF_REQUESTS, p=pop / pop.sum())
+    zipf = PlanService(cache_dir=os.path.join(tmp, "plans_zipf"),
+                       max_hot_entries=ZIPF_HOT)
+    zero_launches()
+    t0 = time.perf_counter()
+    tiers = [zipf.plan(PlanRequest(paths[i], p=ZIPF_P,
+                                   lam=SERVE_LAM)).cache for i in picks]
+    torch.cuda.synchronize()
+    t_zipf = time.perf_counter() - t0
+    launches = read_launches()
+    m = zipf.metrics()
+    hits = sum(t != "cold" for t in tiers)
+    check(m["plans"] == ZIPF_REQUESTS and m["hits"] == hits
+          and m["misses"] == ZIPF_REQUESTS - hits
+          and m["hit_rate"] == round(hits / ZIPF_REQUESTS, 4)
+          and all(m["tiers"].get(t, {}).get("count", 0) == tiers.count(t)
+                  for t in ("cold", "memory", "disk"))
+          and m["evictions"] == zipf.cache.evictions,
+          f"metrics() disagree with the history: {m}")
+    check(m["hit_rate"] >= ZIPF_MIN_HIT_RATE and m["evictions"] > 0,
+          f"Zipf hit rate {m['hit_rate']}, evictions {m['evictions']}")
+    check(launches["segment_sum"] > 0
+          and launches == _expect(segment_sum=launches["segment_sum"]),
+          f"the Zipf mix launched {launches}")
+    log(f"serve Zipf mix: {ZIPF_REQUESTS} requests over {ZIPF_SOURCES} "
+        f"sources ({ZIPF_LINES} lines, p={ZIPF_P}, {ZIPF_HOT} hot entries) "
+        f"in {t_zipf:.3f} s (host clock): {json.dumps({t: tiers.count(t) for t in ('cold', 'memory', 'disk')})}, "
+        f"hit_rate {m['hit_rate']}, evictions {m['evictions']}, "
+        f"plans_per_s {m['plans_per_s']}, p50 {m['plan_latency_p50_us']} us, "
+        f"p99 {m['plan_latency_p99_us']} us, segment_sum launches "
+        f"{launches['segment_sum']}")
+    got, t_cli = _port_cli("serve", "--cache-dir",
+                           os.path.join(tmp, "plans_cli"), "plan",
+                           trace["rtb"], "-p", str(SERVE_P), "--lam",
+                           str(SERVE_LAM))
+    check(got == json.loads(json.dumps(cold.summary(), default=float)),
+          f"serve CLI plan {got} differs from {cold.summary()}")
+    log(f"serve CLI plan: exit 0 in {t_cli:.3f} s (host clock, process "
+        f"start included), the cold plan's summary")
     return out
 
 
@@ -1026,7 +1422,15 @@ def main() -> int:
     phase_build()
     max_abs_err = phase_kernel_vs_plain()
     runs = phase_main_path()
-    trace = phase_trace_path()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        t0 = time.perf_counter()
+        trace = phase_trace_path(tmp)
+        t1 = time.perf_counter()
+        phase_dist_path(tmp)
+        t2 = time.perf_counter()
+        serve = phase_plan_service(tmp, trace)
+        log(f"phase seconds: 4b {t1 - t0:.1f}, 4c {t2 - t1:.1f}, 4d "
+            f"{time.perf_counter() - t2:.1f}")
     errs = phase_model_kernels_vs_plain()
     prefill = phase_prefill(ARCH, N_PARAMS, PREFILL_B, PREFILL_S,
                             _expect(flash_attention=12, rglru=26))
@@ -1044,6 +1448,9 @@ def main() -> int:
                              reference=rwkv_logits_f64)
     kernels = phase_timing(runs, max_abs_err)
     kernels["kernels"][0]["launches_trace"] = trace["launches"]
+    kernels["kernels"][0]["launches_serve"] = serve["launches_serve"]
+    kernels["kernels"][0]["launches_incremental"] = \
+        serve["launches_incremental"]
     kernels["kernels"] += phase_model_timing(prefill, errs)
     kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
                                                 rwkv_err))

@@ -56,17 +56,14 @@ MAPPING_BACKENDS = ("fast", "reference", "cuda")
 def resolve_mapping_backend(backend: str) -> str:
     """Map a pipeline-level backend choice onto a mapping/sim engine.
 
-    The partitioner distinguishes "native"/"python" fast engines; the
-    mapping and simulator layers keep "reference" and "cuda" and run
-    everything else on the numpy fast path.  "dist", the sharded
-    partitioner, is not ported yet and raises.
+    The partitioner distinguishes "native"/"python" fast engines (plus
+    the sharded "dist" mode of `repro_torch.dist`, which runs on the
+    host); the mapping and simulator layers keep "reference" and "cuda"
+    and run everything else on the numpy fast path.
     """
-    if backend == "dist":
-        raise NotImplementedError(
-            "backend='dist' is not ported yet (ROADMAP.md, queue 1, item 7)")
-    if backend not in _PARTITIONER_BACKENDS:
+    if backend != "dist" and backend not in _PARTITIONER_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from "
-                         f"{_PARTITIONER_BACKENDS}")
+                         f"{_PARTITIONER_BACKENDS + ('dist',)}")
     return backend if backend in ("reference", "cuda") else "fast"
 
 

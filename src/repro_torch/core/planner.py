@@ -12,6 +12,7 @@ item 5).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 from .. import obs
 from .cuda import resolve_device
@@ -54,15 +55,28 @@ def plan_graph(g, p: int, method: str = "wb_libra",
     `backend` threads through every stage
     ("cuda"/"fast"/"native"/"python"/"reference"); "cuda", the default,
     keeps the finalize/metrics/simulator reductions on `device` (the
-    card unless the caller passes `device="cpu"`).  `workers`,
-    `merge_period` and `divergence` belong to `backend="dist"`, which is
-    not ported yet and raises.  The host backends ignore `device`."""
+    card unless the caller passes `device="cpu"`), and "dist" runs the
+    sharded streaming partitioner (`repro_torch.dist`, on the host) on
+    `workers` workers, ingesting trace paths through the parallel parse
+    front end (`workers=1` is bit-identical to "fast").  The host
+    backends ignore `device`."""
     map_backend = resolve_mapping_backend(backend)
     dev = resolve_device(device) if backend == "cuda" else None
     with obs.span("plan.cut", cat="section", backend=backend, p=p):
-        g = coerce_graph(g)
-        cut = vertex_cut(g, p, method=method, lam=lam, backend=backend,
-                         device=dev)
+        if backend == "dist":
+            if isinstance(g, (str, os.PathLike)) \
+                    and not os.fspath(g).endswith(".npz"):
+                from ..dist import dist_ingest
+                g = dist_ingest(g, workers=workers)
+            g = coerce_graph(g)
+            from ..dist import dist_vertex_cut
+            cut = dist_vertex_cut(g, p, method=method, lam=lam,
+                                  workers=workers, merge_period=merge_period,
+                                  divergence=divergence)
+        else:
+            g = coerce_graph(g)
+            cut = vertex_cut(g, p, method=method, lam=lam, backend=backend,
+                             device=dev)
     with obs.span("plan.map", cat="section", backend=map_backend):
         comm, shared = cluster_interaction_graphs(
             cut, p, vertex_bytes_model(g), backend=map_backend, device=dev)

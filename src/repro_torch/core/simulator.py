@@ -297,9 +297,13 @@ def run_pipeline(g, p: int, method: str, lam: float = 1.0,
     raises when no card is present), the kernels' plain versions on the
     host with `device="cpu"`.  The host backends ignore `device`.
 
-    `workers`, `merge_period` and `divergence` belong to
-    `backend="dist"`, which is not ported yet and raises
-    NotImplementedError.
+    "dist" is the sharded streaming partitioner of `repro_torch.dist`,
+    on the host: it ingests trace paths through the parallel parse front
+    end and runs the cut on `workers` shard workers merging every
+    `merge_period` edges — full state merges every round, or adaptively
+    when the per-cluster load drift exceeds `divergence` × the mean
+    cluster load (`workers=1` is bit-identical to "fast").  Its mapping
+    and simulator run on the host too, and it ignores `device`.
 
     `profile="out.json"` records the run's telemetry (ingest /
     partition / map / simulate stage spans plus every engine-level span
@@ -310,6 +314,7 @@ def run_pipeline(g, p: int, method: str, lam: float = 1.0,
     if profile is not None:
         with obs.profiled(profile):
             return run_pipeline(g, p, method, lam, machine, seed, backend,
+                                workers, merge_period, divergence,
                                 device=device)
     from .edge_cut import EDGE_CUT_METHODS, edge_cut as _edge_cut
     from .vertex_cut import ALGORITHMS, vertex_cut as _vertex_cut
@@ -318,14 +323,25 @@ def run_pipeline(g, p: int, method: str, lam: float = 1.0,
     map_backend = resolve_mapping_backend(backend)
     dev = resolve_device(device) if backend == "cuda" else None
     with obs.span("pipeline.ingest", cat="section", backend=backend):
+        if backend == "dist" and isinstance(g, (str, os.PathLike)) \
+                and not os.fspath(g).endswith(".npz"):
+            from ..dist import dist_ingest
+            g = dist_ingest(g, workers=workers)
         g = coerce_graph(g)
 
     machine = machine or Machine.for_clusters(p)
     if method in ALGORITHMS:
         with obs.span("pipeline.partition", cat="section", backend=backend,
                       method=method, p=p):
-            part = _vertex_cut(g, p, method=method, lam=lam, seed=seed,
-                               backend=backend, device=dev)
+            if backend == "dist":
+                from ..dist import dist_vertex_cut
+                part = dist_vertex_cut(g, p, method=method, lam=lam,
+                                       seed=seed, workers=workers,
+                                       merge_period=merge_period,
+                                       divergence=divergence)
+            else:
+                part = _vertex_cut(g, p, method=method, lam=lam, seed=seed,
+                                   backend=backend, device=dev)
         with obs.span("pipeline.map", cat="section", backend=map_backend):
             comm, shared = cluster_interaction_graphs(
                 part, p, vertex_bytes_model(g), backend=map_backend,

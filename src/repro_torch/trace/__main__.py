@@ -9,10 +9,11 @@
 a `.rtb` binary trace or an `.npz` IRGraph snapshot; `partition` runs
 the full partition -> map -> simulate pipeline on the ingested graph and
 prints the plan summary, on the card by default (`--device cpu` runs
-the kernels' plain versions, `--backend fast` the host engine); `synth`
-writes a deterministic synthetic trace.  `record` (a program's own
-trace) waits for program capture, and `--workers > 1` for the sharded
-parser: both raise, naming their ROADMAP.md item.
+the kernels' plain versions, `--backend fast` the host engine;
+`--workers W` > 1 parses on W sharded workers and cuts with the host
+`dist` backend); `synth` writes a deterministic synthetic trace.
+`record` (a program's own trace) waits for program capture and raises,
+naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ def _add_ingest_args(sp) -> None:
     sp.add_argument("--repeat", type=int, default=1,
                     help="replay each path this many times")
     sp.add_argument("--workers", type=int, default=1,
-                    help="1 = the sequential streaming ingester; more "
-                         "needs the sharded parser, not ported yet")
+                    help="parse (and for `partition`, also cut) the trace "
+                         "on this many sharded workers (repro_torch.dist); "
+                         "1 = the sequential streaming ingester")
 
 
 def _ingest(args, keep_labels: bool = False):
@@ -55,9 +57,9 @@ def _ingest(args, keep_labels: bool = False):
             sys.exit("--replay needs --cfg (path records)")
         return replay_trace(args.trace, args.cfg, repeat=args.repeat, **kw)
     if args.workers > 1:
-        raise NotImplementedError(
-            "--workers > 1 needs the sharded parser (dist), which is not "
-            "ported yet (ROADMAP.md, queue 1, item 7)")
+        from ..dist import dist_ingest_with_stats
+        return dist_ingest_with_stats(args.trace, workers=args.workers,
+                                      cfg=args.cfg, **kw)
     return ingest_trace_with_stats(args.trace, cfg=args.cfg, **kw)
 
 
@@ -90,8 +92,10 @@ def main(argv=None) -> int:
                     help="where the cuda backend runs: cuda (the card, the "
                          "default) or cpu (the kernels' plain versions)")
     sp.add_argument("--divergence", type=float, default=None,
-                    help="adaptive merge trigger of the dist backend (not "
-                         "ported yet)")
+                    help="adaptive merge trigger for the dist backend: "
+                         "defer full state merges until the per-cluster "
+                         "load drift exceeds this fraction of the mean "
+                         "cluster load (default: merge every round)")
     sp.add_argument("--profile", default=None, metavar="OUT.json",
                     help="write a Perfetto-loadable telemetry profile of "
                          "the ingest+partition run (render with `python "
@@ -133,8 +137,10 @@ def main(argv=None) -> int:
                 else contextlib.nullcontext())
         with prof:
             g, _ = _ingest(args)
+            backend = "dist" if args.workers > 1 else args.backend
             report = plan_graph(g, args.clusters, method=args.method,
-                                lam=args.lam, backend=args.backend,
+                                lam=args.lam, backend=backend,
+                                workers=args.workers,
                                 divergence=args.divergence,
                                 device=args.device)
         print(json.dumps(report.summary(), indent=2, default=float))

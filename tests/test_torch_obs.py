@@ -10,17 +10,13 @@ scoped merging, the Perfetto schema, the `REPRO_PROFILE` hook and
 `run_pipeline(profile=)`) are held as `tests/test_obs.py` and
 `tests/test_metrics.py` hold the reference's.
 
-Left out until their modules are ported (ROADMAP.md, queue 1):
-- the dist engine's spans, process-pool event merging, worker histograms
-  and the warning-origin cases (`test_disabled_records_nothing`,
-  `test_process_pool_event_merge_deterministic`, `test_dist_metrics_*`,
-  `test_repro_profile_process_pool_*`, `test_gil_warning_*`,
-  `test_process_fallback_warning_*`, and the real engine timeline of
-  `test_timeline_cli_from_bench_json`; its exporter is held here on a
-  fixed timeline): item 7;
-- the plan service's metrics and plan-cache accounting
-  (`test_plan_cache_*`, `test_service_*`, `test_cli_metrics_subcommand`):
-  item 8;
+The dist engine's telemetry (spans, process-pool event merging, worker
+histograms, `REPRO_PROFILE` under a process pool, the warnings' origin,
+a real engine timeline through the `timeline` CLI) is held in
+`tests/test_torch_dist.py`, and the plan service's metrics and plan-cache
+accounting in `tests/test_torch_serve.py`.
+
+Left out:
 - `benchmarks/check_regression.py --attribute` belongs to the JAX
   package's benchmarks, which are not ported.
 """

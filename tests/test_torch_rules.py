@@ -41,7 +41,9 @@ def _graph():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.obs, "
             "repro_torch.obs.__main__, repro_torch.trace, "
-            "repro_torch.trace.__main__, "
+            "repro_torch.trace.__main__, repro_torch.dist, "
+            "repro_torch.serve, repro_torch.serve.__main__, "
+            "repro_torch.checkpoint, "
             "repro_torch.core.cuda.metrics, repro_torch.configs, "
             "repro_torch.kernels, repro_torch.kernels.ops, "
             "repro_torch.models, repro_torch.models.convert, "
@@ -62,7 +64,8 @@ def test_no_source_line_imports_repro_or_jax():
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
     assert len(files) > 10
-    for sub in ("configs", "kernels", "models", "launch", "obs", "trace"):
+    for sub in ("configs", "kernels", "models", "launch", "obs", "trace",
+                "dist", "serve", "checkpoint"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     offending = []
     for path in files:
@@ -141,18 +144,18 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_unported_paths_raise_and_name_their_roadmap_item(tmp_path):
-    g = _graph()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
-        T.run_pipeline(g, 4, "wb_libra", backend="dist", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
-        T.plan_graph(g, 4, backend="dist", device="cpu")
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced_config
+    cfg = reduced_config(get_config("recurrentgemma-9b"))
+    model = models.Model(cfg, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 9"):
+        models.loss_fn(model, batch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
+        models.Model(reduced_config(get_config("dbrx-132b")), device="cpu")
     from repro_torch.trace.__main__ import main as trace_cli
-    trace = os.path.join(ROOT, "examples", "traces", "toy_loop.ndjson")
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 5"):
         trace_cli(["record", os.path.join(tmp_path, "r.ndjson")])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 7"):
-        trace_cli(["partition", trace, "-p", "4", "--workers", "2",
-                   "--device", "cpu"])
 
 
 def test_chip_smoke_fails_without_a_gpu(no_gpu):

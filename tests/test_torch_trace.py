@@ -10,10 +10,10 @@ exception class with the same message, and `.rtb` containers that either
 package writes read back by the other.  The cases mirror
 `tests/test_trace_ingest.py` and `tests/test_trace_fastpaths.py`.
 
+The sharded parser's cases (`--workers > 1`, `backend="dist"` on `.rtb`
+and `.zst` paths, `.rtb` with a cfg) are held in `tests/test_torch_dist.py`.
+
 Left out until their modules are ported (ROADMAP.md, queue 1):
-- the sharded parser, `--workers > 1` and `backend="dist"` on trace
-  paths (`test_binary_dist_workers_identical`, the `dist` halves of
-  `test_zstd_source_round_trips` and `test_binary_rejects_cfg`): item 7;
 - `record.py` and the jaxpr round trip of `mlp_jaxpr.ndjson` against the
   live tracer (`test_committed_example_traces`' last part): item 5; the
   port ingests the committed file and is held to the reference's graph;
