@@ -98,7 +98,32 @@ Phases, each reported on its own line(s):
    and RWKV6 also at its decode shape with s0 (`ms_decode`, the launch
    the launcher makes 2,048 times); then one JSON line `{"kernels":
    [...]}` with all four kernels (flash attention's bound on the tensor
-   cores, and on the CUDA cores as `bound_cuda_core_ms`).
+   cores, and on the CUDA cores as `bound_cuda_core_ms`), and since PR
+   18 the two backward kernels (six entries);
+12. backward kernels: flash attention's (`csrc/flash_attention_bwd.cu`)
+   on `FA_CASES` and at the two training paths' attention shapes (4 x
+   2,048, 15 heads of 64 on 5, causal; 1 x 3,072, 16 heads of 256 on 1,
+   window 2048), float32 and bfloat16, against the plain version's
+   autograd in float64 on the card (5e-5 and 2e-2 of max(1, max|g|)),
+   two calls bit-identical and the forward's output unchanged by its
+   log-sum-exp write; RG-LRU's (`csrc/rglru_bwd.cu`) at (1, 3,072,
+   4,096) with and without h0 alike, and at S = 1 on every float a in
+   [0, 1] (and outside it) equal to the float32 autograd, NaN and
+   infinities included;
+13. training path A: a train step through the kernels on a 4-layer
+   full-width smollm-360m held against `impl="ref"` (loss and grad_norm
+   to 1e-4 relative), then `make_train_step` on the whole model
+   (361,821,120 float32 parameters, 8 x 2,048 tokens in 2 microbatches,
+   AdamW with warm-up 2) for 8 steps: exactly 512 flash-attention
+   forward and 512 backward launches and no other kernel, finite losses,
+   the last below the first; step time, tokens/s and peak memory;
+14. training path B: recurrentgemma-9b at full width, one pattern period
+   (rec, rec, attn; 1,705,062,400 parameters), B = 1, S = 3,072, 3
+   steps: per step exactly 1 flash-attention forward and backward and 2
+   RG-LRU forward and backward launches, finite losses;
+15. the training CLI (`python -m repro_torch.launch.train`, reduced
+   smollm-360m on the card) twice on one `--ckpt-dir`: the second run
+   resumes from the first's checkpoint.
 
 The last line is `{"ok": true, "device": {...}}`.  Any failure raises
 and the script exits non-zero before that line.  It imports nothing of
@@ -176,6 +201,27 @@ RG_CASES = [RG_MAIN + ("float32",)] + [
     (1, 33, 33, "bfloat16"), (2, 3071, 96, "bfloat16"),
     (2, 3072, 4096, "bfloat16")]
 SERVE_TOL = 1e-3
+
+# training (PR 18).  Path A: smollm-360m whole (32 layers, d 960, 15
+# heads of 64 on 5 kv heads, float32, tied embeddings), 8 sequences of
+# 2,048 tokens (SmolLM's context) in 2 microbatches, 8 steps.  Path B:
+# recurrentgemma-9b at full width cut to one pattern period (rec, rec,
+# attn), B = 1, S = 3,072 (the 2,048 window bites), 3 steps.
+TRAIN_A_ARCH, TRAIN_A_PARAMS = "smollm-360m", 361_821_120
+TRAIN_A_B, TRAIN_A_S, TRAIN_A_MICRO, TRAIN_A_STEPS = 8, 2048, 2, 8
+TRAIN_A_CHECK_LAYERS = 4        # the kernels-against-ref train step
+TRAIN_B_ARCH, TRAIN_B_PARAMS = "recurrentgemma-9b", 1_705_062_400
+TRAIN_B_LAYERS, TRAIN_B_B, TRAIN_B_S, TRAIN_B_STEPS = 3, 1, 3072, 3
+TRAIN_LR, TRAIN_TOL = 1e-3, 1e-4
+# the backward kernels against their plain versions in float64 on the
+# card: (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype) at the
+# two paths' attention shapes, after FA_CASES
+FA_BWD_A = (TRAIN_A_B // TRAIN_A_MICRO, TRAIN_A_S, TRAIN_A_S, 15, 5, 64,
+            True, None, None, "float32")
+FA_BWD_B = (TRAIN_B_B, TRAIN_B_S, TRAIN_B_S, 16, 1, 256, True, 2048, None,
+            "float32")
+RG_BWD = (TRAIN_B_B, TRAIN_B_S, 4096)
+BWD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 
 GRAPH_N, GRAPH_ALPHA, GRAPH_SEED = 3_000_000, 2.2, 0
 P_MAIN = (1024, 64)
@@ -953,20 +999,26 @@ def phase_model_kernels_vs_plain() -> dict:
 # 6/9. the prefill path at full width
 # ---------------------------------------------------------------------- #
 def _counted():
-    """Every kernel wrapper's module, by kernel name (each has `launches`)."""
+    """Every kernel's launch counter, by kernel name: (its wrapper's
+    module, the counter's name there)."""
     from repro_torch.core.cuda import segsum
     from repro_torch.kernels import flash_attention, rglru, rwkv6
-    return {"segment_sum": segsum, "flash_attention": flash_attention,
-            "rglru": rglru, "rwkv6": rwkv6}
+    return {"segment_sum": (segsum, "launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "flash_attention_bwd": (flash_attention, "launches_bwd"),
+            "rglru": (rglru, "launches"),
+            "rglru_bwd": (rglru, "launches_bwd"),
+            "rwkv6": (rwkv6, "launches")}
 
 
 def zero_launches() -> None:
-    for module in _counted().values():
-        module.launches = 0
+    for module, attr in _counted().values():
+        setattr(module, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: module.launches for name, module in _counted().items()}
+    return {name: getattr(module, attr)
+            for name, (module, attr) in _counted().items()}
 
 
 def _expect(**counts) -> dict:
@@ -1185,6 +1237,348 @@ def phase_rwkv_kernel_vs_plain() -> float:
 
 
 # ---------------------------------------------------------------------- #
+# 12. the backward kernels against their plain versions
+# ---------------------------------------------------------------------- #
+def _grad_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), the tolerance's scale."""
+    want = want.double()
+    return float((got.double() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def _fa_bwd_check(case, seed: int = 0) -> float:
+    """Flash attention's backward kernel on `case` against the plain
+    version's autograd in float64: the scaled error of dq, dk and dv;
+    also two calls bit-identical and `out` the same with and without the
+    log-sum-exp write."""
+    from repro_torch.kernels import flash_attention as fa
+    causal, window, cap, dt = case[6:]
+    kw = dict(causal=causal, window=window, softcap=cap)
+    q, k, v = _fa_inputs(case, seed)
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device="cuda").manual_seed(seed + 1), device="cuda").to(q.dtype)
+    with torch.no_grad():
+        out_plain = fa.flash_attention(q, k, v, **kw)
+    grads = []
+    for _ in range(2):
+        qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_attention(*qkv, **kw)
+        check(torch.equal(out.detach(), out_plain),
+              f"flash attention {case}: out differs with the lse write")
+        out.backward(dout)
+        grads.append([x.grad for x in qkv])
+        del out, qkv
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*grads)),
+          f"flash attention backward {case}: two calls differ")
+    want = fa.flash_attention_bwd_plain(q.double(), k.double(), v.double(),
+                                        dout.double(), **kw)
+    err = max(_grad_err(g, w) for g, w in zip(grads[0], want))
+    check(all(g.dtype == q.dtype for g in grads[0]),
+          f"flash attention backward {case}: dtype")
+    check(err <= BWD_TOL[dt],
+          f"flash attention backward {case}: error {err!r}")
+    del q, k, v, dout, grads, want
+    return err
+
+
+def _rg_bwd_check(B: int, S: int, D: int, dtype, with_h0: bool) -> float:
+    """The RG-LRU backward kernel against the plain version's autograd in
+    float64 (dx, da, dh0); two calls bit-identical."""
+    from repro_torch.kernels import rglru
+    x, a, h0 = _rg_inputs(B, S, D, dtype=dtype, seed=3)
+    h0 = h0 if with_h0 else None
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dh = torch.randn((B, S, D), generator=g, device="cuda").to(dtype)
+    dlast = torch.randn((B, D), generator=g, device="cuda").to(dtype)
+    runs = []
+    for _ in range(2):
+        ins = [t.clone().requires_grad_(True) for t in (x, a)] + (
+            [h0.clone().requires_grad_(True)] if with_h0 else [])
+        h, last = rglru.rglru_scan(*ins)
+        torch.autograd.backward((h, last), (dh, dlast))
+        runs.append([t.grad for t in ins])
+    torch.cuda.synchronize()
+    check(all(torch.equal(p, q) for p, q in zip(*runs)),
+          "rglru backward: two calls differ")
+    want = rglru.rglru_bwd_plain(
+        x.double(), a.double(), h0.double() if with_h0 else None,
+        dh.double(), dlast.double())
+    err = max(_grad_err(gr, w) for gr, w in zip(runs[0], want))
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    check(err <= BWD_TOL[name], f"rglru backward B={B} S={S} D={D} "
+          f"{name} h0={with_h0}: error {err!r}")
+    return err
+
+
+def phase_backward_kernels_vs_plain() -> dict:
+    from repro_torch.kernels import rglru
+    worst = {}
+    for case in FA_CASES + [FA_BWD_A, FA_BWD_A[:9] + ("bfloat16",),
+                            FA_BWD_B, FA_BWD_B[:9] + ("bfloat16",)]:
+        err = _fa_bwd_check(case)
+        if case in (FA_BWD_A, FA_BWD_B):
+            worst[case] = err
+        log(f"kernel flash_attention_bwd {case}: scaled max error "
+            f"{err!r} (tolerance {BWD_TOL[case[-1]]} of max(1, max|g|)); "
+            f"two calls bit-identical; out unchanged by the lse write")
+        torch.cuda.empty_cache()
+    worst["flash_attention_bwd"] = worst[FA_BWD_A]
+    for dtype in (torch.float32, torch.bfloat16):
+        for with_h0 in (False, True):
+            err = _rg_bwd_check(*RG_BWD, dtype, with_h0)
+            if dtype == torch.float32 and not with_h0:
+                worst["rglru_bwd"] = err
+            log(f"kernel rglru_bwd B={RG_BWD[0]} S={RG_BWD[1]} "
+                f"D={RG_BWD[2]} {dtype} h0={with_h0}: scaled max error "
+                f"{err!r}; two calls bit-identical")
+    # the gate's gradient on every float a in [0, 1] (and outside it):
+    # S = 1, x = 1, h0 = 0, dh = 1, equal to the plain version's float32
+    # autograd, the infinite square-root gradient at a = 1 included
+    chunk = 1 << 26
+    edges = torch.tensor([-1.0, -0.5, 1.5, 2.0, -2.0], device="cuda")
+    for lo in range(0, 0x3F800001, chunk):
+        a = torch.arange(lo, min(lo + chunk, 0x3F800001), dtype=torch.int32,
+                         device="cuda").view(torch.float32)
+        if lo == 0:
+            a = torch.cat([a, edges])
+        a = a.view(1, 1, -1)
+        x, h0, dh = torch.ones_like(a), torch.zeros_like(a[:, 0]), \
+            torch.ones_like(a)
+        ins = [t.clone().requires_grad_(True) for t in (x, a, h0)]
+        h, last = rglru.rglru_scan(*ins)
+        torch.autograd.backward((h, last), (dh, torch.zeros_like(h0)))
+        want = rglru.rglru_bwd_plain(x, a, h0, dh, torch.zeros_like(h0))
+        for g, w in zip((t.grad for t in ins), want):
+            check(torch.equal(torch.isnan(g), torch.isnan(w))
+                  and torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)),
+                  f"rglru backward at the gate, a from {lo:#x}: differs")
+        del a, x, h0, dh, ins, h, last, want
+    log("kernel rglru_bwd gate of every float a in [0, 1] (and -1, -0.5, "
+        "1.5, 2, -2): dx, da, dh0 equal to the plain version's float32 "
+        "autograd, NaN and infinities included")
+    torch.cuda.empty_cache()
+    return worst
+
+
+# ---------------------------------------------------------------------- #
+# 13/14. the training paths at full width
+# ---------------------------------------------------------------------- #
+def _train_batches(cfg, B: int, S: int, n_micro: int, steps: int) -> list:
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0))
+    return [{"tokens": torch.as_tensor(
+        data.batch(s, n_micro=n_micro)["tokens"]).cuda()}
+        for s in range(steps)]
+
+
+def _train_model(cfg, n_params: int, seed: int = 0):
+    from repro_torch import models
+    model = models.Model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed)).requires_grad_(True)
+    n = sum(p.numel() for p in model.parameters())
+    check(n == n_params, f"{cfg.name}: expected {n_params} parameters, "
+          f"built {n}")
+    return model
+
+
+def _run_steps(cfg, model, batches, n_micro: int, steps: int,
+               impl: str = "auto") -> tuple[list, list]:
+    """`make_train_step` over `batches`: (per-step metrics as floats,
+    per-step host seconds after a synchronize)."""
+    from repro_torch import models
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=steps)
+    step = make_train_step(cfg, opt_cfg,
+                           ParallelConfig(microbatches=n_micro), impl=impl)
+    opt = adamw_init(models.param_tree(model), opt_cfg)
+    metrics, seconds = [], []
+    for batch in batches[:steps]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    del opt
+    return metrics, seconds
+
+
+def _profile_step(cfg, model, batch, n_micro: int, top: int = 10) -> dict:
+    """One more train step under `torch.profiler`: the device time by
+    kernel (the `top` largest logged), the share of the flash-attention
+    kernels and the device's idle share of the step's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _run_steps(cfg, model, [batch], n_micro, 1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []      # the kernels' own events (an operator's device time
+    for ev in prof.key_averages():      # repeats its kernels')
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((ev.key, ev.count, dev_us / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    fa_fwd = sum(r[2] for r in rows if "fa_kernel" in r[0])
+    fa_bwd = sum(r[2] for r in rows if any(
+        k in r[0] for k in ("dkdv_kernel", "dq_kernel", "delta_kernel",
+                            "reduce_kernel")))
+    log(f"train step profile {cfg.name}: wall {wall_ms:.3f} ms, device "
+        f"busy {busy:.3f} ms (idle {max(0.0, 1 - busy / wall_ms):.4f} of "
+        f"the wall); flash attention forward {fa_fwd:.3f} ms, backward "
+        f"{fa_bwd:.3f} ms ({fa_bwd / busy:.4f} of the device time)")
+    for name, count, ms in rows[:top]:
+        log(f"train step profile {cfg.name}: {ms:.3f} ms ({ms / busy:.4f})"
+            f" x{count} {name[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "fa_fwd_ms": fa_fwd,
+            "fa_bwd_ms": fa_bwd}
+
+
+def phase_train_a() -> dict:
+    """Path A: the kernels' train step held against impl="ref" on a
+    4-layer full-width copy, then 8 steps of the whole model."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import tree_map
+    cfg = get_config(TRAIN_A_ARCH)
+    batches = _train_batches(cfg, TRAIN_A_B, TRAIN_A_S, TRAIN_A_MICRO,
+                             TRAIN_A_STEPS)
+    small = dataclasses.replace(cfg, n_layers=TRAIN_A_CHECK_LAYERS)
+    base = models.Model(small, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1))
+    got = {}
+    for impl in ("auto", "ref"):     # each on its own copy of the weights
+        model = models.Model(small, device="cuda", params=tree_map(
+            lambda w: w.detach().clone(), models.param_tree(base)))
+        model.requires_grad_(True)
+        got[impl] = _run_steps(small, model, batches, TRAIN_A_MICRO, 1,
+                               impl=impl)[0][0]
+        del model
+        torch.cuda.empty_cache()
+    for key in ("loss", "grad_norm"):
+        rel = abs(got["auto"][key] - got["ref"][key]) / abs(got["ref"][key])
+        check(rel <= TRAIN_TOL, f"train step {TRAIN_A_CHECK_LAYERS}-layer "
+              f"{cfg.name}: {key} {got['auto'][key]!r} through the kernels, "
+              f"{got['ref'][key]!r} through impl='ref' ({rel!r})")
+    log(f"train step check {cfg.name} {TRAIN_A_CHECK_LAYERS} layers at "
+        f"full width, B={TRAIN_A_B} S={TRAIN_A_S} in {TRAIN_A_MICRO} "
+        f"microbatches: kernels loss {got['auto']['loss']!r} grad_norm "
+        f"{got['auto']['grad_norm']!r}; impl='ref' loss "
+        f"{got['ref']['loss']!r} grad_norm {got['ref']['grad_norm']!r} "
+        f"(tolerance {TRAIN_TOL} relative)")
+    del base
+    torch.cuda.empty_cache()
+
+    model = _train_model(cfg, TRAIN_A_PARAMS)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    metrics, seconds = _run_steps(cfg, model, batches, TRAIN_A_MICRO,
+                                  TRAIN_A_STEPS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = TRAIN_A_STEPS * TRAIN_A_MICRO * cfg.n_layers
+    expect = _expect(flash_attention=n, flash_attention_bwd=n)
+    check(launches == expect, f"path A launches {launches}, expected "
+          f"{expect}")
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(losses)), f"path A losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"path A loss did not fall: {losses}")
+    _profile_step(cfg, model, batches[0], TRAIN_A_MICRO)
+    steady = float(np.mean(seconds[1:]))
+    tokens = TRAIN_A_B * TRAIN_A_S
+    log(f"train path A {cfg.name} ({TRAIN_A_PARAMS} float32 parameters, "
+        f"{cfg.n_layers} layers) B={TRAIN_A_B} S={TRAIN_A_S} in "
+        f"{TRAIN_A_MICRO} microbatches, {TRAIN_A_STEPS} steps: losses "
+        f"{[round(x, 6) for x in losses]}; launches {json.dumps(launches)}")
+    log(f"train path A wall (host clock after synchronize): step seconds "
+        f"{[round(s, 6) for s in seconds]}; steps 2-{TRAIN_A_STEPS} mean "
+        f"{steady:.6f} s ({tokens / steady:.1f} tokens/s); peak device "
+        f"memory {peak:.3f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_s": steady, "peak_gb": peak,
+            "per_step": {k: v // TRAIN_A_STEPS for k, v in launches.items()}}
+
+
+def phase_train_b() -> dict:
+    """Path B: recurrentgemma-9b at full width, one pattern period."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(TRAIN_B_ARCH),
+                              n_layers=TRAIN_B_LAYERS)
+    batches = _train_batches(cfg, TRAIN_B_B, TRAIN_B_S, 1, TRAIN_B_STEPS)
+    model = _train_model(cfg, TRAIN_B_PARAMS)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    metrics, seconds = _run_steps(cfg, model, batches, 1, TRAIN_B_STEPS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_rec = model.kinds.count("rec")
+    n_attn = len(model.kinds) - n_rec
+    s = TRAIN_B_STEPS
+    expect = _expect(flash_attention=n_attn * s,
+                     flash_attention_bwd=n_attn * s, rglru=n_rec * s,
+                     rglru_bwd=n_rec * s)
+    check(launches == expect, f"path B launches {launches}, expected "
+          f"{expect}")
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(losses)), f"path B losses not finite: {losses}")
+    _profile_step(cfg, model, batches[0], 1)
+    steady = float(np.mean(seconds[1:]))
+    log(f"train path B {cfg.name} at full width, layers {model.kinds} "
+        f"({TRAIN_B_PARAMS} float32 parameters) B={TRAIN_B_B} "
+        f"S={TRAIN_B_S}, {s} steps: losses {[round(x, 6) for x in losses]};"
+        f" launches {json.dumps(launches)}")
+    log(f"train path B wall (host clock after synchronize): step seconds "
+        f"{[round(x, 6) for x in seconds]}; steps 2-{s} mean {steady:.6f} "
+        f"s ({TRAIN_B_B * TRAIN_B_S / steady:.1f} tokens/s); peak device "
+        f"memory {peak:.3f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_s": steady, "peak_gb": peak,
+            "per_step": {k: v // s for k, v in launches.items()}}
+
+
+# ---------------------------------------------------------------------- #
+# 15. the training CLI, resumed from its checkpoint
+# ---------------------------------------------------------------------- #
+def phase_train_cli(tmp: str) -> None:
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")))))
+    ck = os.path.join(tmp, "train_ckpt")
+    outs = []
+    for steps in (4, 6):
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "smollm-360m", "--reduced", "--steps", str(steps), "--batch",
+             "8", "--seq", "256", "--log-every", "1", "--ckpt-dir", ck],
+            capture_output=True, text=True, timeout=600, env=env)
+        check(cli.returncode == 0, f"train CLI exited {cli.returncode}: "
+              f"{cli.stderr[-2000:]}")
+        outs.append((cli.stdout, time.perf_counter() - t0))
+    check("resumed from step" not in outs[0][0],
+          "the first train CLI run resumed")
+    check("resumed from step 4" in outs[1][0] and "step     5 " in
+          outs[1][0], f"the second train CLI run did not resume: "
+          f"{outs[1][0][-500:]}")
+    for out, secs in outs:
+        log(f"train CLI ({secs:.1f} s with the process start): "
+            + " | ".join(out.strip().splitlines()[-3:]))
+
+
+# ---------------------------------------------------------------------- #
 # 11. timing of the segment sum at the partition path's largest shapes
 # ---------------------------------------------------------------------- #
 def _cuda_ms(fn, reps: int = 20) -> float:
@@ -1360,6 +1754,106 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
     return [fa_entry, rg_entry]
 
 
+def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
+    """The backward kernels at the training paths' shapes: flash
+    attention's at path A's attention layer, RG-LRU's at path B's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru
+    F = torch.nn.functional
+    B, Sq, Sk, Hq, Hkv, D = FA_BWD_A[:6]
+    q, k, v = _fa_inputs(FA_BWD_A)
+    dout = torch.randn_like(q)
+    scale = D ** -0.5
+    out, lse = fa._launch(q, k, v, True, None, None, scale, 0,
+                          with_lse=True)
+    ms = _cuda_ms(lambda: fa._launch_bwd(q, k, v, out, dout, lse, True,
+                                         None, None, scale, 0), reps=10)
+    ms_fwd = _cuda_ms(lambda: fa._launch(q, k, v, True, None, None, scale,
+                                         0, with_lse=True), reps=10)
+    plain_ms = _host_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, dout, causal=True))
+    # the yardstick: the backward of one PyTorch call, explicit causal mask
+    pos = torch.arange(Sq, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                        enable_gqa=True)
+    dt_ = dout.transpose(1, 2).contiguous()
+    library_ms = _cuda_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dt_, retain_graph=True), reps=10)
+    pairs = B * Hq * Sq * (Sq + 1) // 2
+    ops = 10 * D * pairs        # S, dP, dV, dK, dQ: five products of D
+    t_ops = 3 * ops / PEAK_TF32_OPS_PER_S * 1e3
+    nbytes = 4 * (4 * B * Sq * Hq * D + 4 * B * Sk * Hkv * D + B * Hq * Sq)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    fa_entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29 (its "
+                    "gradient; the JAX package differentiates "
+                    "attention_ref, src/repro/kernels/ops.py:96-118)",
+        "launches": train_a["per_step"]["flash_attention_bwd"],
+        "launches_path": train_a["launches"]["flash_attention_bwd"],
+        "max_abs_err": errs["flash_attention_bwd"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_cuda_core_ms": ops / PEAK_F32_OPS_PER_S * 1e3,
+        "library_ms": library_ms,
+        "ms_forward_with_lse": ms_fwd,
+        "shape": f"q, dout [{B},{Sq},{Hq},{D}] k/v [{B},{Sk},{Hkv},{D}] "
+                 f"float32, causal (one smollm-360m layer, one microbatch)",
+        "library": "backward of scaled_dot_product_attention, explicit "
+                   "bool mask, enable_gqa (timed only)",
+        "plain_on": "the card (autograd of attention_ref)",
+        "launches_note": "per train step of path A (32 layers x 2 "
+                         "microbatches); launches_path over its 8 steps",
+        "max_abs_err_note": "scaled: max|err| / max(1, max|g|) against "
+                            "float64"}
+    del q, k, v, dout, out, lse, qt, kt, vt, ot, dt_, mask
+    torch.cuda.empty_cache()
+
+    B, S, D = RG_BWD
+    x, a, _ = _rg_inputs(B, S, D)
+    h, _ = rglru._launch(x, a, None)
+    dh, dlast = torch.randn_like(x), torch.randn((B, D), device="cuda")
+    ms = _cuda_ms(lambda: rglru._launch_bwd(x, a, None, h, dh, dlast),
+                  reps=10)
+    plain_ms = _host_ms(lambda: rglru.rglru_bwd_plain(x, a, None, dh,
+                                                      dlast))
+    n = B * S * D
+    t_bytes = 4 * (6 * n + B * D) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 15 * n / PEAK_F32_OPS_PER_S * 1e3
+    rg_entry = {
+        "name": "rglru_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_bwd.cu",
+        "replaces": "src/repro/kernels/rglru.py:25 (its gradient; the JAX "
+                    "package differentiates rglru_ref, "
+                    "src/repro/kernels/ops.py:124-130)",
+        "launches": train_b["per_step"]["rglru_bwd"],
+        "launches_path": train_b["launches"]["rglru_bwd"],
+        "max_abs_err": errs["rglru_bwd"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the recurrence "
+                   "or its gradient",
+        "shape": f"x, a, h, dh [{B},{S},{D}] float32, no h0 (one "
+                 f"recurrentgemma-9b layer)",
+        "plain_on": "the card (autograd of rglru_ref)",
+        "launches_note": "per train step of path B (2 recurrent layers); "
+                         "launches_path over its 3 steps",
+        "max_abs_err_note": "scaled: max|err| / max(1, max|g|) against "
+                            "float64"}
+    del x, a, h, dh, dlast
+    torch.cuda.empty_cache()
+    for e in (fa_entry, rg_entry):
+        log(f"timing {e['name']} at {e['shape']}: kernel {e['ms']!r} ms, "
+            f"plain {e['plain_ms']!r} ms, bound {e['bound_ms']!r} ms "
+            f"({e['bound_by']}), library {e['library_ms']!r} ms")
+    return [fa_entry, rg_entry]
+
+
 def _rwkv_bound(B: int, S: int, H: int, Dk: int, Dv: int,
                 size: int) -> tuple[float, str]:
     """Least time for one WKV scan without s0: r, k, w, v read once, out
@@ -1446,6 +1940,17 @@ def main() -> int:
                              note=" (one per layer and decode step, with "
                                   "the cached state as s0)",
                              reference=rwkv_logits_f64)
+    t0 = time.perf_counter()
+    bwd_errs = phase_backward_kernels_vs_plain()
+    t1 = time.perf_counter()
+    train_a = phase_train_a()
+    t2 = time.perf_counter()
+    train_b = phase_train_b()
+    t3 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        phase_train_cli(tmp)
+    log(f"phase seconds: 12 {t1 - t0:.1f}, 13 {t2 - t1:.1f}, 14 "
+        f"{t3 - t2:.1f}, 15 {time.perf_counter() - t3:.1f}")
     kernels = phase_timing(runs, max_abs_err)
     kernels["kernels"][0]["launches_trace"] = trace["launches"]
     kernels["kernels"][0]["launches_serve"] = serve["launches_serve"]
@@ -1454,7 +1959,8 @@ def main() -> int:
     kernels["kernels"] += phase_model_timing(prefill, errs)
     kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
                                                 rwkv_err))
-    check(len(kernels["kernels"]) == 4, "the kernels line lists four")
+    kernels["kernels"] += phase_train_timing(train_a, train_b, bwd_errs)
+    check(len(kernels["kernels"]) == 6, "the kernels line lists six")
     check(not any(m in sys.modules for m in ("jax", "repro")),
           "the port imported JAX or the JAX package")
     log(f"chip_smoke: all phases passed in "

@@ -2,9 +2,9 @@
 
 Every `csrc/*.cu` source is compiled for `sm_90a` into one shared library
 with a plain C interface, at first use, into `build/repro_torch/` of the
-checkout (`_native.build_root()`), named by a hash of the sources and the
-flags so that an edited source is rebuilt and a stale library is never
-loaded.  The sources compile at the same time, one nvcc each, and are
+checkout (`_native.build_root()`), named by a hash of the sources, the
+headers they include (`csrc/*.cuh`) and the flags, so that an edited
+source is rebuilt and a stale library is never loaded.  The sources compile at the same time, one nvcc each, and are
 linked into a temporary file that is renamed into place, so processes that
 build at the same time never load a half-written file.
 
@@ -23,7 +23,8 @@ import tempfile
 
 from .._native import build_root
 
-__all__ = ["NVCC_FLAGS", "sources", "build_library", "load_library"]
+__all__ = ["NVCC_FLAGS", "sources", "headers", "build_library",
+           "load_library"]
 
 # no --use_fast_math; --fmad=false keeps every add an add (bit-identity
 # with the host engines rests on the exact order and rounding of the adds);
@@ -37,11 +38,19 @@ NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 _lib: "ctypes.CDLL | None" = None
 
 
+def _csrc() -> str:
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "csrc")
+
+
 def sources() -> list[str]:
     """The kernel sources, `src/repro_torch/csrc/*.cu`, in name order."""
-    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "csrc")
-    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
+    return sorted(glob.glob(os.path.join(_csrc(), "*.cu")))
+
+
+def headers() -> list[str]:
+    """The headers the sources include, `src/repro_torch/csrc/*.cuh`."""
+    return sorted(glob.glob(os.path.join(_csrc(), "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -63,7 +72,7 @@ def build_library() -> tuple[str, str]:
     if not srcs:
         raise RuntimeError("no CUDA sources found beside the package")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
+    for path in srcs + headers():
         with open(path, "rb") as f:
             digest.update(f.read())
     root = build_root()
@@ -117,14 +126,25 @@ def load_library() -> ctypes.CDLL:
         signatures = {
             # data, ids, m, out, num_segments, scratch, stream
             ("segsum_f64", "segsum_i64"): [vp, vp, i64, vp, i64, vp, vp],
-            # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, has_window,
-            # window, has_softcap, softcap, scale, q_offset, stream
+            # q, k, v, out, lse (may be null), B, Sq, Sk, Hq, Hkv, D,
+            # causal, has_window, window, has_softcap, softcap, scale,
+            # q_offset, stream
             ("flash_attention_f32", "flash_attention_bf16"):
-                [vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i32, i32,
+                [vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i32, i32,
                  i64, i32, f32, f32, i64, vp],
+            # q, k, v, out, dout, lse, delta, dk_h, dv_h (scratch), dq, dk,
+            # dv, B, Sq, Sk, Hq, Hkv, D, causal, has_window, window,
+            # has_softcap, softcap, scale, q_offset, stream
+            ("flash_attention_bwd_f32", "flash_attention_bwd_bf16"):
+                [vp] * 12 + [i64, i64, i64, i64, i64, i64, i32, i32, i64,
+                             i32, f32, f32, i64, vp],
             # x, a, h0 (may be null), h, h_last, B, S, D, stream
             ("rglru_f32", "rglru_bf16"):
                 [vp, vp, vp, vp, vp, i64, i64, i64, vp],
+            # x, a, h0, h, dh, dh_last, dx, da, dh0 (h0, dh_last and dh0
+            # may be null), B, S, D, stream
+            ("rglru_bwd_f32", "rglru_bwd_bf16"):
+                [vp] * 9 + [i64, i64, i64, vp],
             # r, k, v, w, u, s0 (may be null), out, s_last, B, S, H, Dk,
             # Dv, stream
             ("rwkv6_f32", "rwkv6_bf16"):

@@ -1,8 +1,10 @@
-"""The CUDA kernels are forward only: a wrapper refuses a tensor that
-autograd would follow, instead of returning an output with no
-`grad_fn` (the kernels fill fresh outputs through ctypes).  Their
-backward comes with training (ROADMAP.md, queue 1, item 9); until then a
-caller that needs gradients runs the plain versions on CPU tensors."""
+"""Only the RWKV6 kernel lacks a backward now (flash attention and RG-LRU
+have theirs, `csrc/flash_attention_bwd.cu` and `csrc/rglru_bwd.cu`): its
+wrapper refuses a tensor that autograd would follow, instead of returning
+an output with no `grad_fn` (the kernel fills fresh outputs through
+ctypes).  The RWKV6 backward comes with the rest of training (ROADMAP.md,
+queue 1, item 9); until then a caller that needs its gradients runs the
+plain version on CPU tensors."""
 from __future__ import annotations
 
 import torch

@@ -1,5 +1,4 @@
-"""Flash attention (forward): the CUDA kernel's wrapper and its plain
-version.
+"""Flash attention: the CUDA kernels' wrapper and their plain versions.
 
 `flash_attention` takes the JAX package's layout, q [B, Sq, Hq, D] and
 k/v [B, Sk, Hkv, D], and returns [B, Sq, Hq, D] in q's dtype.  On a CUDA
@@ -9,34 +8,46 @@ which replaces the Pallas kernel `_fa_kernel` of
 version, `attention_ref`.  There is no other path: a CUDA tensor that the
 kernel cannot take raises.
 
-A tensor off the CPU that requires grad while autograd records raises
-too: the kernel has no backward yet (`_grad.refuse_grad`).
+It is differentiable on the card too.  When autograd records and an
+input requires grad, the call goes through a `torch.autograd.Function`:
+the forward kernel also writes each row's log-sum-exp, and the backward
+launches the kernels of `csrc/flash_attention_bwd.cu` (the Pallas kernel
+has none; the JAX package differentiates `attention_ref` instead, and
+`flash_attention_bwd_plain` is that gradient, the autograd of the plain
+forward).  Otherwise the forward launches without the log-sum-exp, and
+its output is the same.
 
-What the kernel takes: float32 or bfloat16, q, k and v of one dtype, on
+What the kernels take: float32 or bfloat16, q, k and v of one dtype, on
 one card, contiguous and 16-byte aligned, with D one of `HEAD_DIMS` and
-Hq a multiple of Hkv.  It supports the causal mask, a sliding window
+Hq a multiple of Hkv.  They support the causal mask, a sliding window
 (`k_pos > q_pos - window`), a tanh logit softcap, GQA (head h reads kv
 head h // (Hq // Hkv)) and a static `q_offset` (the absolute position of
-q[:, 0]).
+q[:, 0]).  The gradients come back in the inputs' dtype; a row that the
+mask hides entirely gets a zero gradient.
 
-`launches` counts the kernel launches; a run sets it to 0 and reads it
-back to show that a path went through the kernel.
+`launches` counts the forward kernel's launches and `launches_bwd` the
+backward's (one a backward call); a run sets them to 0 and reads them
+back to show that a path went through the kernels.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..core.cuda import _build
-from ._grad import refuse_grad
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_bwd_plain", "HEAD_DIMS"]
 
 launches = 0
+launches_bwd = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
 _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
+_BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
+                torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None,
@@ -44,6 +55,19 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None,
     """The plain version: `attention_ref`, on the tensors' own device."""
     return attention_ref(q, k, v, causal=causal, window=window,
                          softcap=softcap, scale=scale, q_offset=q_offset)
+
+
+def flash_attention_bwd_plain(q, k, v, dout, *, causal=True, window=None,
+                              softcap=None, scale=None, q_offset: int = 0):
+    """The plain backward: (dq, dk, dv), the autograd of the plain
+    forward given the gradient `dout` of its output, on the tensors' own
+    device."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_plain(*qkv, causal=causal, window=window,
+                                    softcap=softcap, scale=scale,
+                                    q_offset=q_offset)
+        return torch.autograd.grad(out, qkv, dout)
 
 
 def _check(q, k, v, window, q_offset) -> None:
@@ -66,7 +90,10 @@ def _check(q, k, v, window, q_offset) -> None:
         raise TypeError("window must be an int or None")
 
 
-def _launch(q, k, v, causal, window, softcap, scale, q_offset):
+def _launch(q, k, v, causal, window, softcap, scale, q_offset,
+            with_lse: bool = False):
+    """The forward kernel: out, and with `with_lse` also the rows'
+    log-sum-exp [B, Hq, Sq] (float32) for the backward."""
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, "
@@ -84,14 +111,17 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset):
             raise ValueError("q, k and v must be contiguous and 16-byte "
                              "aligned")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     if Sk == 0:
         raise ValueError("the kernel needs at least one key")
     fn = getattr(_build.load_library(), _ENTRIES[q.dtype])
     with torch.cuda.device(q.device):   # launch on the tensors' card
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if lse is not None else None,
                 B, Sq, Sk, Hq, Hkv, D, int(causal),
                 int(window is not None), window or 0,
                 int(softcap is not None), float(softcap or 0.0), scale,
@@ -100,7 +130,60 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset):
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"CUDA error {rc}")
     launches += 1
-    return out
+    return out, lse
+
+
+def _launch_bwd(q, k, v, out, dout, lse, causal, window, softcap, scale,
+                q_offset):
+    """The backward kernels: (dq, dk, dv) in the inputs' dtype."""
+    global launches_bwd
+    dout = dout.to(q.dtype).contiguous()
+    if dout.shape != out.shape or dout.data_ptr() % 16:
+        raise ValueError(f"the gradient of the output must be "
+                         f"{tuple(out.shape)} and 16-byte aligned")
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if out.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, Hq, Sq), **f32)
+    dk_h = torch.empty((B, Sk, Hq, D), **f32)
+    dv_h = torch.empty((B, Sk, Hq, D), **f32)
+    fn = getattr(_build.load_library(), _BWD_ENTRIES[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta,
+                                         dk_h, dv_h, dq, dk, dv)),
+                B, Sq, Sk, Hq, Hkv, D, int(causal),
+                int(window is not None), window or 0,
+                int(softcap is not None), float(softcap or 0.0), scale,
+                q_offset, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch "
+                           f"failed: CUDA error {rc}")
+    launches_bwd += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its log-sum-exp, the backward kernels for
+    the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
+        out, lse = _launch(q, k, v, causal, window, softcap, scale,
+                           q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, softcap, scale, q_offset)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_launch_bwd(q, k, v, out, dout, lse, *ctx.args),
+                None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -110,15 +193,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D].
 
-    Scale defaults to D ** -0.5.  The kernel's output on a CUDA tensor,
-    the plain version's on a CPU tensor.
+    Scale defaults to D ** -0.5.  The kernel's output on a CUDA tensor
+    (differentiable through the backward kernels), the plain version's on
+    a CPU tensor.
     """
     _check(q, k, v, window, q_offset)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type != "cpu":
-        refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
                                      q_offset=q_offset)
-    return _launch(q, k, v, causal, window, softcap, scale, q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                     q_offset)
+    return _launch(q, k, v, causal, window, softcap, scale, q_offset)[0]

@@ -10,8 +10,11 @@ inside the kernel, in float32; on a CPU tensor it runs the plain version,
 `rglru_ref`.  There is no other path: a CUDA tensor that the kernel
 cannot take raises.
 
-A tensor off the CPU that requires grad while autograd records raises
-too: the kernel has no backward yet (`_grad.refuse_grad`).
+It is differentiable on the card too: when autograd records and an input
+requires grad, the call goes through a `torch.autograd.Function` whose
+backward launches the hand-written kernel `csrc/rglru_bwd.cu` (the Pallas
+kernel has none; the JAX package differentiates `rglru_ref` instead, and
+`rglru_bwd_plain` is that gradient, the autograd of the plain forward).
 
 What the kernel takes: x and a of one dtype, float32 or bfloat16,
 contiguous, on one card; h0, when given, is read as float32.  It streams
@@ -20,27 +23,44 @@ h are 16-byte aligned, and element by element otherwise (the kernel's
 launch picks the path); h and h_last equal the plain version's bit for
 bit in float32.
 
-`launches` counts the kernel launches; a run sets it to 0 and reads it
-back to show that a path went through the kernel.
+`launches` counts the forward kernel's launches and `launches_bwd` the
+backward's; a run sets them to 0 and reads them back to show that a path
+went through the kernels.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..core.cuda import _build
-from ._grad import refuse_grad
 from .ref import rglru_ref
 
-__all__ = ["rglru_scan", "rglru_plain"]
+__all__ = ["rglru_scan", "rglru_plain", "rglru_bwd_plain"]
 
 launches = 0
+launches_bwd = 0
 
 _ENTRIES = {torch.float32: "rglru_f32", torch.bfloat16: "rglru_bf16"}
+_BWD_ENTRIES = {torch.float32: "rglru_bwd_f32",
+                torch.bfloat16: "rglru_bwd_bf16"}
 
 
 def rglru_plain(x, a, h0=None):
     """The plain version: `rglru_ref`, on the tensors' own device."""
     return rglru_ref(x, a, h0=h0)
+
+
+def rglru_bwd_plain(x, a, h0, dh, dh_last):
+    """The plain backward: (dx, da, dh0), the autograd of the plain forward
+    given the gradients of h and h_last (dh0 None without h0), on the
+    tensors' own device."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, a)]
+        if h0 is not None:
+            ins.append(h0.detach().requires_grad_(True))
+        h, h_last = rglru_plain(*ins)
+        grads = torch.autograd.grad((h, h_last), ins, (dh, dh_last))
+    return tuple(grads) + ((None,) if h0 is None else ())
 
 
 def _launch(x, a, h0):
@@ -76,13 +96,56 @@ def _launch(x, a, h0):
     return h, h_last
 
 
+def _launch_bwd(x, a, h0, h, dh, dh_last):
+    """The backward kernel: (dx, da, dh0), dh0 in h0's dtype (None without
+    h0)."""
+    global launches_bwd
+    dh = dh.to(x.dtype).contiguous()
+    dh_last = dh_last.to(x.dtype).contiguous()
+    B, S, D = x.shape
+    dx, da = torch.empty_like(x), torch.empty_like(a)
+    dh0 = (torch.empty((B, D), dtype=torch.float32, device=x.device)
+           if h0 is not None else None)
+    h0f = h0.to(torch.float32).contiguous() if h0 is not None else None
+    fn = getattr(_build.load_library(), _BWD_ENTRIES[x.dtype])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), a.data_ptr(),
+                h0f.data_ptr() if h0f is not None else None,
+                h.data_ptr(), dh.data_ptr(), dh_last.data_ptr(),
+                dx.data_ptr(), da.data_ptr(),
+                dh0.data_ptr() if dh0 is not None else None, B, S, D,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches_bwd += 1
+    return dx, da, dh0.to(h0.dtype) if h0 is not None else None
+
+
+class _RGLRU(torch.autograd.Function):
+    """The forward kernel, and the backward kernel for the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, a, h0):
+        h, h_last = _launch(x, a, h0)
+        ctx.save_for_backward(x, a, h0, h)
+        return h, h_last
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh, dh_last):
+        x, a, h0, h = ctx.saved_tensors
+        return _launch_bwd(x, a, h0, h, dh, dh_last)
+
+
 def rglru_scan(x: torch.Tensor, a: torch.Tensor,
                h0: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """x, a: [B, S, D], h0: [B, D] or None; returns (h, h_last).
 
-    The kernel's output on a CUDA tensor, the plain version's on a CPU
-    tensor.
+    The kernel's output on a CUDA tensor (differentiable through the
+    backward kernel), the plain version's on a CPU tensor.
     """
     if x.dim() != 3 or a.shape != x.shape:
         raise ValueError(f"x and a must be parallel [B, S, D] tensors, not "
@@ -95,8 +158,9 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
     devices = {x.device, a.device} | ({h0.device} if h0 is not None else set())
     if len(devices) != 1:
         raise ValueError("x, a and h0 must be on one device")
-    if x.device.type != "cpu":
-        refuse_grad("rglru_scan", x, a, h0)
     if x.device.type == "cpu":
         return rglru_plain(x, a, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, a, h0)):
+        return _RGLRU.apply(x, a, h0)
     return _launch(x, a, h0)

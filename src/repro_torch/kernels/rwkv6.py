@@ -14,7 +14,8 @@ layout as it is; on a CPU tensor it runs the plain version, `rwkv6_ref`.
 There is no other path: a CUDA tensor that the kernel cannot take raises.
 
 A tensor off the CPU that requires grad while autograd records raises
-too: the kernel has no backward yet (`_grad.refuse_grad`).
+too: of the three model kernels only this one has no backward yet
+(`_grad.refuse_grad`).
 
 What the kernel takes: r, k, v and w of one dtype, float32 or bfloat16,
 contiguous, on one card, with Dk <= 64; u and s0 are read as float32.

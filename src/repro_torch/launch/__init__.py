@@ -1,2 +1,3 @@
-"""Launchers of the model stack: the serving step functions and the
-serving launcher (`python -m repro_torch.launch.serve`)."""
+"""Launchers of the model stack: the step functions (train, serve,
+prefill), the serving launcher (`python -m repro_torch.launch.serve`) and
+the training launcher (`python -m repro_torch.launch.train`)."""

@@ -1,18 +1,72 @@
-"""Step functions: serve_step (greedy decode) and prefill_step (the
-prompt forward pass).
+"""Step functions: train_step (gradient accumulation + remat), serve_step
+(greedy decode) and prefill_step (the prompt forward pass).
 
-The port of `repro.launch.steps`, serving half; `make_train_step` comes
-with training (ROADMAP.md queue 1, item 9).  The step functions take the
-model where the JAX package's take its params.
+The port of `repro.launch.steps`.  The step functions take the model where
+the JAX package's take its params; the train step updates the model's
+weights and the optimizer state in place (AdamW's in-place form) and
+returns them.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import models
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ParallelConfig
+from ..optim.adamw import AdamWConfig, adamw_update, tree_leaves, tree_map
 
-__all__ = ["make_serve_step", "make_prefill_step"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    par: ParallelConfig, impl: str = "auto",
+                    accum_dtype=None):
+    """Returns train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics), metrics holding `loss`, `grad_norm` and `lr` (float32
+    scalars on the model's device).
+
+    With `par.microbatches` > 1 the batch's tensors carry a leading
+    [n_micro] axis; each microbatch's gradients are added into an
+    accumulator in `accum_dtype` (default `opt_cfg.moment_dtype`), and
+    the loss and gradients are divided by n_micro.  `par.remat` other
+    than "none" checkpoints each layer.  The model's weights must require
+    grad (`model.requires_grad_(True)`).
+    """
+    if accum_dtype is None:
+        accum_dtype = opt_cfg.moment_dtype
+    remat = par.remat != "none"
+
+    def value_and_grad(model, params, batch):
+        loss = models.loss_fn(model, batch, impl=impl, remat=remat)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        return loss.detach(), grads
+
+    def train_step(model, opt_state, batch):
+        params = models.param_tree(model)
+        n_micro = par.microbatches
+        if n_micro > 1:
+            tot_l = torch.zeros((), dtype=torch.float32, device=model.device)
+            acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                   for p in tree_leaves(params)]
+            for i in range(n_micro):
+                loss, grads = value_and_grad(
+                    model, params, {k: v[i] for k, v in batch.items()})
+                tot_l = tot_l + loss
+                for a, g in zip(acc, grads):
+                    a.add_(g.to(accum_dtype))
+                del grads
+            loss_val = tot_l / n_micro
+            grads = [a.div_(n_micro) for a in acc]
+        else:
+            loss_val, grads = value_and_grad(model, params, batch)
+            grads = [g.to(accum_dtype) for g in grads]
+        it = iter(grads)
+        grad_tree = tree_map(lambda p: next(it), params)
+        _, opt_state, metrics = adamw_update(params, grad_tree, opt_state,
+                                             opt_cfg, inplace=True)
+        metrics["loss"] = loss_val
+        return model, opt_state, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig):

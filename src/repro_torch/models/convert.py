@@ -7,6 +7,10 @@ repeat of the layer pattern along a leading `n_stages` axis under
 under `params["tail"]`.  The port keeps one flat list of layers in layer
 order.  Dense weights have the same [d_in, d_out] layout in both, so
 nothing is transposed: the conversion only unstacks and restacks.
+
+`from_jax_tree` / `to_jax_tree` do this for any tree shaped like the
+params (gradients, AdamW's m and v); `from_jax_params` / `to_jax_params`
+build a model from one and read one back.
 """
 from __future__ import annotations
 
@@ -15,9 +19,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.cuda import resolve_device
-from .model import Model
+from .model import Model, param_tree
 
-__all__ = ["from_jax_params", "to_jax_params"]
+__all__ = ["from_jax_params", "to_jax_params", "from_jax_tree",
+           "to_jax_tree"]
 
 
 def _map(tree, fn):
@@ -33,10 +38,10 @@ def _stage_keys(cfg: ModelConfig):
     return pattern, n_stages, pattern[: cfg.n_layers % len(pattern)]
 
 
-def from_jax_params(cfg: ModelConfig, params: dict, *,
-                    device="cuda") -> Model:
-    """The port's model of `cfg` holding the JAX package's weights, each
-    in its own dtype, on `device` (the card by default)."""
+def from_jax_tree(cfg: ModelConfig, tree: dict, *, device="cuda") -> dict:
+    """A tree in the JAX package's layout (numpy leaves) as the port's
+    {"embed", "final_ln", "layers": [...]} of tensors on `device`, each
+    leaf in its own dtype."""
     device = resolve_device(device)
     pattern, n_stages, tail = _stage_keys(cfg)
 
@@ -46,40 +51,54 @@ def from_jax_params(cfg: ModelConfig, params: dict, *,
     layers = []
     for s in range(n_stages):
         for i, kind in enumerate(pattern):
-            layers.append(_map(params["stages"][f"b{i}_{kind}"],
+            layers.append(_map(tree["stages"][f"b{i}_{kind}"],
                                lambda a, s=s: tensor(a[s])))
     for i, kind in enumerate(tail):
-        layers.append(_map(params["tail"][f"b{i}_{kind}"], tensor))
-    for key in params:
+        layers.append(_map(tree["tail"][f"b{i}_{kind}"], tensor))
+    for key in tree:
         if key not in ("embed", "final_ln", "stages", "tail"):
             raise NotImplementedError(
                 f"parameters {key!r} belong to a block this slice does not "
                 f"run: ROADMAP.md queue 1, item 4")
-    tree = {"embed": _map(params["embed"], tensor),
-            "final_ln": _map(params["final_ln"], tensor),
+    return {"embed": _map(tree["embed"], tensor),
+            "final_ln": _map(tree["final_ln"], tensor),
             "layers": layers}
-    return Model(cfg, device=device, params=tree)
 
 
-def to_jax_params(model: Model) -> dict:
-    """The inverse: the JAX package's tree of numpy arrays, stacked."""
-    pattern, n_stages, tail = _stage_keys(model.cfg)
+def to_jax_tree(cfg: ModelConfig, tree: dict) -> dict:
+    """The inverse: the port's tree as the JAX package's, numpy leaves,
+    the layers of each stage stacked."""
+    pattern, n_stages, tail = _stage_keys(cfg)
 
     def array(t):
         return t.detach().cpu().numpy()
 
-    trees = [p.tree() for p in model.layers]
     P = len(pattern)
-    out = {"embed": _map(model.embed.tree(), array),
-           "final_ln": _map(model.final_ln.tree(), array),
+    layers = tree["layers"]
+    out = {"embed": _map(tree["embed"], array),
+           "final_ln": _map(tree["final_ln"], array),
            "stages": {}}
     for i, kind in enumerate(pattern):
-        per_stage = [_map(trees[s * P + i], array) for s in range(n_stages)]
+        per_stage = [_map(layers[s * P + i], array) for s in range(n_stages)]
         out["stages"][f"b{i}_{kind}"] = _stack(per_stage)
     if tail:
-        out["tail"] = {f"b{i}_{kind}": _map(trees[n_stages * P + i], array)
+        out["tail"] = {f"b{i}_{kind}": _map(layers[n_stages * P + i], array)
                        for i, kind in enumerate(tail)}
     return out
+
+
+def from_jax_params(cfg: ModelConfig, params: dict, *,
+                    device="cuda") -> Model:
+    """The port's model of `cfg` holding the JAX package's weights, each
+    in its own dtype, on `device` (the card by default)."""
+    device = resolve_device(device)
+    return Model(cfg, device=device,
+                 params=from_jax_tree(cfg, params, device=device))
+
+
+def to_jax_params(model: Model) -> dict:
+    """The inverse: the JAX package's tree of numpy arrays, stacked."""
+    return to_jax_tree(model.cfg, param_tree(model))
 
 
 def _stack(trees: list) -> dict | np.ndarray:

@@ -23,8 +23,9 @@ __all__ = ["Params", "rms_norm", "init_rms_norm", "rope", "mrope",
 
 class Params(nn.Module):
     """A nested dict of tensors as a module: dict keys become submodules,
-    tensor leaves become parameters (inference only: no gradients), and
-    `p[key]` reads either, as the JAX package's dict params are read."""
+    tensor leaves become parameters (frozen: `requires_grad_(True)` on
+    the model turns them on for training), and `p[key]` reads either, as
+    the JAX package's dict params are read."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -40,7 +41,7 @@ class Params(nn.Module):
 
     def tree(self) -> dict:
         """The nested dict of tensors back (the parameters themselves)."""
-        out = {k: v.data for k, v in self._parameters.items()}
+        out = dict(self._parameters)
         out.update({k: m.tree() for k, m in self._modules.items()})
         return out
 

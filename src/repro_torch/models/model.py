@@ -1,7 +1,7 @@
 """The model: a stack of pattern-typed blocks (attn / local / global /
 rec / rwkv) between an embedding and an unembedding.
 
-The port of `repro.models.model`, serving half.  The JAX package stacks
+The port of `repro.models.model`.  The JAX package stacks
 the layers of each repeat of `cfg.layer_pattern` along a leading axis and
 scans over them; here the layers are one flat `nn.ModuleList` in layer
 order (the stages, then the partial tail stage), each a `Params` module
@@ -9,10 +9,15 @@ with the JAX package's key names, so `convert.py` maps one onto the other.
 
 API (the JAX package's, with a `Model` where it passes (cfg, params)):
   Model(cfg, device=, dtype=, generator=)      # random weights, seeded
-  forward(model, batch, impl)  -> (logits, aux)
+  forward(model, batch, impl, remat) -> (logits, aux)
+  loss_fn(model, batch, impl, remat) -> scalar
   init_cache(model, batch, max_len)
   prefill(model, batch, max_len, impl) -> (logits_last, cache)
   decode_step(model, cache, tokens, pos) -> (logits, cache)
+  param_tree(model) -> the parameters as `init_params` shapes them
+
+The weights are built frozen (serving runs under `inference_mode`); a
+trainer turns them on with `model.requires_grad_(True)`.
 
 Blocks and features outside this slice raise NotImplementedError naming
 their ROADMAP.md item.  Sharding (`maybe_shard`) and the scan barrier
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.cuda import resolve_device
@@ -33,7 +39,7 @@ from .recurrent import RGLRUBlock
 from .rwkv import RWKV6Block
 
 __all__ = ["Model", "init_params", "layer_kinds", "forward", "loss_fn",
-           "init_cache", "prefill", "decode_step"]
+           "init_cache", "prefill", "decode_step", "param_tree"]
 
 
 # ---------------------------------------------------------------------- #
@@ -175,9 +181,12 @@ class Model(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.final_ln["scale"].dtype
 
-    def forward(self, batch: dict, impl: str = "auto"):
+    def forward(self, batch: dict, impl: str = "auto", remat: bool = False):
         """batch: {"tokens": [B, S]}.  Returns (logits [B, S, V], aux),
-        aux being the MoE auxiliary loss of the JAX package (0 here)."""
+        aux being the MoE auxiliary loss of the JAX package (0 here).
+        With `remat`, each layer is checkpointed: the backward recomputes
+        its internals instead of keeping them (the JAX package checkpoints
+        each stage of its layer scan)."""
         cfg = self.cfg
         if "patch_embeds" in batch:
             raise NotImplementedError(
@@ -191,7 +200,11 @@ class Model(nn.Module):
             positions = batch.get("mrope_pos",
                                   torch.stack([positions] * 3))
         for kind, p in zip(self.kinds, self.layers):
-            h = _block_apply(p, cfg, kind, h, positions, impl=impl)
+            if remat and torch.is_grad_enabled():
+                h = checkpoint(_block_apply, p, cfg, kind, h, positions,
+                               impl, use_reentrant=False)
+            else:
+                h = _block_apply(p, cfg, kind, h, positions, impl=impl)
         h = rms_norm(self.final_ln, h)
         logits = unembed(self.embed, cfg, h)
         return logits, torch.zeros((), dtype=torch.float32, device=h.device)
@@ -200,14 +213,34 @@ class Model(nn.Module):
 # ---------------------------------------------------------------------- #
 # the functional API
 # ---------------------------------------------------------------------- #
-def forward(model: Model, batch: dict, impl: str = "auto"):
+def forward(model: Model, batch: dict, impl: str = "auto",
+            remat: bool = False):
     """(logits [B, S, V], aux) of a full-sequence pass."""
-    return model(batch, impl=impl)
+    return model(batch, impl=impl, remat=remat)
 
 
-def loss_fn(model: Model, batch: dict, **kw):
-    raise NotImplementedError(
-        "loss_fn is not ported yet: training is ROADMAP.md queue 1, item 9")
+def loss_fn(model: Model, batch: dict, impl: str = "auto",
+            aux_weight: float = 0.01, mtp_weight: float = 0.3,
+            remat: bool = False) -> torch.Tensor:
+    """Next-token cross entropy in float32, the mean over the batch's
+    positions 1..S-1.  The JAX package adds the MoE auxiliary loss
+    (`aux_weight`) and the MTP head's loss (`mtp_weight`) for the configs
+    that have them; neither block is ported yet (ROADMAP.md queue 1,
+    item 4), so such a config raises."""
+    _check_supported(model.cfg)
+    tokens = batch["tokens"]
+    logits, _ = forward(model, batch, impl=impl, remat=remat)
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(lp, -1, tokens[:, 1:, None].long())[..., 0]
+    return nll.mean()
+
+
+def param_tree(model: Model) -> dict:
+    """The model's parameters (the tensors themselves) as `init_params`
+    shapes them: {"embed", "final_ln", "layers": [...]}.  Gradients and
+    optimizer moments are trees of the same shape."""
+    return {"embed": model.embed.tree(), "final_ln": model.final_ln.tree(),
+            "layers": [p.tree() for p in model.layers]}
 
 
 def init_cache(model: Model, batch: int, max_len: int) -> list[dict]:

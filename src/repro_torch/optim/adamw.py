@@ -1,0 +1,140 @@
+"""AdamW with cosine schedule and global-norm clipping, on trees of
+tensors.
+
+The port of `repro.optim.adamw`, with its formula (not `torch.optim.AdamW`,
+whose clipping, learning rate and order of operations differ): the
+gradients are clipped to `clip_norm` by their global norm, the step's
+learning rate is the cosine schedule of the step after the update's, and
+every leaf is updated in float32 and cast back to its own dtype.
+
+A tree is a nested dict / list of tensors, as `models.init_params` builds
+one (`models.param_tree(model)` gives a model's); the optimizer state is
+{"m": tree, "v": tree, "step": int32 scalar}.  `moment_dtype` keeps m and
+v in bfloat16 where memory is tight.  `adamw_update(..., inplace=True)`
+writes the new parameters and moments into the tensors it is given,
+under `torch.no_grad()`, so that a full-width model holds no second copy
+of its weights; the values equal the functional form's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
+           "clip_by_global_norm", "tree_leaves", "tree_map"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    moment_dtype: torch.dtype = torch.float32
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in the JAX package's flatten order: dict keys sorted,
+    lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for sub in tree for x in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of `tree` and the trees shaped like it, in
+    `tree_leaves`'s order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """The learning rate at `step`, a float32 scalar: linear warm-up, then
+    a cosine decay to 0 at `total_steps`."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * t))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most `max_norm`, each in its
+    own dtype; the global norm before clipping, float32)."""
+    leaves = tree_leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+
+
+def adamw_init(params, cfg: AdamWConfig) -> dict:
+    """Zero moments shaped like `params` (in `cfg.moment_dtype`, on each
+    leaf's device) and step 0."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+
+    leaves = tree_leaves(params)
+    device = leaves[0].device if leaves else "cpu"
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, *,
+                 inplace: bool = False):
+    """Returns (new_params, new_state, metrics), metrics holding the
+    gradients' global norm and the step's learning rate.
+
+    With `inplace`, the new parameters and moments are written into the
+    tensors of `params` and `state` (which are returned), one leaf at a
+    time; without, `params` and `state` are left as they are."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    step = state["step"] + 1
+    lr = cosine_schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1.0 - b1 ** step.to(torch.float32)
+    bc2 = 1.0 - b2 ** step.to(torch.float32)
+
+    def upd(p, g, m, v):
+        gf = g.float()
+        mf = b1 * m.float() + (1 - b1) * gf
+        vf = b2 * v.float() + (1 - b2) * gf * gf
+        update = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
+        pf = p.float()
+        pf = pf - lr * (update + cfg.weight_decay * pf)
+        if inplace:
+            p.copy_(pf)
+            m.copy_(mf)
+            v.copy_(vf)
+            return p, m, v
+        return pf.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+
+    flat = tree_map(upd, params, grads, state["m"], state["v"])
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    if inplace:
+        state["step"].copy_(step)
+        return params, state, metrics
+    new_p, new_m, new_v = (_pick(flat, i) for i in range(3))
+    return new_p, {"m": new_m, "v": new_v, "step": step}, metrics
+
+
+def _pick(tree, i: int):
+    """Element i of every (p, m, v) tuple at the leaves of `tree`."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pick(v, i) for v in tree]
+    return tree[i]

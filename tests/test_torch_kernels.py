@@ -609,21 +609,29 @@ def _grad_case(device, wrapper, i):
 
 @pytest.mark.parametrize("wrapper,i", GRAD_CASES)
 def test_kernel_wrappers_refuse_grad_off_the_cpu(wrapper, i):
-    """A `meta` input that requires grad raises before the device-type
-    check; under no_grad the same call passes the check (and then finds
-    no kernel for a meta tensor)."""
+    """Off the CPU only the RWKV6 wrapper refuses an input that requires
+    grad (its backward kernel is not written yet): a `meta` input raises
+    before the device-type check.  Flash attention and RG-LRU have their
+    backward kernels, so the same call reaches the device-type check and
+    raises there, as it does under no_grad; nothing is launched."""
     inputs, call = _grad_case("meta", wrapper, i)
-    before = (fa.launches, rglru.launches, rwkv6.launches)
-    with pytest.raises(NotImplementedError,
-                       match=f"{wrapper}.*no backward.*item 9"):
-        call(inputs)
+    before = (fa.launches, rglru.launches, rwkv6.launches,
+              fa.launches_bwd, rglru.launches_bwd)
+    if wrapper == "rwkv6_scan":
+        with pytest.raises(NotImplementedError,
+                           match=f"{wrapper}.*no backward.*item 9"):
+            call(inputs)
+    else:
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            call(inputs)
     with torch.no_grad():
         with pytest.raises(ValueError, match="CPU or CUDA"):
             call(inputs)
     with torch.inference_mode():
         with pytest.raises(ValueError, match="CPU or CUDA"):
             call([t.detach() for t in inputs])
-    assert (fa.launches, rglru.launches, rwkv6.launches) == before
+    assert (fa.launches, rglru.launches, rwkv6.launches,
+            fa.launches_bwd, rglru.launches_bwd) == before
 
 
 @pytest.mark.parametrize("wrapper,i", GRAD_CASES)
@@ -815,19 +823,173 @@ def test_rwkv6_kernel_decode_step_with_state(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wrapper,i", GRAD_CASES)
+@pytest.mark.parametrize("wrapper,i", [c for c in GRAD_CASES
+                                       if c[0] == "rwkv6_scan"])
 def test_kernel_wrappers_refuse_grad_on_the_card(wrapper, i, cuda_device):
     inputs, call = _grad_case(cuda_device, wrapper, i)
-    mod = {"flash_attention": fa, "rglru_scan": rglru,
-           "rwkv6_scan": rwkv6}[wrapper]
-    before = mod.launches
+    before = rwkv6.launches
     with pytest.raises(NotImplementedError,
                        match=f"{wrapper}.*no backward.*item 9"):
         call(inputs)
-    assert mod.launches == before
+    assert rwkv6.launches == before
     with torch.no_grad():
         out = call(inputs)
     torch.cuda.synchronize()
-    assert mod.launches == before + 1
+    assert rwkv6.launches == before + 1
     out = out[0] if isinstance(out, tuple) else out
     assert out.device.type == "cuda" and out.grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper,i", [c for c in GRAD_CASES
+                                       if c[0] != "rwkv6_scan"])
+def test_kernel_wrappers_are_differentiable_on_the_card(wrapper, i,
+                                                        cuda_device):
+    """Flash attention and RG-LRU launch their forward kernel with an
+    output autograd follows, and their backward kernel for its gradient;
+    under no_grad the forward alone."""
+    inputs, call = _grad_case(cuda_device, wrapper, i)
+    mod = {"flash_attention": fa, "rglru_scan": rglru}[wrapper]
+    before, before_bwd = mod.launches, mod.launches_bwd
+    out = call(inputs)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is not None and mod.launches == before + 1
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert mod.launches_bwd == before_bwd + 1
+    assert bool(torch.isfinite(inputs[i].grad).all())
+    with torch.no_grad():
+        out = call(inputs)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is None and mod.launches == before + 2
+    assert mod.launches_bwd == before_bwd + 1
+
+
+# ---------------------------------------------------------------------- #
+# on the card: the backward kernels against the plain versions' autograd
+# ---------------------------------------------------------------------- #
+# the plain version's gradient in float64 on the card is the reference
+BWD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+# the training shapes: one smollm-360m layer (15 heads of 64 on 5 kv
+# heads, causal) and one recurrentgemma-9b attention layer (16 heads of
+# 256 on one kv head, window 2048), at shorter sequences
+FA_BWD_CASES = FA_CASES + [
+    (1, 512, 512, 15, 5, 64, True, None, None, "float32"),
+    (1, 512, 512, 15, 5, 64, True, None, None, "bfloat16"),
+    (1, 2304, 2304, 16, 1, 256, True, 2048, None, "float32"),
+    (1, 2304, 2304, 16, 1, 256, True, 2048, None, "bfloat16"),
+    (1, 70, 130, 4, 2, 128, True, 48, 30.0, "float32"),   # q_offset 60
+]
+
+
+def _grad_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), the tolerance's scale."""
+    want = want.double()
+    return float((got.double() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_BWD_CASES)
+def test_flash_attention_backward_kernel_matches_plain(case, cuda_device):
+    causal, window, cap, dt = case[6:]
+    q_offset = 60 if case[1:3] == (70, 130) else 0
+    q, k, v = (_t(a, dt, cuda_device) for a in _qkv(case))
+    dout = _t(np.random.default_rng(7).standard_normal(q.shape).astype(
+        np.float32), dt, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
+    qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = fa.launches_bwd
+    out = fa.flash_attention(*qkv, **kw)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd == before + 1
+    want = fa.flash_attention_bwd_plain(q.double(), k.double(), v.double(),
+                                        dout.double(), **kw)
+    for x, w in zip(qkv, want):
+        assert x.grad.dtype == x.dtype and x.grad.shape == x.shape
+        err = _grad_err(x.grad, w)
+        assert err < BWD_TOL[dt], (case, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_attention_backward_is_deterministic_and_keeps_out(
+        dt, cuda_device):
+    """Two backward calls give the same bits (no atomics), and the forward
+    output is the same with and without the log-sum-exp write."""
+    case = (2, 384, 384, 15, 5, 64, True, None, None, dt)
+    q, k, v = (_t(a, dt, cuda_device) for a in _qkv(case))
+    dout = torch.randn_like(q)
+    with torch.no_grad():
+        plain_out = fa.flash_attention(q, k, v)
+    grads = []
+    for _ in range(2):
+        qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_attention(*qkv)
+        assert torch.equal(out.detach(), plain_out)
+        out.backward(dout)
+        grads.append([x.grad for x in qkv])
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def _rglru_grads(x, a, h0, dh, dh_last):
+    ins = [t.clone().requires_grad_(True) for t in (x, a)]
+    if h0 is not None:
+        ins.append(h0.clone().requires_grad_(True))
+    h, h_last = rglru.rglru_scan(*ins)
+    torch.autograd.backward((h, h_last), (dh, dh_last))
+    return [t.grad for t in ins] + ([None] if h0 is None else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,bd,dt", RGLRU_CASES + [
+    (1, 3072, 4096, 0, "float32"), (1, 3072, 4096, 0, "bfloat16"),
+    (2, 33, 33, 0, "float32"), (1, 1, 96, 0, "float32")])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_backward_kernel_matches_plain(B, S, D, bd, dt, with_h0,
+                                             cuda_device):
+    x, a = (_t(t, dt, cuda_device) for t in _xa(B, S, D))
+    h0 = torch.randn((B, D), device=cuda_device) if with_h0 else None
+    dh = torch.randn((B, S, D), device=cuda_device).to(x.dtype)
+    dh_last = torch.randn((B, D), device=cuda_device).to(x.dtype)
+    before = rglru.launches_bwd
+    got = _rglru_grads(x, a, h0, dh, dh_last)
+    torch.cuda.synchronize()
+    assert rglru.launches_bwd == before + 1
+    want = rglru.rglru_bwd_plain(
+        x.double(), a.double(), h0.double() if h0 is not None else None,
+        dh.double(), dh_last.double())
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        err = _grad_err(g, w)
+        assert err < BWD_TOL[dt], (B, S, D, dt, err)
+    again = _rglru_grads(x, a, h0, dh, dh_last)
+    for g, w in zip(got, again):
+        assert g is None or torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_rglru_backward_kernel_at_the_gate_edges(cuda_device):
+    """S = 1, x = 1, h0 = 0, dh = 1: the gradients of the gate
+    sqrt(clip(1 - a^2, 0, 1)) on every 64th float a in [0, 1], its ends
+    (where the square root's gradient is infinite) and outside [-1, 1]
+    (where clip passes none): equal to the plain version's autograd in
+    float32, NaN and infinities included."""
+    a = torch.arange(0, 0x3F800001, 64, dtype=torch.int32,
+                     device=cuda_device).view(torch.float32)
+    edges = torch.tensor([0.0, 1.0, -1.0, 0.9999999, -0.5, 1.5, 2.0,
+                          -2.0, 1e-30], device=cuda_device)
+    a = torch.cat([a, edges]).view(1, 1, -1)
+    x = torch.ones_like(a)
+    h0 = torch.zeros_like(a[:, 0])
+    dh = torch.ones_like(a)
+    dh_last = torch.zeros_like(h0)
+    got = _rglru_grads(x, a, h0, dh, dh_last)
+    want = rglru.rglru_bwd_plain(x, a, h0, dh, dh_last)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)

@@ -39,7 +39,10 @@ def _graph():
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
-    code = ("import sys, repro_torch, repro_torch.core, repro_torch.obs, "
+    """Every package of the port, the training path with grad enabled
+    included (a reduced model's loss and its gradients on the CPU)."""
+    code = ("import sys, torch, repro_torch, repro_torch.core, "
+            "repro_torch.obs, "
             "repro_torch.obs.__main__, repro_torch.trace, "
             "repro_torch.trace.__main__, repro_torch.dist, "
             "repro_torch.serve, repro_torch.serve.__main__, "
@@ -48,7 +51,16 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels, repro_torch.kernels.ops, "
             "repro_torch.models, repro_torch.models.convert, "
             "repro_torch.launch, repro_torch.launch.steps, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.optim, "
+            "repro_torch.optim.compress, repro_torch.data, "
+            "repro_torch.runtime, repro_torch.launch.train; "
+            "from repro_torch import models; "
+            "from repro_torch.configs import get_config, reduced_config; "
+            "m = models.Model(reduced_config(get_config('smollm-360m')), "
+            "device='cpu').requires_grad_(True); "
+            "assert torch.is_grad_enabled(); "
+            "models.loss_fn(m, {'tokens': torch.zeros((1, 4), "
+            "dtype=torch.int64)}).backward(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(bad)")
@@ -65,8 +77,11 @@ def test_no_source_line_imports_repro_or_jax():
                   if n.endswith(".py")]
     assert len(files) > 10
     for sub in ("configs", "kernels", "models", "launch", "obs", "trace",
-                "dist", "serve", "checkpoint"):
+                "dist", "serve", "checkpoint", "optim", "data", "runtime"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
+    for name in ("launch/train.py", "optim/adamw.py", "optim/compress.py",
+                 "data/pipeline.py", "runtime/fault_tolerance.py"):
+        assert os.path.join(PORT, *name.split("/")) in files, name
     offending = []
     for path in files:
         with open(path) as f:
@@ -147,10 +162,12 @@ def test_unported_paths_raise_and_name_their_roadmap_item(tmp_path):
     from repro_torch import models
     from repro_torch.configs import get_config, reduced_config
     cfg = reduced_config(get_config("recurrentgemma-9b"))
-    model = models.Model(cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+    from repro_torch.kernels import rwkv6
+    # training is ported but for the RWKV6 kernel's backward: a grad
+    # through the kernel wrapper off the CPU raises
+    r = torch.ones((1, 4, 2, 16), device="meta", requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 9"):
-        models.loss_fn(model, batch)
+        rwkv6.rwkv6_scan(r, r, r, r, torch.ones((2, 16), device="meta"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
         models.Model(reduced_config(get_config("dbrx-132b")), device="cpu")
     from repro_torch.trace.__main__ import main as trace_cli

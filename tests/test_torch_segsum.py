@@ -210,7 +210,10 @@ def test_build_flags_keep_ieee_adds():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "--fmad=false" in flags and "fast_math" not in flags
     assert [s.rsplit("/", 1)[-1] for s in _build.sources()] == [
-        "flash_attention.cu", "rglru.cu", "rwkv6.cu", "segsum.cu"]
+        "flash_attention.cu", "flash_attention_bwd.cu", "rglru.cu",
+        "rglru_bwd.cu", "rwkv6.cu", "segsum.cu"]
+    assert [s.rsplit("/", 1)[-1] for s in _build.headers()] == [
+        "fa_common.cuh"]
 
 
 # deeper randomized search when the [test] extra is installed ----------- #

@@ -2,8 +2,8 @@
 
     python3 tools/fa_sweep.py
 
-Builds copies of `src/repro_torch/csrc/flash_attention.cu` with other
-block constants — warps per block (kWarps, 16 q rows each) and keys per
+Builds copies of `src/repro_torch/csrc/flash_attention.cu` (with
+`fa_common.cuh` inlined) with other block constants — warps per block (kWarps, 16 q rows each) and keys per
 k tile (kBlockK) — and other unroll factors of the loop over head_dim
 that forms the scores, one nvcc each with the library's flags, all at once,
 and prints each copy's registers and spills for the float32 head_dim-256
@@ -98,10 +98,12 @@ def sass_counts(lib_path: str) -> None:
 
 
 def build(tmp: str) -> dict:
-    src = os.path.join(HERE, "..", "src", "repro_torch", "csrc",
-                       "flash_attention.cu")
-    with open(src) as f:
+    csrc = os.path.join(HERE, "..", "src", "repro_torch", "csrc")
+    with open(os.path.join(csrc, "flash_attention.cu")) as f:
         text = f.read()
+    with open(os.path.join(csrc, "fa_common.cuh")) as f:
+        # inlined, so the block constants it holds can be swapped too
+        text = text.replace('#include "fa_common.cuh"', f.read())
     procs = {}
     for shape in VARIANTS:
         name = "w{}k{}u{}".format(*shape)
@@ -121,7 +123,7 @@ def build(tmp: str) -> dict:
         fn = lib.flash_attention_f32
         fn.restype = ctypes.c_int
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i32,
+        fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i32,
                        i32, i64, i32, ctypes.c_float, ctypes.c_float, i64,
                        vp]
         print(f"variant kWarps={shape[0]} kBlockK={shape[1]} "
@@ -171,7 +173,8 @@ def main() -> int:
             for shape, fn in libs.items():
                 def call(fn=fn):
                     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), B, S, S, Hq, Hkv, D, 1, 1,
+                              out.data_ptr(), None, B, S, S, Hq, Hkv, D,
+                              1, 1,
                               window, 0, 0.0, D ** -0.5, 0,
                               torch.cuda.current_stream().cuda_stream)
                 if fits.get(shape, True):
