@@ -98,8 +98,9 @@ Phases, each reported on its own line(s):
    and RWKV6 also at its decode shape with s0 (`ms_decode`, the launch
    the launcher makes 2,048 times); then one JSON line `{"kernels":
    [...]}` with all four kernels (flash attention's bound on the tensor
-   cores, and on the CUDA cores as `bound_cuda_core_ms`), and since PR
-   18 the two backward kernels (six entries);
+   cores, and on the CUDA cores as `bound_cuda_core_ms`), and the three
+   backward kernels (RWKV6's at path C's layer shape, with the forward
+   beside it with and without its checkpoint write): seven entries;
 12. backward kernels: flash attention's (`csrc/flash_attention_bwd.cu`)
    on `FA_CASES` and at the two training paths' attention shapes (4 x
    2,048, 15 heads of 64 on 5, causal; 1 x 3,072, 16 heads of 256 on 1,
@@ -110,6 +111,14 @@ Phases, each reported on its own line(s):
    4,096) with and without h0 alike, and at S = 1 on every float a in
    [0, 1] (and outside it) equal to the float32 autograd, NaN and
    infinities included;
+12b. RWKV6 backward (`csrc/rwkv6_bwd.cu`): through `rwkv6_scan`'s
+   autograd Function against the plain version's autograd in float64
+   (5e-5 and 2e-2 of max(1, max|g|)) on the shapes of the JAX package's
+   kernel test and on layouts with Dk of 8, 40 and 64 and Dv != Dk (33
+   steps), at path C's layer shape (1 x 4,096, 64 heads of 64) in
+   float32 and bfloat16 with and without s0 and dS_last, and at w = 0,
+   w = 1 and log w down to -69; each twice, bit-identical, with out and
+   S_last the same bits as a launch without the checkpoint write;
 13. training path A: a train step through the kernels on a 4-layer
    full-width smollm-360m held against `impl="ref"` (loss and grad_norm
    to 1e-4 relative), then `make_train_step` on the whole model
@@ -121,6 +130,16 @@ Phases, each reported on its own line(s):
    (rec, rec, attn; 1,705,062,400 parameters), B = 1, S = 3,072, 3
    steps: per step exactly 1 flash-attention forward and backward and 2
    RG-LRU forward and backward launches, finite losses;
+16. training path C: rwkv6-7b at full width (d 4,096, 64 heads
+   of 64, d_ff 14,336, vocab 65,536) cut to 4 layers (1,411,567,616
+   float32 parameters: AdamW's state for all 32 does not fit one card),
+   2 x 4,096 tokens in 2 microbatches, 3 steps: first a 2-layer step
+   through the kernels held against `impl="chunked"` (what the JAX
+   package trains with; loss and grad_norm to 1e-4 relative, and every
+   gradient leaf of one microbatch to 1e-4 of max(1, max|g|)), then
+   exactly 24 RWKV6 forward and 24 backward launches and no other
+   kernel, finite losses; step time, tokens/s, peak memory and one step
+   under `torch.profiler`;
 15. the training CLI (`python -m repro_torch.launch.train`, reduced
    smollm-360m on the card) twice on one `--ckpt-dir`: the second run
    resumes from the first's checkpoint.
@@ -222,6 +241,25 @@ FA_BWD_B = (TRAIN_B_B, TRAIN_B_S, TRAIN_B_S, 16, 1, 256, True, 2048, None,
             "float32")
 RG_BWD = (TRAIN_B_B, TRAIN_B_S, 4096)
 BWD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+# training path C: rwkv6-7b at full width (d 4,096, 64 heads of
+# 64, d_ff 14,336, vocab 65,536, float32) cut to 4 layers, 2 sequences
+# of 4,096 tokens (the JAX package's train_4k context) in 2
+# microbatches, 3 steps; the check against impl="chunked" on 2 layers
+TRAIN_C_ARCH, TRAIN_C_PARAMS = "rwkv6-7b", 1_411_567_616
+TRAIN_C_LAYERS, TRAIN_C_B, TRAIN_C_S = 4, 2, 4096
+TRAIN_C_MICRO, TRAIN_C_STEPS = 2, 3
+# a fine-tuning rate: at d 4,096, AdamW's first sign-like step at paths A
+# and B's 1e-3 moves every weight by ~6 % of its scale and raised the loss
+# from 12.0 to 36.1
+TRAIN_C_LR = 1e-5
+TRAIN_C_CHECK_LAYERS, TRAIN_C_CHECK_PARAMS = 2, 974_221_312
+# the RWKV6 backward kernel: (B, S, H, Dk, Dv) of one path-C layer and
+# microbatch; layouts with Dk != Dv that stress its tiles (Dk of 8, 40
+# and 64 rows, Dv short of a 16-column group, 33 steps: a ragged last
+# checkpoint interval); the decay edges' shape
+RWKV_BWD = (TRAIN_C_B // TRAIN_C_MICRO, TRAIN_C_S, 64, 64, 64)
+RWKV_BWD_STRESS = [(1, 33, 2, 8, 20), (1, 33, 2, 40, 24), (1, 33, 2, 64, 20)]
+RWKV_BWD_EDGES = (1, 512, 8, 64, 64)
 
 GRAPH_N, GRAPH_ALPHA, GRAPH_SEED = 3_000_000, 2.2, 0
 P_MAIN = (1024, 64)
@@ -1008,7 +1046,8 @@ def _counted():
             "flash_attention_bwd": (flash_attention, "launches_bwd"),
             "rglru": (rglru, "launches"),
             "rglru_bwd": (rglru, "launches_bwd"),
-            "rwkv6": (rwkv6, "launches")}
+            "rwkv6": (rwkv6, "launches"),
+            "rwkv6_bwd": (rwkv6, "launches_bwd")}
 
 
 def zero_launches() -> None:
@@ -1362,7 +1401,100 @@ def phase_backward_kernels_vs_plain() -> dict:
 
 
 # ---------------------------------------------------------------------- #
-# 13/14. the training paths at full width
+# 12b. the RWKV6 backward kernel against its plain version
+# ---------------------------------------------------------------------- #
+def _rwkv_bwd_inputs(shape, dtype, w_case: str = "uniform", seed: int = 5):
+    """_rwkv_inputs' draws, w replaced by 0, 1 or exp(-69·uniform) (log w
+    down to -69) on request, then dout and dS_last, normal."""
+    B, S, H, Dk, Dv = shape
+    r, k, v, w, u, s0 = _rwkv_inputs(*shape, dtype=dtype, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    if w_case == "zero":
+        w = torch.zeros_like(w)
+    elif w_case == "one":
+        w = torch.ones_like(w)
+    elif w_case == "tiny":
+        w = torch.exp(-69.0 * torch.rand(w.shape, generator=g,
+                                         device="cuda")).to(dtype)
+    dout = torch.randn((B, S, H, Dv), generator=g, device="cuda").to(dtype)
+    dsl = torch.randn((B, H, Dk, Dv), generator=g, device="cuda")
+    return r, k, v, w, u, s0, dout, dsl
+
+
+def _rwkv_bwd_check(shape, dtype, with_s0: bool, with_dsl: bool,
+                    w_case: str = "uniform") -> float:
+    """The RWKV6 backward kernel (through `rwkv6_scan`'s autograd Function)
+    against the plain version's autograd in float64: the scaled error of
+    dr, dk, dv, dw, du (and ds0); also two calls bit-identical and out and
+    S_last the same bits with and without the checkpoint write."""
+    from repro_torch.kernels import rwkv6
+    r, k, v, w, u, s0, dout, dsl = _rwkv_bwd_inputs(shape, dtype, w_case)
+    s0 = s0 if with_s0 else None
+    dsl = dsl if with_dsl else None
+    with torch.no_grad():
+        want_o, want_s = rwkv6.rwkv6_scan(r, k, v, w, u, s0)
+    runs = []
+    for _ in range(2):
+        ins = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)] + (
+            [s0.clone().requires_grad_(True)] if with_s0 else [])
+        out, s_last = rwkv6.rwkv6_scan(*ins[:5],
+                                       ins[5] if with_s0 else None)
+        check(torch.equal(out.detach(), want_o)
+              and torch.equal(s_last.detach(), want_s),
+              f"rwkv6 {shape}: out or S_last differs with the checkpoint "
+              f"write")
+        outs, grads = [out], [dout]
+        if with_dsl:
+            outs.append(s_last)
+            grads.append(dsl)
+        torch.autograd.backward(outs, grads)
+        runs.append([t.grad for t in ins])
+        del out, s_last, ins
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"rwkv6 backward {shape}: two calls differ")
+    check(all(g.dtype == x.dtype and g.shape == x.shape
+              for g, x in zip(runs[0], (r, k, v, w, u, s0))),
+          f"rwkv6 backward {shape}: dtype or shape")
+    want = rwkv6.rwkv6_bwd_plain(*(t.double() if t is not None else None
+                                   for t in (r, k, v, w, u, s0, dout, dsl)))
+    err = max(_grad_err(g, wt) for g, wt in zip(runs[0], want)
+              if wt is not None)
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    check(err <= BWD_TOL[name], f"rwkv6 backward {shape} {name} s0="
+          f"{with_s0} dS_last={with_dsl} w={w_case}: error {err!r}")
+    log(f"kernel rwkv6_bwd (B, S, H, Dk, Dv)={shape} {name} s0="
+        f"{'given' if with_s0 else 'none'} dS_last="
+        f"{'given' if with_dsl else 'none'} w={w_case}: scaled max error "
+        f"{err!r} (tolerance {BWD_TOL[name]} of max(1, max|g|)); two calls "
+        f"bit-identical; out and S_last unchanged by the checkpoints")
+    del r, k, v, w, u, s0, dout, dsl, runs, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_rwkv_backward_vs_plain() -> float:
+    """RWKV_CASES and the stress layouts (float32, s0 and dS_last given),
+    path C's layer shape in float32 and bfloat16 with and without s0 and
+    dS_last, and w = 0, w = 1 and log w down to -69: the worst float32
+    error at path C's shape."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for shape in RWKV_CASES + RWKV_BWD_STRESS:
+        _rwkv_bwd_check(shape, f32, True, True)
+    worst = 0.0
+    for dtype in (f32, bf16):
+        for given in (True, False):
+            err = _rwkv_bwd_check(RWKV_BWD, dtype, given, given)
+            if dtype == f32:
+                worst = max(worst, err)
+    for w_case in ("zero", "one", "tiny"):
+        for dtype in (f32, bf16):
+            _rwkv_bwd_check(RWKV_BWD_EDGES, dtype, True, True, w_case)
+    return worst
+
+
+# ---------------------------------------------------------------------- #
+# 13/14/16. the training paths at full width
 # ---------------------------------------------------------------------- #
 def _train_batches(cfg, B: int, S: int, n_micro: int, steps: int) -> list:
     from repro_torch.data import DataConfig, SyntheticLM
@@ -1384,14 +1516,14 @@ def _train_model(cfg, n_params: int, seed: int = 0):
 
 
 def _run_steps(cfg, model, batches, n_micro: int, steps: int,
-               impl: str = "auto") -> tuple[list, list]:
+               impl: str = "auto", lr: float = TRAIN_LR) -> tuple[list, list]:
     """`make_train_step` over `batches`: (per-step metrics as floats,
     per-step host seconds after a synchronize)."""
     from repro_torch import models
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamWConfig, adamw_init
-    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=steps)
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=2, total_steps=steps)
     step = make_train_step(cfg, opt_cfg,
                            ParallelConfig(microbatches=n_micro), impl=impl)
     opt = adamw_init(models.param_tree(model), opt_cfg)
@@ -1407,10 +1539,12 @@ def _run_steps(cfg, model, batches, n_micro: int, steps: int,
     return metrics, seconds
 
 
-def _profile_step(cfg, model, batch, n_micro: int, top: int = 10) -> dict:
+def _profile_step(cfg, model, batch, n_micro: int, top: int = 10,
+                  groups: dict | None = None) -> dict:
     """One more train step under `torch.profiler`: the device time by
     kernel (the `top` largest logged), the share of the flash-attention
-    kernels and the device's idle share of the step's wall."""
+    kernels, of each of `groups` (label -> kernel name parts) and the
+    device's idle share of the step's wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1427,19 +1561,29 @@ def _profile_step(cfg, model, batch, n_micro: int, top: int = 10) -> dict:
             rows.append((ev.key, ev.count, dev_us / 1e3))
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    fa_fwd = sum(r[2] for r in rows if "fa_kernel" in r[0])
+    # the port's kernels are in their sources' anonymous namespaces;
+    # PyTorch's reductions are at::native::reduce_kernel
+    ours = "(anonymous namespace)::"
+    fa_fwd = sum(r[2] for r in rows if ours + "fa_kernel" in r[0])
     fa_bwd = sum(r[2] for r in rows if any(
-        k in r[0] for k in ("dkdv_kernel", "dq_kernel", "delta_kernel",
-                            "reduce_kernel")))
+        ours + k in r[0] for k in ("dkdv_kernel", "dq_kernel",
+                                   "delta_kernel", "reduce_kernel")))
     log(f"train step profile {cfg.name}: wall {wall_ms:.3f} ms, device "
         f"busy {busy:.3f} ms (idle {max(0.0, 1 - busy / wall_ms):.4f} of "
         f"the wall); flash attention forward {fa_fwd:.3f} ms, backward "
         f"{fa_bwd:.3f} ms ({fa_bwd / busy:.4f} of the device time)")
+    shares = {label: sum(r[2] for r in rows
+                         if any(ours + k in r[0] for k in parts))
+              for label, parts in (groups or {}).items()}
+    if shares:
+        log(f"train step profile {cfg.name}: " + "; ".join(
+            f"{label} {ms:.3f} ms ({ms / busy:.4f} of the device time)"
+            for label, ms in shares.items()))
     for name, count, ms in rows[:top]:
         log(f"train step profile {cfg.name}: {ms:.3f} ms ({ms / busy:.4f})"
             f" x{count} {name[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "fa_fwd_ms": fa_fwd,
-            "fa_bwd_ms": fa_bwd}
+            "fa_bwd_ms": fa_bwd, **shares}
 
 
 def phase_train_a() -> dict:
@@ -1548,6 +1692,105 @@ def phase_train_b() -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "step_s": steady, "peak_gb": peak,
             "per_step": {k: v // s for k, v in launches.items()}}
+
+
+def phase_train_c() -> dict:
+    """Path C: rwkv6-7b at full width, 4 layers; first the kernels' train
+    step held against impl="chunked" (what the JAX package trains with)
+    on a 2-layer copy."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    full = get_config(TRAIN_C_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_C_LAYERS)
+    batches = _train_batches(cfg, TRAIN_C_B, TRAIN_C_S, TRAIN_C_MICRO,
+                             TRAIN_C_STEPS)
+    small = dataclasses.replace(full, n_layers=TRAIN_C_CHECK_LAYERS)
+    base = _train_model(small, TRAIN_C_CHECK_PARAMS, seed=1)
+    got = {}
+    for impl in ("auto", "chunked"):    # each on its own copy of the weights
+        model = models.Model(small, device="cuda", params=tree_map(
+            lambda w: w.detach().clone(), models.param_tree(base)))
+        model.requires_grad_(True)
+        zero_launches()
+        got[impl] = _run_steps(small, model, batches, TRAIN_C_MICRO, 1,
+                               impl=impl, lr=TRAIN_C_LR)[0][0]
+        n = TRAIN_C_MICRO * TRAIN_C_CHECK_LAYERS
+        expect = (_expect(rwkv6=n, rwkv6_bwd=n) if impl == "auto"
+                  else _expect())
+        check(read_launches() == expect, f"path C check {impl}: launches "
+              f"{read_launches()}, expected {expect}")
+        del model
+        torch.cuda.empty_cache()
+    rels = {}
+    for key in ("loss", "grad_norm"):
+        rel = rels[key] = abs(got["auto"][key] - got["chunked"][key]) / abs(
+            got["chunked"][key])
+        check(rel <= TRAIN_TOL, f"train step {TRAIN_C_CHECK_LAYERS}-layer "
+              f"{full.name}: {key} {got['auto'][key]!r} through the "
+              f"kernels, {got['chunked'][key]!r} through impl='chunked' "
+              f"({rel!r})")
+    log(f"train step check {full.name} {TRAIN_C_CHECK_LAYERS} layers at "
+        f"full width ({TRAIN_C_CHECK_PARAMS} parameters), B={TRAIN_C_B} "
+        f"S={TRAIN_C_S} in {TRAIN_C_MICRO} microbatches: kernels loss "
+        f"{got['auto']['loss']!r} grad_norm {got['auto']['grad_norm']!r}; "
+        f"impl='chunked' loss {got['chunked']['loss']!r} grad_norm "
+        f"{got['chunked']['grad_norm']!r}; relative differences "
+        f"{rels['loss']!r} and {rels['grad_norm']!r} (tolerance {TRAIN_TOL})")
+    # every gradient leaf of the first microbatch both ways: the averaged
+    # loss and grad_norm may not show the two paths' last-bit differences
+    leaves = tree_leaves(models.param_tree(base))
+    micro = {k: x[0] for k, x in batches[0].items()}
+    grads = {impl: torch.autograd.grad(
+        models.loss_fn(base, micro, impl=impl), leaves)
+        for impl in ("auto", "chunked")}
+    leaf_err = max(_grad_err(a, b) for a, b in zip(grads["auto"],
+                                                   grads["chunked"]))
+    check(leaf_err <= TRAIN_TOL, f"path C check: a gradient leaf through "
+          f"the kernels is {leaf_err!r} from impl='chunked'")
+    log(f"train step check {full.name} {TRAIN_C_CHECK_LAYERS} layers: every "
+        f"gradient leaf of one microbatch through the kernels within "
+        f"{leaf_err!r} of impl='chunked' (max|diff| / max(1, max|g|); "
+        f"tolerance {TRAIN_TOL})")
+    del base, leaves, grads
+    torch.cuda.empty_cache()
+
+    model = _train_model(cfg, TRAIN_C_PARAMS)
+    log(f"path C model {cfg.name} x {cfg.n_layers} layers: "
+        f"{sum(p.numel() for p in model.parameters())} float32 parameters "
+        f"from init_params")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    metrics, seconds = _run_steps(cfg, model, batches, TRAIN_C_MICRO,
+                                  TRAIN_C_STEPS, lr=TRAIN_C_LR)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = TRAIN_C_STEPS * TRAIN_C_MICRO * cfg.n_layers
+    expect = _expect(rwkv6=n, rwkv6_bwd=n)
+    check(launches == expect, f"path C launches {launches}, expected "
+          f"{expect}")
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(losses)), f"path C losses not finite: {losses}")
+    prof = _profile_step(cfg, model, batches[0], TRAIN_C_MICRO, groups={
+        "RWKV6 forward": ("rwkv6_kernel",),
+        "RWKV6 backward": ("rwkv6_bwd_",)})
+    steady = float(np.mean(seconds[1:]))
+    log(f"train path C {full.name} at full width, {cfg.n_layers} layers "
+        f"({TRAIN_C_PARAMS} float32 parameters) B={TRAIN_C_B} "
+        f"S={TRAIN_C_S} in {TRAIN_C_MICRO} microbatches, {TRAIN_C_STEPS} "
+        f"steps at lr {TRAIN_C_LR}: losses {[round(x, 6) for x in losses]}; launches "
+        f"{json.dumps(launches)}")
+    log(f"train path C wall (host clock after synchronize): step seconds "
+        f"{[round(x, 6) for x in seconds]}; steps 2-{TRAIN_C_STEPS} mean "
+        f"{steady:.6f} s ({TRAIN_C_B * TRAIN_C_S / steady:.1f} tokens/s); "
+        f"peak device memory {peak:.3f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_s": steady, "peak_gb": peak,
+            "profile": prof,
+            "per_step": {k: v // TRAIN_C_STEPS for k, v in launches.items()}}
 
 
 # ---------------------------------------------------------------------- #
@@ -1854,6 +2097,67 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
     return [fa_entry, rg_entry]
 
 
+def phase_rwkv_bwd_timing(train_c: dict, err: float) -> dict:
+    """The RWKV6 backward kernel at path C's layer shape; the forward
+    with and without its checkpoint write beside it."""
+    from repro_torch.kernels import rwkv6
+    B, S, H, Dk, Dv = RWKV_BWD
+    r, k, v, w, u, _ = _rwkv_inputs(*RWKV_BWD)
+    dout = torch.randn_like(v)
+    _, _, ckpt = rwkv6._launch(r, k, v, w, u, None, with_ckpt=True)
+    ms = _cuda_ms(lambda: rwkv6._launch_bwd(r, k, v, w, u, None, ckpt,
+                                            dout, None), reps=10)
+    ms_fwd = _cuda_ms(lambda: rwkv6._launch(r, k, v, w, u, None), reps=10)
+    ms_fwd_ckpt = _cuda_ms(lambda: rwkv6._launch(r, k, v, w, u, None,
+                                                 with_ckpt=True), reps=10)
+    plain_ms = _host_ms(lambda: rwkv6.rwkv6_bwd_plain(r, k, v, w, u, None,
+                                                      dout, None), reps=1)
+    # what the gradient must move: r, k, w, v, dout and u read once, dr,
+    # dk, dw, dv and du written once (the checkpoints are this design's
+    # choice, not the function's, and stand beside it as ckpt_bytes);
+    # 13*Dk*Dv float32 operations per (b, t, h)
+    bths = B * S * H
+    nbytes = 4 * (bths * (3 * Dk + 2 * Dv) + H * Dk
+                  + bths * (3 * Dk + Dv) + H * Dk)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 13 * Dk * Dv * bths / PEAK_F32_OPS_PER_S * 1e3
+    entry = {
+        "name": "rwkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_bwd.cu",
+        "replaces": "src/repro/kernels/rwkv6.py:28 (its gradient; the JAX "
+                    "package differentiates rwkv6_chunked, "
+                    "src/repro/kernels/ops.py:133-157)",
+        "launches": train_c["per_step"]["rwkv6_bwd"],
+        "launches_path": train_c["launches"]["rwkv6_bwd"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the recurrence "
+                   "or its gradient",
+        "ms_forward": ms_fwd, "ms_forward_with_ckpt": ms_fwd_ckpt,
+        "shape": f"r, k, v, w, dout [{B},{S},{H},{Dk}] float32, no s0 or "
+                 f"dS_last, checkpoints [{B},{H},{ckpt.shape[2]},{Dk},{Dv}] "
+                 f"(one rwkv6-7b layer, one microbatch)",
+        "plain_on": "the card (autograd of rwkv6_ref), one run",
+        "launches_note": f"per train step of path C ({TRAIN_C_LAYERS} "
+                         f"layers x {TRAIN_C_MICRO} microbatches); "
+                         f"launches_path over its {TRAIN_C_STEPS} steps",
+        "bound_note": "inputs and gradients only; the checkpoints the "
+                      "kernel also reads are ckpt_bytes",
+        "ckpt_bytes": 4 * ckpt.numel(),
+        "max_abs_err_note": "scaled: max|err| / max(1, max|g|) against "
+                            "float64"}
+    log(f"timing {entry['name']} at {entry['shape']}: kernel {ms!r} ms, "
+        f"plain {plain_ms!r} ms, bound {entry['bound_ms']!r} ms "
+        f"({entry['bound_by']}), library none; checkpoints "
+        f"{entry['ckpt_bytes']} bytes; forward {ms_fwd!r} ms, with the "
+        f"checkpoint write {ms_fwd_ckpt!r} ms")
+    del r, k, v, w, dout, ckpt
+    torch.cuda.empty_cache()
+    return entry
+
+
 def _rwkv_bound(B: int, S: int, H: int, Dk: int, Dv: int,
                 size: int) -> tuple[float, str]:
     """Least time for one WKV scan without s0: r, k, w, v read once, out
@@ -1943,14 +2247,19 @@ def main() -> int:
     t0 = time.perf_counter()
     bwd_errs = phase_backward_kernels_vs_plain()
     t1 = time.perf_counter()
+    rwkv_bwd_err = phase_rwkv_backward_vs_plain()
+    t1b = time.perf_counter()
     train_a = phase_train_a()
     t2 = time.perf_counter()
     train_b = phase_train_b()
     t3 = time.perf_counter()
+    train_c = phase_train_c()
+    t3c = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         phase_train_cli(tmp)
-    log(f"phase seconds: 12 {t1 - t0:.1f}, 13 {t2 - t1:.1f}, 14 "
-        f"{t3 - t2:.1f}, 15 {time.perf_counter() - t3:.1f}")
+    log(f"phase seconds: 12 {t1 - t0:.1f}, 12b {t1b - t1:.1f}, 13 "
+        f"{t2 - t1b:.1f}, 14 {t3 - t2:.1f}, 16 {t3c - t3:.1f}, 15 "
+        f"{time.perf_counter() - t3c:.1f}")
     kernels = phase_timing(runs, max_abs_err)
     kernels["kernels"][0]["launches_trace"] = trace["launches"]
     kernels["kernels"][0]["launches_serve"] = serve["launches_serve"]
@@ -1960,7 +2269,11 @@ def main() -> int:
     kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
                                                 rwkv_err))
     kernels["kernels"] += phase_train_timing(train_a, train_b, bwd_errs)
-    check(len(kernels["kernels"]) == 6, "the kernels line lists six")
+    t4 = time.perf_counter()
+    kernels["kernels"].append(phase_rwkv_bwd_timing(train_c, rwkv_bwd_err))
+    log(f"phase seconds: 11 (rwkv6_bwd timing) "
+        f"{time.perf_counter() - t4:.1f}")
+    check(len(kernels["kernels"]) == 7, "the kernels line lists seven")
     check(not any(m in sys.modules for m in ("jax", "repro")),
           "the port imported JAX or the JAX package")
     log(f"chip_smoke: all phases passed in "

@@ -145,11 +145,15 @@ def load_library() -> ctypes.CDLL:
             # may be null), B, S, D, stream
             ("rglru_bwd_f32", "rglru_bwd_bf16"):
                 [vp] * 9 + [i64, i64, i64, vp],
-            # r, k, v, w, u, s0 (may be null), out, s_last, B, S, H, Dk,
-            # Dv, stream
+            # r, k, v, w, u, s0, out, s_last, ckpt (s0 and ckpt may be
+            # null), B, S, H, Dk, Dv, stream
             ("rwkv6_f32", "rwkv6_bf16"):
-                [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64,
-                 vp],
+                [vp] * 9 + [i64, i64, i64, i64, i64, vp],
+            # r, k, v, w, u, dout, ds_last, ckpt, scratch, dr, dk, dv, dw,
+            # du, ds0 (dout, ds_last and ds0 may be null), B, S, H, Dk, Dv,
+            # stream
+            ("rwkv6_bwd_f32", "rwkv6_bwd_bf16"):
+                [vp] * 15 + [i64, i64, i64, i64, i64, vp],
         }
         for names, argtypes in signatures.items():
             for name in names:
@@ -159,5 +163,11 @@ def load_library() -> ctypes.CDLL:
         # m, num_segments -> int64 elements of segsum scratch
         lib.segsum_scratch_len.restype = i64
         lib.segsum_scratch_len.argtypes = [i64, i64]
+        # the RWKV6 forward's steps between checkpoints; B, S, H, Dk,
+        # Dv -> float32 elements of the backward's scratch
+        lib.rwkv6_ckpt_steps.restype = i32
+        lib.rwkv6_ckpt_steps.argtypes = []
+        lib.rwkv6_bwd_scratch_len.restype = i64
+        lib.rwkv6_bwd_scratch_len.argtypes = [i64] * 5
         _lib = lib
     return _lib

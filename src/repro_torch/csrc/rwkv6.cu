@@ -59,6 +59,22 @@
 // loads' latency expose.  Tilings with more columns a lane load less but
 // leave one warp a scheduler, and were slower in the sweep.
 //
+// Checkpoints for the backward (rwkv6_bwd.cu).  Given a non-null `ckpt`,
+// the kernel also stores the float32 state before every kCkptSteps-th
+// step (rwkv6_common.cuh), P_{n*kCkptSteps} for n = 0 .. ceil(S /
+// kCkptSteps) - 1, into ckpt [B, H, n, Dk, Dv] (the first is s0, or
+// zeros).  That is a second instantiation (kCkpt = true), picked by the
+// launch: the stores sit at the top of every other round and change no
+// arithmetic, so out and s_last are bit-identical to a launch without
+// them, and a null `ckpt` launches the kernel without the stores,
+// unchanged.  kCkptSteps = 16: the backward keeps the states of one
+// interval in shared memory (16 steps of a 64-row by 16-column tile are
+// 64 KB) and recomputes each interval once from its checkpoint.  The
+// checkpoints take B*H*ceil(S/16)*Dk*Dv*4 bytes: 256 MB for one rwkv6-7b
+// layer and 4,096-token sequence, four times the 64 MB that 64 steps
+// between checkpoints would take, written at about 1 KB a head and step
+// beside the 1.25 KB the step reads and writes.
+//
 // Not done here: the chunked matmul form (rwkv6_chunked) on tensor cores.
 // It carries the state across a chunk as a product, which breaks the
 // bit-identity of s_last with the plain version, and in float32 it would
@@ -68,6 +84,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "rwkv6_common.cuh"
 
 namespace {
 
@@ -94,6 +112,7 @@ static_assert(kRows % 2 == 0, "rows are read as float4s or float2s");
 static_assert((1 << kLevels) == kLanesPerCol && (kPart & (kPart - 1)) == 0,
               "powers of two");
 static_assert(kPart >= kLanesPerCol, "every lane ends with a total");
+static_assert(kCkptSteps % kSteps == 0, "a checkpoint starts a round");
 static_assert(kThreads % kMaxDk == 0 && kSteps * kMaxDk % kThreads == 0,
               "threads tile a staged row");
 static_assert(kSteps * kBlockCols % kThreads == 0 &&
@@ -215,13 +234,14 @@ __device__ __forceinline__ void round_steps(float (&state)[kRows][kCols],
 
 // one block an SM: the grid is B * H * ceil(Dv / kBlockCols) blocks, about
 // the card's SM count at the prefill shape, so ptxas may use every register
-template <typename T>
+template <typename T, bool kCkpt>
 __global__ void __launch_bounds__(kThreads, 1)
 rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ w,
              const float* __restrict__ u, const float* __restrict__ s0,
-             T* __restrict__ out, float* __restrict__ s_last, int64_t S,
-             int64_t H, int Dk, int Dv) {
+             T* __restrict__ out, float* __restrict__ s_last,
+             float* __restrict__ ckpt, int64_t S, int64_t H, int Dk,
+             int Dv) {
     extern __shared__ __align__(16) float smem[];
     float* const rkw_s = smem;                        // [2][3][kSteps][64]
     float* const v_s = smem + 2 * kRkwFloats;         // [2][kSteps][cols]
@@ -361,6 +381,25 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     int buf = 0;
     for (int t0 = 0; t0 < steps; t0 += kSteps, buf ^= 1) {
         const int n = steps - t0 < kSteps ? steps - t0 : kSteps;
+        if constexpr (kCkpt) {
+            if (t0 % kCkptSteps == 0) {     // the state before step t0
+                const int64_t n_ckpt = (S + kCkptSteps - 1) / kCkptSteps;
+                float* cp = ckpt + (head * n_ckpt + t0 / kCkptSteps) * Dk *
+                                       static_cast<int64_t>(Dv);
+#pragma unroll
+                for (int i = 0; i < kRows; ++i) {
+                    const int row = row0 + i;
+#pragma unroll
+                    for (int c = 0; c < kCols; ++c) {
+                        const int64_t col = col0 + bcol + c;
+                        if (row < Dk && col < Dv) {
+                            cp[row * static_cast<int64_t>(Dv) + col] =
+                                state[i][c];
+                        }
+                    }
+                }
+            }
+        }
         const bool more = t0 + kSteps < steps;
         if (more) {
             prefetch(t0 + kSteps);
@@ -413,10 +452,10 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     }
 }
 
-template <typename T>
-int launch(const T* r, const T* k, const T* v, const T* w, const float* u,
-           const float* s0, T* out, float* s_last, int64_t B, int64_t S,
-           int64_t H, int64_t Dk, int64_t Dv, void* stream) {
+template <typename T, bool kCkpt>
+int launch_as(const T* r, const T* k, const T* v, const T* w, const float* u,
+              const float* s0, T* out, float* s_last, float* ckpt, int64_t B,
+              int64_t S, int64_t H, int64_t Dk, int64_t Dv, void* stream) {
     // steps and a round's offsets are 32-bit
     if (B <= 0 || H <= 0 || S < 0 || Dk <= 0 || Dv <= 0 || Dk > kMaxDk ||
         B > 65535 || H > 65535 ||
@@ -427,7 +466,8 @@ int launch(const T* r, const T* k, const T* v, const T* w, const float* u,
     }
     if (kSmemBytes > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
-            rwkv6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            rwkv6_kernel<T, kCkpt>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(kSmemBytes));
         if (err != cudaSuccess) {
             return static_cast<int>(err);
@@ -435,11 +475,22 @@ int launch(const T* r, const T* k, const T* v, const T* w, const float* u,
     }
     const dim3 grid(static_cast<unsigned>((Dv + kBlockCols - 1) / kBlockCols),
                     static_cast<unsigned>(H), static_cast<unsigned>(B));
-    rwkv6_kernel<T><<<grid, kThreads, kSmemBytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-        r, k, v, w, u, s0, out, s_last, S, H, static_cast<int>(Dk),
+    rwkv6_kernel<T, kCkpt><<<grid, kThreads, kSmemBytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+        r, k, v, w, u, s0, out, s_last, ckpt, S, H, static_cast<int>(Dk),
         static_cast<int>(Dv));
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const T* r, const T* k, const T* v, const T* w, const float* u,
+           const float* s0, T* out, float* s_last, float* ckpt, int64_t B,
+           int64_t S, int64_t H, int64_t Dk, int64_t Dv, void* stream) {
+    return ckpt != nullptr
+        ? launch_as<T, true>(r, k, v, w, u, s0, out, s_last, ckpt, B, S, H,
+                             Dk, Dv, stream)
+        : launch_as<T, false>(r, k, v, w, u, s0, out, s_last, nullptr, B, S,
+                              H, Dk, Dv, stream);
 }
 
 }  // namespace
@@ -447,22 +498,27 @@ int launch(const T* r, const T* k, const T* v, const T* w, const float* u,
 extern "C" {
 
 // Each entry launches on `stream` without synchronising and returns a CUDA
-// error code: 0 when the launch was accepted.  s0 may be null.
+// error code: 0 when the launch was accepted.  s0 may be null; ckpt may be
+// null, and otherwise receives the checkpoints for the backward, [B, H,
+// ceil(S / rwkv6_ckpt_steps()), Dk, Dv] float32.
 int rwkv6_f32(const float* r, const float* k, const float* v, const float* w,
               const float* u, const float* s0, float* out, float* s_last,
-              int64_t B, int64_t S, int64_t H, int64_t Dk, int64_t Dv,
-              void* stream) {
-    return launch<float>(r, k, v, w, u, s0, out, s_last, B, S, H, Dk, Dv,
-                         stream);
+              float* ckpt, int64_t B, int64_t S, int64_t H, int64_t Dk,
+              int64_t Dv, void* stream) {
+    return launch<float>(r, k, v, w, u, s0, out, s_last, ckpt, B, S, H, Dk,
+                         Dv, stream);
 }
 
 int rwkv6_bf16(const __nv_bfloat16* r, const __nv_bfloat16* k,
                const __nv_bfloat16* v, const __nv_bfloat16* w,
                const float* u, const float* s0, __nv_bfloat16* out,
-               float* s_last, int64_t B, int64_t S, int64_t H, int64_t Dk,
-               int64_t Dv, void* stream) {
-    return launch<__nv_bfloat16>(r, k, v, w, u, s0, out, s_last, B, S, H, Dk,
-                                 Dv, stream);
+               float* s_last, float* ckpt, int64_t B, int64_t S, int64_t H,
+               int64_t Dk, int64_t Dv, void* stream) {
+    return launch<__nv_bfloat16>(r, k, v, w, u, s0, out, s_last, ckpt, B, S,
+                                 H, Dk, Dv, stream);
 }
+
+// The steps between two checkpoints.
+int rwkv6_ckpt_steps(void) { return kCkptSteps; }
 
 }  // extern "C"

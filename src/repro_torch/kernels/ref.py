@@ -5,7 +5,12 @@ CPU tensor takes, and what `chip_smoke.py` compares each CUDA kernel
 with on the card.  Each mirrors the JAX package's `repro.kernels.ref`
 (`attention_ref`, `rglru_ref`, `rwkv6_ref`, `rwkv6_chunked`): float32
 inside, the `-1e30` mask, and the result in the input's dtype (the RWKV6
-state in float32).
+state in float32).  One exception: `rwkv6_ref` given float64 inputs
+computes in float64 and returns its state in float64, so that its
+autograd is a float64 reference for the RWKV6 backward kernel; no kernel
+takes float64, so only that check and CPU callers who pass float64 see
+it.  `attention_ref` and `rglru_ref` compute in float32 whatever they are
+given.
 """
 from __future__ import annotations
 
@@ -96,17 +101,19 @@ def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Shapes: r/k/w [B, S, H, Dk], v [B, S, H, Dv], u [H, Dk], s0
     [B, H, Dk, Dv].  Returns (out [B, S, H, Dv] in r.dtype, S_last
-    [B, H, Dk, Dv] float32).  The state update is `w*S + kv`, two
-    rounded operations, as the kernel computes it.
+    [B, H, Dk, Dv] float32, or float64 when r is float64).  The state
+    update is `w*S + kv`, two rounded operations, as the kernel computes
+    it.  Float64 inputs are computed in float64: the reference that the
+    backward kernel is held to.
     """
     B, S, H, Dk = r.shape
     Dv = v.shape[-1]
-    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
-    uf = u.float()[None, :, :, None]
-    state = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32,
-                         device=r.device)
-             if s0 is None else s0.float())
-    out = torch.empty((B, S, H, Dv), dtype=torch.float32, device=r.device)
+    ft = torch.float64 if r.dtype == torch.float64 else torch.float32
+    rf, kf, vf, wf = (t.to(ft) for t in (r, k, v, w))
+    uf = u.to(ft)[None, :, :, None]
+    state = (torch.zeros((B, H, Dk, Dv), dtype=ft, device=r.device)
+             if s0 is None else s0.to(ft))
+    out = torch.empty((B, S, H, Dv), dtype=ft, device=r.device)
     for t in range(S):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # [B,H,Dk,Dv]
         out[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv)

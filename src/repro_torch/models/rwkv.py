@@ -2,7 +2,8 @@
 decay) + channel-mix, both with token-shift.
 
 The port of `repro.models.rwkv`.  Time-mix per head (the scan runs in
-kernels.ops.rwkv6, the CUDA kernel on the card):
+kernels.ops.rwkv6, the CUDA kernel on the card, whose gradient in
+training is the backward kernel `csrc/rwkv6_bwd.cu`):
 
     out_t = r_t (S + u ⊙ k_t^T v_t),   S <- diag(w_t) S + k_t^T v_t
 

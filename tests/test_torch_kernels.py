@@ -45,12 +45,15 @@ def jx():
     """The JAX package's kernels and oracles.  Imported here, not at the
     top, so the tests marked `cuda` also run where JAX is not installed."""
     jnp = pytest.importorskip("jax.numpy")
+    import jax
+    from repro.kernels import ops as jops
     from repro.kernels import ref
     from repro.kernels.flash_attention import flash_attention
     from repro.kernels.rglru import rglru_scan
     from repro.kernels.rwkv6 import rwkv6_scan
     return types.SimpleNamespace(
-        ref=ref, flash=flash_attention, rglru=rglru_scan, rwkv6=rwkv6_scan,
+        jax=jax, ops=jops, ref=ref, flash=flash_attention, rglru=rglru_scan,
+        rwkv6=rwkv6_scan,
         a=lambda x, dt="float32": jnp.asarray(x, getattr(jnp, dt)))
 
 
@@ -575,8 +578,177 @@ def test_rwkv6_kernel_arithmetic_meets_the_tolerance(B, S, H, Dk, Dv,
 
 
 # ---------------------------------------------------------------------- #
-# the kernels have no backward: a tensor off the CPU that autograd would
-# follow is refused, and the CPU keeps the differentiable plain version
+# RWKV6 backward, CPU: the plain gradient against the JAX package's, and
+# the backward kernel's algorithm
+# ---------------------------------------------------------------------- #
+# (B, S, H, Dk, Dv): Dk != Dv both ways; S of one chunk of the JAX
+# package's chunked form (48) and of two (128)
+RWKV_BWD_CASES = [(2, 48, 2, 16, 24), (1, 128, 3, 32, 16)]
+
+
+def _rwkv_bwd_inputs(B, S, H, Dk, Dv, seed=0):
+    """_rkvwu's draws, then s0, dout and dS_last, all normal."""
+    rng = np.random.default_rng(seed + 100)
+    return _rkvwu(B, S, H, Dk, Dv, seed=seed) + tuple(
+        rng.standard_normal(s).astype(np.float32) for s in
+        ((B, H, Dk, Dv), (B, S, H, Dv), (B, H, Dk, Dv)))
+
+
+@pytest.mark.parametrize("form", ["rwkv6_ref", "ops.rwkv6"])
+@pytest.mark.parametrize("B,S,H,Dk,Dv", RWKV_BWD_CASES)
+def test_rwkv6_bwd_plain_matches_jax(B, S, H, Dk, Dv, form, jx):
+    """`rwkv6_bwd_plain` (what the backward kernel is held to) against
+    `jax.vjp` of the JAX package's `rwkv6_ref` and of `ops.rwkv6` with
+    impl="auto" (the chunked form it trains with off the TPU), with s0
+    and the gradients of both outputs: every gradient within
+    1e-5·max(1, max|g|) in float32."""
+    arrays = _rwkv_bwd_inputs(B, S, H, Dk, Dv)
+    r, k, v, w, u, s0, dout, dsl = arrays
+    jfn = (jx.ref.rwkv6_ref if form == "rwkv6_ref"
+           else lambda *a, s0: jx.ops.rwkv6(*a, s0=s0, impl="auto"))
+    _, vjp = jx.jax.vjp(lambda *a: jfn(*a[:5], s0=a[5]),
+                        *map(jx.a, arrays[:6]))
+    want = vjp((jx.a(dout), jx.a(dsl)))
+    got = rwkv6.rwkv6_bwd_plain(*map(_t, arrays))
+    assert len(got) == len(want) == 6
+    for g, wt in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == wt.shape
+        wt = _np(wt).astype(np.float64)
+        err = np.abs(_np(g) - wt).max() / max(1.0, np.abs(wt).max())
+        assert err < 1e-5, (form, err)
+
+
+def test_rwkv6_bwd_plain_without_s0_or_an_output_gradient():
+    """No s0: ds0 is None; a missing output gradient counts as zero."""
+    r, k, v, w, u, s0, dout, dsl = map(_t, _rwkv_bwd_inputs(1, 9, 2, 8, 4))
+    full = rwkv6.rwkv6_bwd_plain(r, k, v, w, u, None, dout, dsl)
+    assert len(full) == 6 and full[5] is None
+    ins = [x.clone().requires_grad_(True) for x in (r, k, v, w, u)]
+    out, _ = rwkv6.rwkv6_plain(*ins)
+    out.backward(dout)
+    for g, x in zip(rwkv6.rwkv6_bwd_plain(r, k, v, w, u, None, dout, None),
+                    ins):
+        assert torch.equal(g, x.grad)
+
+
+def _halving(x):
+    """Sum over the last dim as (x[:n/2] + x[n/2:]) halved again, in
+    float32: the order of the backward kernel's dv shuffle tree over a
+    warp's 16 rows (lane bits 4, 3, 2, 1 pair rows 8, 4, 2, 1 apart)."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1] // 2
+        x = x[..., :n] + x[..., n:]
+    return x[..., 0]
+
+
+def _rwkv6_bwd_kernel_algorithm(r, k, v, w, u, s0, dout, dS_last,
+                                chunk=16, cols=8):
+    """`csrc/rwkv6_bwd.cu`'s algorithm in float32 on the CPU: the state
+    recomputed from the forward's checkpoints (every `chunk` steps) one
+    interval at a time, G walked backwards, each thread's `cols` columns
+    summed by fmaf in column order and added to its row partner's, k G
+    over the rows by the shuffle tree's order (16 rows a warp, the 4 warps
+    in order), the column groups' row sums added in group order, and the
+    u terms and du as the reduce kernels form them."""
+    B, S, H, Dk = r.shape
+    Dv = v.shape[-1]
+    grp = 2 * cols
+    ncg = -(-Dv // grp)
+    pad_r = lambda x: torch.nn.functional.pad(x.float(), (0, 64 - Dk))
+    pad_c = lambda x: torch.nn.functional.pad(x.float(), (0, ncg * grp - Dv))
+    rp, kp, wp = (pad_r(x) for x in (r, k, w))
+    vp = pad_c(v)
+    dp = pad_c(dout) if dout is not None else torch.zeros_like(vp)
+    P = torch.zeros((B, H, 64, ncg * grp))
+    if s0 is not None:
+        P[:, :, :Dk, :Dv] = s0.float()
+    ckpts = []
+    for t in range(S):
+        if t % chunk == 0:
+            ckpts.append(P)
+        P = wp[:, t, :, :, None] * P + kp[:, t, :, :, None] * vp[:, t, :,
+                                                                   None]
+    G = torch.zeros_like(P)
+    if dS_last is not None:
+        G[:, :, :Dk, :Dv] = dS_last.float()
+    part = torch.zeros((3, ncg, B, S, H, 64))
+    dv_state = torch.zeros((B, S, H, ncg * grp))
+    split = lambda x: x.reshape(x.shape[:-1] + (ncg, 2, cols))
+    for n in reversed(range(len(ckpts))):
+        P, states = ckpts[n], []
+        for t in range(n * chunk, min(S, (n + 1) * chunk)):
+            states.append(P)
+            P = wp[:, t, :, :, None] * P + kp[:, t, :, :, None] * vp[:, t, :,
+                                                                       None]
+        for s in reversed(range(len(states))):
+            t = n * chunk + s
+            Pt, Gt = split(states[s]), split(G)
+            vv, dd = split(vp[:, t, :, None]), split(dp[:, t, :, None])
+            acc = torch.zeros((3,) + Pt.shape[:-1])
+            for c in range(cols):
+                acc[0] = _fmaf(Pt[..., c], dd[..., c], acc[0])
+                acc[1] = _fmaf(Gt[..., c], vv[..., c], acc[1])
+                acc[2] = _fmaf(Gt[..., c], Pt[..., c], acc[2])
+            rows = acc[..., 0] + acc[..., 1]               # [3, B, H, 64, ncg]
+            part[:, :, :, t] = rows.permute(0, 4, 1, 2, 3)
+            kg = kp[:, t, :, :, None] * G                   # [B, H, 64, cols]
+            warps = _halving(kg.reshape(B, H, 4, 16, -1).transpose(-1, -2))
+            dv_state[:, t] = ((warps[:, :, 0] + warps[:, :, 1])
+                              + warps[:, :, 2]) + warps[:, :, 3]
+            G = _fmaf(wp[:, t, :, :, None], G,
+                      rp[:, t, :, :, None] * dp[:, t, :, None])
+    sums = part[:, 0]
+    for g in range(1, ncg):
+        sums = sums + part[:, g]
+    sums = sums[..., :Dk]
+    rf, kf, uf = r.float(), k.float(), u.float()[None, None]
+    vd = (vp * dp).sum(-1, keepdim=True)
+    ruk = (rf * uf * kf).sum(-1, keepdim=True)
+    dr = _fmaf(uf * kf, vd, sums[0])
+    dk = _fmaf(rf * uf, vd, sums[1])
+    dv = _fmaf(ruk, dp, dv_state)[..., :Dv]
+    du = (rf * kf * vd).sum((0, 1))
+    ds0 = G[:, :, :Dk, :Dv] if s0 is not None else None
+    return dr, dk, dv, sums[2], du, ds0
+
+
+@pytest.mark.parametrize("B,S,H,Dk,Dv,w_case,with_s0,with_dsl", [
+    (2, 37, 2, 16, 24, "uniform", True, True),     # a ragged last interval
+    (1, 33, 1, 40, 20, "zero", True, False),
+    (1, 20, 2, 8, 40, "tiny", False, True),        # three column groups
+    (1, 48, 1, 64, 64, "one", True, True),
+    (1, 16, 2, 64, 16, "uniform", False, False),   # one interval
+])
+def test_rwkv6_backward_kernel_algorithm_meets_the_tolerance(
+        B, S, H, Dk, Dv, w_case, with_s0, with_dsl):
+    """The backward kernel's algorithm (no division by w anywhere: states
+    from checkpoints, not run backwards) stays within 1e-5·max(1, max|g|)
+    of the gradient in float64, w = 0, w = 1 and w down to e^-69
+    included."""
+    r, k, v, w, u, s0, dout, dsl = map(_t, _rwkv_bwd_inputs(B, S, H, Dk,
+                                                            Dv, seed=3))
+    rng = np.random.default_rng(4)
+    w = {"uniform": w, "zero": torch.zeros_like(w),
+         "one": torch.ones_like(w),
+         "tiny": _t(np.exp(-rng.uniform(0, 69, w.shape)).astype(
+             np.float32))}[w_case]
+    s0 = s0 if with_s0 else None
+    dsl = dsl if with_dsl else None
+    got = _rwkv6_bwd_kernel_algorithm(r, k, v, w, u, s0, dout, dsl)
+    want = rwkv6.rwkv6_bwd_plain(*(x.double() if x is not None else None
+                                   for x in (r, k, v, w, u, s0, dout, dsl)))
+    for g, wt in zip(got, want):
+        assert (g is None) == (wt is None)
+        if wt is not None:
+            err = float((g.double() - wt).abs().max()) / max(
+                1.0, float(wt.abs().max()))
+            assert err < 1e-5, (w_case, err)
+
+
+# ---------------------------------------------------------------------- #
+# every wrapper is differentiable: off the CPU a tensor that autograd
+# would follow reaches the kernel path, and the CPU keeps the
+# differentiable plain version
 # ---------------------------------------------------------------------- #
 def _wrapper_calls(device):
     """Each wrapper's call, taking its inputs as a list so one of them can
@@ -608,22 +780,17 @@ def _grad_case(device, wrapper, i):
 
 
 @pytest.mark.parametrize("wrapper,i", GRAD_CASES)
-def test_kernel_wrappers_refuse_grad_off_the_cpu(wrapper, i):
-    """Off the CPU only the RWKV6 wrapper refuses an input that requires
-    grad (its backward kernel is not written yet): a `meta` input raises
-    before the device-type check.  Flash attention and RG-LRU have their
-    backward kernels, so the same call reaches the device-type check and
-    raises there, as it does under no_grad; nothing is launched."""
+def test_kernel_wrappers_with_grad_reach_the_device_check_off_the_cpu(
+        wrapper, i):
+    """Off the CPU every wrapper takes an input that requires grad to its
+    kernel path (each has its backward kernel): a `meta` input reaches the
+    device-type check and raises there, as it does under no_grad and
+    inference_mode; nothing is launched."""
     inputs, call = _grad_case("meta", wrapper, i)
     before = (fa.launches, rglru.launches, rwkv6.launches,
-              fa.launches_bwd, rglru.launches_bwd)
-    if wrapper == "rwkv6_scan":
-        with pytest.raises(NotImplementedError,
-                           match=f"{wrapper}.*no backward.*item 9"):
-            call(inputs)
-    else:
-        with pytest.raises(ValueError, match="CPU or CUDA"):
-            call(inputs)
+              fa.launches_bwd, rglru.launches_bwd, rwkv6.launches_bwd)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        call(inputs)
     with torch.no_grad():
         with pytest.raises(ValueError, match="CPU or CUDA"):
             call(inputs)
@@ -631,7 +798,8 @@ def test_kernel_wrappers_refuse_grad_off_the_cpu(wrapper, i):
         with pytest.raises(ValueError, match="CPU or CUDA"):
             call([t.detach() for t in inputs])
     assert (fa.launches, rglru.launches, rwkv6.launches,
-            fa.launches_bwd, rglru.launches_bwd) == before
+            fa.launches_bwd, rglru.launches_bwd,
+            rwkv6.launches_bwd) == before
 
 
 @pytest.mark.parametrize("wrapper,i", GRAD_CASES)
@@ -825,17 +993,26 @@ def test_rwkv6_kernel_decode_step_with_state(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("wrapper,i", [c for c in GRAD_CASES
                                        if c[0] == "rwkv6_scan"])
-def test_kernel_wrappers_refuse_grad_on_the_card(wrapper, i, cuda_device):
+def test_kernel_wrappers_with_grad_return_a_grad_fn_on_the_card(
+        wrapper, i, cuda_device):
+    """The RWKV6 wrapper, given any one input that requires grad, launches
+    its forward kernel and returns outputs with a `grad_fn`, whose
+    backward launches the backward kernel once; under no_grad the forward
+    alone, with no `grad_fn`."""
     inputs, call = _grad_case(cuda_device, wrapper, i)
-    before = rwkv6.launches
-    with pytest.raises(NotImplementedError,
-                       match=f"{wrapper}.*no backward.*item 9"):
-        call(inputs)
-    assert rwkv6.launches == before
+    before, before_bwd = rwkv6.launches, rwkv6.launches_bwd
+    out, s_last = call(inputs)
+    assert out.grad_fn is not None and s_last.grad_fn is not None
+    assert rwkv6.launches == before + 1
+    (out.sum() + s_last.sum()).backward()
+    torch.cuda.synchronize()
+    assert rwkv6.launches_bwd == before_bwd + 1
+    assert bool(torch.isfinite(inputs[i].grad).all())
     with torch.no_grad():
         out = call(inputs)
     torch.cuda.synchronize()
-    assert rwkv6.launches == before + 1
+    assert rwkv6.launches == before + 2
+    assert rwkv6.launches_bwd == before_bwd + 1
     out = out[0] if isinstance(out, tuple) else out
     assert out.device.type == "cuda" and out.grad_fn is None
 
@@ -993,3 +1170,113 @@ def test_rglru_backward_kernel_at_the_gate_edges(cuda_device):
     want = rglru.rglru_bwd_plain(x, a, h0, dh, dh_last)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+# ---------------------------------------------------------------------- #
+# on the card: the RWKV6 backward kernel against the plain gradient
+# ---------------------------------------------------------------------- #
+RWKV_BWD_CARD_CASES = [c + ("float32",) for c in RWKV_CASES] + [
+    (1, 33, 2, 8, 20, "float32"),       # Dk short of the kernel's 64 rows
+    (1, 33, 2, 40, 24, "float32"),      # Dv short of a column group
+    (1, 70, 3, 64, 64, "float32"),      # a ragged last interval
+    (2, 40, 2, 64, 40, "float32"),
+    (1, 512, 8, 64, 64, "float32"),
+    (1, 512, 8, 64, 64, "bfloat16"),
+    (1, 37, 2, 40, 24, "bfloat16"),
+]
+
+
+def _rwkv_bwd_on_card(shape, dt, device, w_case="uniform", seed=0):
+    """r, k, v, w, u, s0, dout, dS_last on the card: _rwkv_bwd_inputs'
+    draws, w replaced by 0, 1 or exp(-uniform(0, 69)) on request."""
+    B, S, H, Dk, Dv = shape
+    arrays = list(_rwkv_bwd_inputs(B, S, H, Dk, Dv, seed=seed))
+    rng = np.random.default_rng(seed + 7)
+    arrays[3] = {"uniform": arrays[3], "zero": np.zeros_like(arrays[3]),
+                 "one": np.ones_like(arrays[3]),
+                 "tiny": np.exp(-rng.uniform(0, 69, arrays[3].shape))
+                 .astype(np.float32)}[w_case]
+    return [_t(a, dt if i in (0, 1, 2, 3, 6) else "float32", device)
+            for i, a in enumerate(arrays)]
+
+
+def _rwkv_grads(r, k, v, w, u, s0, dout, dsl):
+    """The gradients of r, k, v, w, u (and s0) through `rwkv6_scan`."""
+    ins = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)] + (
+        [s0.clone().requires_grad_(True)] if s0 is not None else [])
+    out, s_last = rwkv6.rwkv6_scan(*ins[:5], ins[5] if s0 is not None
+                                   else None)
+    outs, grads = [out], [dout]
+    if dsl is not None:
+        outs.append(s_last)
+        grads.append(dsl)
+    torch.autograd.backward(outs, grads)
+    return [t.grad for t in ins] + ([None] if s0 is None else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Dk,Dv,dt", RWKV_BWD_CARD_CASES)
+@pytest.mark.parametrize("with_s0,with_dsl", [(True, True), (False, False),
+                                              (True, False)])
+def test_rwkv6_backward_kernel_matches_plain(B, S, H, Dk, Dv, dt, with_s0,
+                                             with_dsl, cuda_device):
+    """The backward kernel against the plain version's autograd in
+    float64 on the card: every gradient within 5e-5·max(1, max|g|) in
+    float32 and 2e-2 in bfloat16 (BWD_TOL); one backward launch."""
+    r, k, v, w, u, s0, dout, dsl = _rwkv_bwd_on_card((B, S, H, Dk, Dv), dt,
+                                                     cuda_device)
+    s0 = s0 if with_s0 else None
+    dsl = dsl if with_dsl else None
+    before = rwkv6.launches_bwd
+    got = _rwkv_grads(r, k, v, w, u, s0, dout, dsl)
+    torch.cuda.synchronize()
+    assert rwkv6.launches_bwd == before + 1
+    want = rwkv6.rwkv6_bwd_plain(*(t.double() if t is not None else None
+                                   for t in (r, k, v, w, u, s0, dout, dsl)))
+    for g, wt, x in zip(got, want, (r, k, v, w, u, s0)):
+        assert (g is None) == (wt is None)
+        if wt is not None:
+            assert g.dtype == x.dtype and g.shape == x.shape
+            err = _grad_err(g, wt)
+            assert err < BWD_TOL[dt], ((B, S, H, Dk, Dv, dt), err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_case", ["zero", "one", "tiny"])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rwkv6_backward_kernel_at_the_decay_edges(w_case, dt, cuda_device):
+    """w = 0, w = 1 and w down to e^-69: nothing divides by w, so the
+    gradients meet the tolerance there too."""
+    r, k, v, w, u, s0, dout, dsl = _rwkv_bwd_on_card((1, 100, 4, 64, 64),
+                                                     dt, cuda_device, w_case)
+    got = _rwkv_grads(r, k, v, w, u, s0, dout, dsl)
+    want = rwkv6.rwkv6_bwd_plain(*(t.double() for t in
+                                   (r, k, v, w, u, s0, dout, dsl)))
+    for g, wt in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _grad_err(g, wt) < BWD_TOL[dt], (w_case, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rwkv6_backward_is_deterministic_and_keeps_out(dt, cuda_device):
+    """Two backward calls give the same bits (no atomics), and out and
+    S_last are the same bits with and without the checkpoint write."""
+    r, k, v, w, u, s0, dout, dsl = _rwkv_bwd_on_card((2, 300, 8, 64, 64),
+                                                     dt, cuda_device)
+    with torch.no_grad():
+        want = rwkv6.rwkv6_scan(r, k, v, w, u, s0)
+    out, s_last, ckpt = rwkv6._launch(r, k, v, w, u, s0, with_ckpt=True)
+    assert torch.equal(out, want[0]) and torch.equal(s_last, want[1])
+    # the checkpoints are the states before every ckpt_steps()-th step
+    n = rwkv6.ckpt_steps()
+    with torch.no_grad():
+        _, s_mid = rwkv6.rwkv6_scan(*(x[:, :n].contiguous()
+                                      for x in (r, k, v, w)), u, s0)
+    assert torch.equal(ckpt[:, :, 0], s0) and torch.equal(ckpt[:, :, 1],
+                                                          s_mid)
+    first = _rwkv_grads(r, k, v, w, u, s0, dout, dsl)
+    again = _rwkv_grads(r, k, v, w, u, s0, dout, dsl)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)

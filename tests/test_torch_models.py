@@ -301,7 +301,7 @@ def test_blocks_outside_the_slice_raise(name):
 
 def test_vision_frontend_and_training_raise():
     """The vision frontend raises item 4 in the forward pass and in
-    training through it (`loss_fn` itself is ported: item 9)."""
+    training through it (`loss_fn` itself is ported)."""
     cfg = reduced_config(get_config("qwen2-vl-2b"))
     model = models.Model(cfg, device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),

@@ -161,13 +161,6 @@ def test_missing_nvcc_raises(monkeypatch):
 def test_unported_paths_raise_and_name_their_roadmap_item(tmp_path):
     from repro_torch import models
     from repro_torch.configs import get_config, reduced_config
-    cfg = reduced_config(get_config("recurrentgemma-9b"))
-    from repro_torch.kernels import rwkv6
-    # training is ported but for the RWKV6 kernel's backward: a grad
-    # through the kernel wrapper off the CPU raises
-    r = torch.ones((1, 4, 2, 16), device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 9"):
-        rwkv6.rwkv6_scan(r, r, r, r, torch.ones((2, 16), device="meta"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
         models.Model(reduced_config(get_config("dbrx-132b")), device="cpu")
     from repro_torch.trace.__main__ import main as trace_cli

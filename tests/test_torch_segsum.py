@@ -211,9 +211,9 @@ def test_build_flags_keep_ieee_adds():
     assert "--fmad=false" in flags and "fast_math" not in flags
     assert [s.rsplit("/", 1)[-1] for s in _build.sources()] == [
         "flash_attention.cu", "flash_attention_bwd.cu", "rglru.cu",
-        "rglru_bwd.cu", "rwkv6.cu", "segsum.cu"]
+        "rglru_bwd.cu", "rwkv6.cu", "rwkv6_bwd.cu", "segsum.cu"]
     assert [s.rsplit("/", 1)[-1] for s in _build.headers()] == [
-        "fa_common.cuh"]
+        "fa_common.cuh", "rwkv6_common.cuh"]
 
 
 # deeper randomized search when the [test] extra is installed ----------- #
