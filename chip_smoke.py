@@ -99,10 +99,16 @@ Phases, each reported on its own line(s):
    the launcher makes 2,048 times); then one JSON line `{"kernels":
    [...]}` with all four kernels (flash attention's bound on the tensor
    cores, and on the CUDA cores as `bound_cuda_core_ms`), and the three
-   backward kernels (RWKV6's at path C's layer shape, with the forward
-   beside it with and without its checkpoint write): seven entries;
+   backward kernels (flash attention's at path A's layer shape and, as
+   `ms_path_b` beside its `bound_path_b_ms`, at path B's, with the 1.5 ms
+   aim at path A stated as met or missed; RWKV6's at path C's layer
+   shape, with the forward beside it with and without its checkpoint
+   write): seven entries;
 12. backward kernels: flash attention's (`csrc/flash_attention_bwd.cu`)
-   on `FA_CASES` and at the two training paths' attention shapes (4 x
+   on `FA_CASES`, on every head dim in float32 and bfloat16 over
+   `FA_BWD_EDGES` (GQA groups of 1, 2, 3 and 16, lengths that are not a
+   multiple of its tiles, a window shorter than a tile, softcap with a
+   static q_offset) and at the two training paths' attention shapes (4 x
    2,048, 15 heads of 64 on 5, causal; 1 x 3,072, 16 heads of 256 on 1,
    window 2048), float32 and bfloat16, against the plain version's
    autograd in float64 on the card (5e-5 and 2e-2 of max(1, max|g|)),
@@ -241,6 +247,19 @@ FA_BWD_B = (TRAIN_B_B, TRAIN_B_S, TRAIN_B_S, 16, 1, 256, True, 2048, None,
             "float32")
 RG_BWD = (TRAIN_B_B, TRAIN_B_S, 4096)
 BWD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+# the flash-attention backward on every head dim, both dtypes: (B, Sq, Sk,
+# Hq, Hkv, causal, window, softcap, q_offset), as
+# tests/test_torch_kernels.py::FA_BWD_EDGES
+FA_BWD_EDGES = [
+    (2, 77, 77, 2, 1, True, None, None, 0),
+    (2, 20, 9, 2, 2, False, None, None, 0),
+    (2, 100, 100, 4, 2, True, 7, None, 0),
+    (2, 70, 130, 2, 1, True, 48, 30.0, 60),
+    (2, 150, 150, 15, 5, True, None, None, 0),
+    (2, 100, 100, 16, 1, True, 7, None, 0),
+]
+# the aim for the backward at path A's shape (ms, H100)
+FA_BWD_AIM_MS = 1.5
 # training path C: rwkv6-7b at full width (d 4,096, 64 heads of
 # 64, d_ff 14,336, vocab 65,536, float32) cut to 4 layers, 2 sequences
 # of 4,096 tokens (the JAX package's train_4k context) in 2
@@ -1285,14 +1304,14 @@ def _grad_err(got, want) -> float:
         1.0, float(want.abs().max()))
 
 
-def _fa_bwd_check(case, seed: int = 0) -> float:
+def _fa_bwd_check(case, seed: int = 0, q_offset: int = 0) -> float:
     """Flash attention's backward kernel on `case` against the plain
     version's autograd in float64: the scaled error of dq, dk and dv;
     also two calls bit-identical and `out` the same with and without the
     log-sum-exp write."""
     from repro_torch.kernels import flash_attention as fa
     causal, window, cap, dt = case[6:]
-    kw = dict(causal=causal, window=window, softcap=cap)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
     q, k, v = _fa_inputs(case, seed)
     dout = torch.randn(q.shape, generator=torch.Generator(
         device="cuda").manual_seed(seed + 1), device="cuda").to(q.dtype)
@@ -1313,8 +1332,9 @@ def _fa_bwd_check(case, seed: int = 0) -> float:
     want = fa.flash_attention_bwd_plain(q.double(), k.double(), v.double(),
                                         dout.double(), **kw)
     err = max(_grad_err(g, w) for g, w in zip(grads[0], want))
-    check(all(g.dtype == q.dtype for g in grads[0]),
-          f"flash attention backward {case}: dtype")
+    check(all(g.dtype == q.dtype and g.shape == w.shape
+              for g, w in zip(grads[0], want)),
+          f"flash attention backward {case}: dtype or shape")
     check(err <= BWD_TOL[dt],
           f"flash attention backward {case}: error {err!r}")
     del q, k, v, dout, grads, want
@@ -1363,6 +1383,19 @@ def phase_backward_kernels_vs_plain() -> dict:
             f"two calls bit-identical; out unchanged by the lse write")
         torch.cuda.empty_cache()
     worst["flash_attention_bwd"] = worst[FA_BWD_A]
+    # every instantiation: each head dim, both dtypes, on the edges
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    errs = {}
+    for D in HEAD_DIMS:
+        for dt in ("float32", "bfloat16"):
+            for B, Sq, Sk, Hq, Hkv, causal, window, cap, off in FA_BWD_EDGES:
+                case = (B, Sq, Sk, Hq, Hkv, D, causal, window, cap, dt)
+                err = _fa_bwd_check(case, seed=D, q_offset=off)
+                errs[dt] = max(errs.get(dt, 0.0), err)
+    log(f"kernel flash_attention_bwd on every head dim {HEAD_DIMS} x "
+        f"float32, bfloat16 x {len(FA_BWD_EDGES)} edges: worst scaled "
+        f"error {errs} (tolerances {BWD_TOL}); each twice, bit-identical; "
+        f"out unchanged by the lse write")
     for dtype in (torch.float32, torch.bfloat16):
         for with_h0 in (False, True):
             err = _rg_bwd_check(*RG_BWD, dtype, with_h0)
@@ -1561,13 +1594,13 @@ def _profile_step(cfg, model, batch, n_micro: int, top: int = 10,
             rows.append((ev.key, ev.count, dev_us / 1e3))
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    # the port's kernels are in their sources' anonymous namespaces;
-    # PyTorch's reductions are at::native::reduce_kernel
+    # the port's kernels are in their sources' anonymous namespaces (the
+    # flash-attention backward: delta_kernel, then bwd_kernel for dK/dV
+    # and for dQ); PyTorch's own kernels are not
     ours = "(anonymous namespace)::"
     fa_fwd = sum(r[2] for r in rows if ours + "fa_kernel" in r[0])
     fa_bwd = sum(r[2] for r in rows if any(
-        ours + k in r[0] for k in ("dkdv_kernel", "dq_kernel",
-                                   "delta_kernel", "reduce_kernel")))
+        ours + k in r[0] for k in ("bwd_kernel<", "delta_kernel<")))
     log(f"train step profile {cfg.name}: wall {wall_ms:.3f} ms, device "
         f"busy {busy:.3f} ms (idle {max(0.0, 1 - busy / wall_ms):.4f} of "
         f"the wall); flash attention forward {fa_fwd:.3f} ms, backward "
@@ -1637,7 +1670,9 @@ def phase_train_a() -> dict:
     losses = [m["loss"] for m in metrics]
     check(all(np.isfinite(losses)), f"path A losses not finite: {losses}")
     check(losses[-1] < losses[0], f"path A loss did not fall: {losses}")
-    _profile_step(cfg, model, batches[0], TRAIN_A_MICRO)
+    prof = _profile_step(cfg, model, batches[0], TRAIN_A_MICRO)
+    check(prof["fa_bwd_ms"] > 0, "path A's profile finds no flash-attention "
+          "backward kernel by name, though the backward launched")
     steady = float(np.mean(seconds[1:]))
     tokens = TRAIN_A_B * TRAIN_A_S
     log(f"train path A {cfg.name} ({TRAIN_A_PARAMS} float32 parameters, "
@@ -1678,7 +1713,9 @@ def phase_train_b() -> dict:
           f"{expect}")
     losses = [m["loss"] for m in metrics]
     check(all(np.isfinite(losses)), f"path B losses not finite: {losses}")
-    _profile_step(cfg, model, batches[0], 1)
+    prof = _profile_step(cfg, model, batches[0], 1)
+    check(prof["fa_bwd_ms"] > 0, "path B's profile finds no flash-attention "
+          "backward kernel by name, though the backward launched")
     steady = float(np.mean(seconds[1:]))
     log(f"train path B {cfg.name} at full width, layers {model.kinds} "
         f"({TRAIN_B_PARAMS} float32 parameters) B={TRAIN_B_B} "
@@ -1997,6 +2034,31 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
     return [fa_entry, rg_entry]
 
 
+def _fa_bwd_bound(case) -> tuple[float, str, float]:
+    """Least time for one flash-attention backward call: 10*D operations
+    a unmasked (query, key) pair (S, dP, dV, dK, dQ) on the tensor cores
+    (float32 as three TF32 products), against q, k, v, O, dO read once,
+    L read once and dq, dk, dv written once; also the operations on the
+    CUDA cores' float32 peak."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, _, dt = case
+    pos = np.arange(Sq)[:, None]
+    kp = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if causal:
+        ok &= kp <= pos
+    if window is not None:
+        ok &= kp > pos - window
+    ops = 10 * D * int(ok.sum()) * B * Hq
+    size = torch.tensor([], dtype=getattr(torch, dt)).element_size()
+    t_ops = (3 * ops / PEAK_TF32_OPS_PER_S if dt == "float32"
+             else ops / PEAK_BF16_OPS_PER_S) * 1e3
+    nbytes = (size * (4 * B * Sq * Hq * D + 4 * B * Sk * Hkv * D)
+              + 4 * B * Hq * Sq)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+            "bytes", ops / PEAK_F32_OPS_PER_S * 1e3)
+
+
 def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
     """The backward kernels at the training paths' shapes: flash
     attention's at path A's attention layer, RG-LRU's at path B's."""
@@ -2025,11 +2087,24 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
     dt_ = dout.transpose(1, 2).contiguous()
     library_ms = _cuda_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dt_, retain_graph=True), reps=10)
-    pairs = B * Hq * Sq * (Sq + 1) // 2
-    ops = 10 * D * pairs        # S, dP, dV, dK, dQ: five products of D
-    t_ops = 3 * ops / PEAK_TF32_OPS_PER_S * 1e3
-    nbytes = 4 * (4 * B * Sq * Hq * D + 4 * B * Sk * Hkv * D + B * Hq * Sq)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by, cuda_core_ms = _fa_bwd_bound(FA_BWD_A)
+    del q, k, v, dout, out, lse, qt, kt, vt, ot, dt_, mask
+    torch.cuda.empty_cache()
+    # path B's attention layer (head_dim 256, window 2048)
+    Bb, Sb, _, Hqb, Hkvb, Db, _, win_b = FA_BWD_B[:8]
+    q, k, v = _fa_inputs(FA_BWD_B)
+    dout = torch.randn_like(q)
+    scale_b = Db ** -0.5
+    out, lse = fa._launch(q, k, v, True, win_b, None, scale_b, 0,
+                          with_lse=True)
+    ms_b = _cuda_ms(lambda: fa._launch_bwd(q, k, v, out, dout, lse, True,
+                                           win_b, None, scale_b, 0),
+                    reps=10)
+    bound_b_ms = _fa_bwd_bound(FA_BWD_B)[0]
+    del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+    aim = (f"{'met' if ms <= FA_BWD_AIM_MS else 'missed'}: {ms!r} ms "
+           f"against {FA_BWD_AIM_MS} ms at path A's shape")
     fa_entry = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2039,11 +2114,15 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
         "launches": train_a["per_step"]["flash_attention_bwd"],
         "launches_path": train_a["launches"]["flash_attention_bwd"],
         "max_abs_err": errs["flash_attention_bwd"], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "bound_cuda_core_ms": ops / PEAK_F32_OPS_PER_S * 1e3,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_cuda_core_ms": cuda_core_ms,
         "library_ms": library_ms,
         "ms_forward_with_lse": ms_fwd,
+        "ms_path_b": ms_b, "bound_path_b_ms": bound_b_ms,
+        "shape_path_b": f"q, dout [{Bb},{Sb},{Hqb},{Db}] k/v "
+                        f"[{Bb},{Sb},{Hkvb},{Db}] float32, causal, window "
+                        f"{win_b} (one recurrentgemma-9b attention layer)",
+        "aim": aim,
         "shape": f"q, dout [{B},{Sq},{Hq},{D}] k/v [{B},{Sk},{Hkv},{D}] "
                  f"float32, causal (one smollm-360m layer, one microbatch)",
         "library": "backward of scaled_dot_product_attention, explicit "
@@ -2053,8 +2132,9 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
                          "microbatches); launches_path over its 8 steps",
         "max_abs_err_note": "scaled: max|err| / max(1, max|g|) against "
                             "float64"}
-    del q, k, v, dout, out, lse, qt, kt, vt, ot, dt_, mask
-    torch.cuda.empty_cache()
+    log(f"timing flash_attention_bwd at path B's shape: kernel {ms_b!r} ms,"
+        f" bound {bound_b_ms!r} ms; the {FA_BWD_AIM_MS} ms aim at path A "
+        f"{aim}")
 
     B, S, D = RG_BWD
     x, a, _ = _rg_inputs(B, S, D)

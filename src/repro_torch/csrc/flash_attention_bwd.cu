@@ -4,95 +4,148 @@
 // The TPU kernel `_fa_kernel` of the JAX package
 // (src/repro/kernels/flash_attention.py:29, launched at :120) has no
 // backward: the JAX package trains by differentiating its plain versions
-// (`attention_ref`, `_attention_chunked`; src/repro/kernels/ops.py).  This
-// file computes the same gradient for the forward kernel of
-// flash_attention.cu, from its output O and the log-sum-exp L of each row
-// that it writes when asked (FlashAttention-2's scheme):
+// (`attention_ref`, src/repro/kernels/ops.py:96-118).  This file computes
+// the same gradient for the forward kernel of flash_attention.cu, from its
+// output O and the log-sum-exp L of each row that it writes when asked
+// (FlashAttention-2's scheme):
 //
 //   P_ij  = exp(s_ij - L_i)                 (0 where the forward masks)
 //   D_i   = sum_d dO_id O_id                 (delta_kernel)
 //   dP_ij = dO_i . v_j
 //   dS_ij = P_ij (dP_ij - D_i) c_ij,   c_ij = 1 - tanh^2(x_ij / cap) with
 //           the softcap (x_ij = scale q_i . k_j), else 1
-//   dQ_i  = scale sum_j dS_ij k_j            (dq_kernel)
-//   dK_j  = scale sum_i dS_ij q_i,  dV_j = sum_i P_ij dO_i   (dkdv_kernel)
+//   dQ_i  = scale sum_j dS_ij k_j,   dK_j = scale sum_i dS_ij q_i,
+//   dV_j  = sum_i P_ij dO_i
 //
 // with the forward's mask (j < Sk, j <= pos_i when causal, j > pos_i -
 // window when windowed, pos_i = q_offset + i), scale and softcap.  A
-// masked pair has P = 0 here: a row that the forward masks entirely gets
-// a zero gradient (never exp(s - L) of two -1e30's, and L = +inf where
-// the forward visited no key).  k or q tiles wholly outside the band are
-// not visited, as in the forward; since their P is 0 that changes nothing.
+// masked pair has P = 0: a row that the forward masks entirely gets a zero
+// gradient.  Tiles wholly outside the band are not visited.
 //
-// Design.  The products run on the tensor cores with the forward's
-// fragments (fa_common.cuh: float32 as split TF32, bf16 as m16n8k16 with
-// P and dS rounded to bf16 for the mma, float32 accumulators).  A warp
-// owns 16 rows and streams 16-row tiles through a double-buffered
-// cp.async ring:
-// - dq_kernel: a block per (b, q head, q tile); each warp holds 16 q rows
-//   of Q and dO in shared memory and its rows' L and D in registers, and
-//   walks the k tiles of the band: S = Q K^T and dP = dO V^T
-//   (`Mma::scores`), dS, then dQ += dS K (`Mma::pv`).
-// - dkdv_kernel: a block per (b, q head, k tile); each warp holds 16 keys
-//   of K and V, and walks the q tiles of the band (Q, dO, L and D of 16
-//   rows a tile): S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
-//   dK += dS^T Q.  The gradient of one kv head sums over the Hq / Hkv q
-//   heads that read it; each q head's block writes its own float32 share
-//   and reduce_kernel adds the shares in head order.  No atomics: every
-//   sum has one fixed order, so two calls give the same bits.
-// - At head_dim 256 the dK and dV accumulators (128 registers each) do
-//   not fit in one thread, so dV (which needs no dP) and dK run as two
-//   passes of dkdv_kernel; blocks are 4 warps there (Q and dO of 64 rows
-//   or K and V of 64 keys, 135 KB, plus the ring), 8 warps below.
+// Bound.  Each unmasked pair costs five products of length D (S, dP, dV,
+// dK, dQ): 10*D operations, each product three TF32 products in float32.
+// This design forms S and dP twice (point 4), 14*D a pair, so it can reach
+// at most 10/14 of that bound.
 //
-// Bound.  Each unmasked pair costs five products of length D (S and dP,
-// recomputed in both kernels, then dQ, dK and dV): 10*D operations in the
-// algorithm's count, 3 TF32 products each in float32.  Bytes (q, k, v, O,
-// dO read once, dq, dk, dv written once) are far below that at the
-// training shapes.
+// Design.  Three launches: delta_kernel, then one body, `bwd_kernel`, for
+// dK/dV (kDQ false) and for dQ (kDQ true).  A block owns rows of one side
+// (K and V of a key tile, or Q and dO of a q tile), one warpgroup per kNo
+// owned rows (`BwdCfg`), and streams 64-row tiles of the other side
+// (Q and dO, or K and V).  In the words of the five bottlenecks:
+// 1. Every product is a `wgmma` (hopper_common.cuh), A from registers, B
+//    from shared memory in the 128-byte swizzled K-major layout:
+//      T1 = Y1 X1^T, T2 = Y2 X2^T    (S, dP or S^T, dP^T: M = the 64
+//                                     streamed rows, N = the owned rows)
+//      A1 = Y2^T P,  A2 = Y1^T dS    (dV^T, dK^T or dQ^T: M = D)
+//    with X1, X2 the owned tiles and Y1, Y2 the streamed ones.  `.tf32`
+//    takes no transpose, so no B operand is ever a transpose: the owned
+//    tiles are B of T1/T2 as stored; P and dS are B of A1/A2, written by
+//    the warpgroup from its T accumulators with the owned index as the
+//    row (the transpose is only where each thread stores its elements);
+//    the streamed tiles are only ever A, read from their raw rows into
+//    registers (rows padded by 32 bytes: both fragment loads are free of
+//    bank conflicts).  No transposed copy is kept: shared memory holds per
+//    warpgroup the owned tiles' hi and lo (4 * kNo * D * 4 bytes in
+//    float32) and P and dS (hi, lo), and the ring.  Float32 is split TF32,
+//    three wgmma a product (hi.hi, hi.lo, lo.hi; hi rounded to nearest as
+//    in the forward, fa_common.cuh `split`, not the raw operand, whose
+//    truncation would double the product's error): the owned tiles are
+//    split once a block, P and dS once where they are formed, and a
+//    streamed tile once a warpgroup for each of its two products (as T's
+//    A and as A1/A2's transposed A), not once a warp.  bf16 runs natively
+//    (P and dS rounded to bf16, float32 accumulators).  --fmad=false
+//    stands; the epilogue needs no fused add (exp2 of the logit and L
+//    taken in base 2).
+// 2. A producer warp streams the tiles with per-row `cp.async.bulk` copies
+//    (a [B, S, H, D] row is contiguous for D elements, so no tensor map or
+//    driver entry point is needed) into a ring of kStages stages, each
+//    completing on its full mbarrier; the consumers free a stage through
+//    its empty mbarrier once its fragments are in registers.  A wait of
+//    more than ~10 s traps.  With two consumer warpgroups ptxas holds the
+//    288-thread block to 168 registers a thread; `setmaxnreg` with a
+//    producer warpgroup did not lift that (measured: the same spills and
+//    4 % slower), so the producer is one warp and no registers move.
+// 3. dK/dV: a block per (b, kv head, key tile) walks the q heads of the
+//    kv head's group in head order, and for each the q tiles of the band;
+//    dK and dV are summed in registers over the whole group in that one
+//    order and written once: no atomics, no per-q-head shares, no reduce
+//    launch.  Each tile's A1/A2 goes into a fresh tensor-core accumulator
+//    and is added to the sums on the CUDA cores: a tensor-core sum over a
+//    whole band and group rounds away the split's small products (measured
+//    against float64: 2e-4 of max|g| at path B's shape, against 5e-6 this
+//    way).  At D = 256 float32 the two accumulators of 16 owned rows fit,
+//    and one pass forms both.
+// 4. dQ: its own launch, a block per (b, q head, q tile), which forms S
+//    and dP again (14*D a pair in all); fixed-order dQ shares from the
+//    dK/dV blocks would be ~0.35 GB written and read again at path A's
+//    shape (one 64 x 64 float32 share per pair of tiles in the band).
+// 5. Longest bands first: dK/dV blocks are issued key tile by key tile
+//    (a causal band shortens as the keys move right), dQ blocks from the
+//    last q tile back.
+// Every sum has one order, so two calls give the same bits.
 //
 // Build: see flash_attention.cu.
+#include <type_traits>
+
 #include "fa_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-// warps a block at head_dim D: 8, or 4 at 256 (shared memory)
-template <int D>
-constexpr int bwd_warps() {
-    return D == 256 ? 4 : 8;
-}
+constexpr int kRows = 64;        // streamed rows of a tile: wgmma's M
 
-// Shared-memory layout of one block (elements of T): two owned tiles of
-// kRows rows (Q and dO, or K and V), then the ring of two stages, each two
-// streamed 16-row tiles (K and V, or Q and dO), then (dkdv only) the
-// stages' L and D values.
+// A block's tile shape.  Tunables (tools/fa_bwd_sweep.py times others):
+// kNo owned rows of a consumer warpgroup (N of every product), kWG
+// consumer warpgroups (each owns its rows; all read every streamed tile
+// of the one ring), kStoreTiles 2 (P and dS apart) or 1 (dS written over P
+// once A1 has read it, to save shared memory), kStages of the ring,
+// kChunk k-steps of A fragments a fence.  One block an SM.
 template <typename T, int D>
-struct BwdTiles {
-    static constexpr int kWarps = bwd_warps<D>();
-    static constexpr int kThreads = 32 * kWarps;
-    static constexpr int kRows = 16 * kWarps;
-    static constexpr int kLd = D + 32 / static_cast<int>(sizeof(T));
-    static constexpr int kOwn = kRows * kLd;
-    static constexpr int kTile = kBlockK * kLd;
-    static constexpr int kStage = 2 * kTile;
-    static constexpr int kBytes =
-        static_cast<int>(sizeof(T)) * (2 * kOwn + 2 * kStage) +
-        static_cast<int>(sizeof(float)) * 2 * 2 * kBlockK;
+struct BwdCfg {
+    static constexpr bool kF32 = std::is_same<T, float>::value;
+    static constexpr int kEs = static_cast<int>(sizeof(T));
+    static constexpr int kNo =
+        kF32 ? (D <= 64 ? 48 : 4096 / D) : (D <= 128 ? 64 : 32);
+    static constexpr int kWG = D <= 64 ? 2 : 1;
+    static constexpr int kStoreTiles = kF32 && D <= 64 ? 1 : 2;
+    static constexpr int kStages =
+        kF32 ? (D <= 64 ? 4 : (D == 128 ? 3 : 2)) : 4;
+    static constexpr int kChunk = kF32 && D <= 64 ? 2 : 4;
+    static constexpr int kK = kF32 ? 8 : 16;           // wgmma's K
+    static constexpr int kCopies = kF32 ? 2 : 1;       // hi (and lo)
+    // a streamed row: D and 32 bytes, so that the fragment loads of both
+    // products are free of bank conflicts
+    static constexpr int kLd = D + 32 / kEs;
+    static constexpr int kStage = kRows * kLd * kEs;   // bytes of a stage
+    static constexpr int kDp = D * kEs < 128 ? 128 / kEs : D;
+    static constexpr int kOwn = kNo * kDp * kEs;       // one owned copy
+    static constexpr int kStore = kNo * kRows * kEs;   // one P or dS copy
+    static constexpr int kMb = D < 64 ? 1 : D / 64;    // M blocks of A1/A2
+    static constexpr int kConsumers = 128 * kWG;
+    static constexpr int kThreads = kConsumers + 32;   // and the producer
+    // a warpgroup's owned tiles (X1 hi, lo, X2 hi, lo) and P, dS (hi, lo),
+    // then the ring and the barriers
+    static constexpr int kOffStore = 2 * kCopies * kOwn;
+    static constexpr int kPerWG = kOffStore + kStoreTiles * kCopies * kStore;
+    static constexpr int kOffRing = kWG * kPerWG;
+    static constexpr int kOffBar = kOffRing + kStages * kStage;
+    static constexpr int kBytes = kOffBar + 2 * kStages * 8 + 1024;
+    static_assert(kOwn % 1024 == 0 && kStore % 1024 == 0, "alignment");
+    static_assert(kStage % 16 == 0, "bulk copies need 16-byte rows");
+    static_assert(kBytes <= 232448, "shared memory of a block");
 };
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
-// x = scale * s, then the softcap; returns x and sets dfac = dx/d(scale*s)
-__device__ __forceinline__ float logit(float s, float scale, int has_softcap,
-                                       float softcap, float& dfac) {
-    float x = s * scale;
-    dfac = 1.f;
-    if (has_softcap) {
-        const float th = tanhf(x / softcap);
-        x = th * softcap;
-        dfac = 1.f - th * th;
-    }
-    return x;
+template <typename T>
+__device__ __forceinline__ T cast_out(float v);
+template <>
+__device__ __forceinline__ float cast_out<float>(float v) {
+    return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 cast_out<__nv_bfloat16>(float v) {
+    return __float2bfloat16(v);
 }
 
 // ------------------------------------------------------------------ //
@@ -125,382 +178,603 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 }
 
 // ------------------------------------------------------------------ //
-// dQ: a block per (q tile, q head, batch)
+// A fragments from a raw streamed tile (rows of kLd elements; the rows
+// past the sequence's end are zero, see the loop).  rows(): A[m][k] =
+// Y[m0 + m][k0 + k], the T products, where float32 permutes k within each
+// 8 (register slot t holds k = 2t, slot t + 4 k = 2t + 1: one 8-byte load
+// for both), and the owned tiles are stored with the same permutation.
+// cols(): A[m][k] = Y[k0 + k][d], the A1/A2 products, where M row slot g
+// of a warp's 16 holds d = m0 + 2g and slot g + 8 d = m0 + 2g + 1 (one
+// 8-byte load, or a 4-byte pair in bf16), which the output write undoes;
+// d >= D is zero.  Float32 comes back split into TF32 hi and lo.
 // ------------------------------------------------------------------ //
 template <typename T, int D>
-__global__ void __launch_bounds__(BwdTiles<T, D>::kThreads, 1)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int64_t Sq, int64_t Sk, int Hq, int Hkv,
-          int causal, int has_window, int64_t window, int has_softcap,
-          float softcap, float scale, int64_t q_offset) {
-    using L = BwdTiles<T, D>;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* qs = reinterpret_cast<T*>(smem_raw);
-    T* dos = qs + L::kOwn;
-    T* stages = dos + L::kOwn;
+struct Frag;
 
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    // the last q tile first: under a causal mask it has the most keys
-    const int64_t q0 =
-        static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * L::kRows;
-    const int h = blockIdx.y;
-    const int64_t b = blockIdx.z;
-    const int hk = h / (Hq / Hkv);
-    const int64_t q_stride = static_cast<int64_t>(Hq) * D;
-    const int64_t kv_stride = static_cast<int64_t>(Hkv) * D;
-    const T* qb = q + (b * Sq * Hq + h) * D;
-    const T* dob = dout + (b * Sq * Hq + h) * D;
-    const T* kb = k + (b * Sk * Hkv + hk) * D;
-    const T* vb = v + (b * Sk * Hkv + hk) * D;
-    T* dqb = dq + (b * Sq * Hq + h) * D;
-    const float* lse_b = lse + (b * Hq + h) * Sq;
-    const float* delta_b = delta + (b * Hq + h) * Sq;
-
-    // the k tiles this q tile can see (the forward's band)
-    const int64_t rows = (Sq - q0 < L::kRows) ? (Sq - q0) : L::kRows;
-    const int64_t pos_lo = q_offset + q0;
-    const int64_t pos_hi = pos_lo + rows - 1;
-    int64_t k_begin = 0;
-    int64_t k_end = Sk;
-    if (causal && pos_hi + 1 < k_end) {
-        k_end = pos_hi + 1;
+template <int D>
+struct Frag<float, D> {
+    static constexpr int kLd = BwdCfg<float, D>::kLd;
+    __device__ __forceinline__ static void rows(const float* y, int m0,
+                                                int k0, int g, int t,
+                                                uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4]) {
+        const float* p = y + (m0 + g) * kLd + k0 + 2 * t;
+        const float2 x0 = *reinterpret_cast<const float2*>(p);
+        const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * kLd);
+        split(x0.x, hi[0], lo[0]);
+        split(x1.x, hi[1], lo[1]);
+        split(x0.y, hi[2], lo[2]);
+        split(x1.y, hi[3], lo[3]);
     }
-    if (has_window && pos_lo - window + 1 > k_begin) {
-        k_begin = pos_lo - window + 1;
-    }
-    const int64_t t_begin = k_begin / kBlockK;
-    const int64_t t_end = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
-
-    load_rows<T, D, L::kRows, L::kLd, L::kThreads>(qs, qb, q_stride, q0, Sq);
-    load_rows<T, D, L::kRows, L::kLd, L::kThreads>(dos, dob, q_stride, q0,
-                                                   Sq);
-    if (t_begin < t_end) {
-        const int64_t k0 = t_begin * kBlockK;
-        load_rows<T, D, kBlockK, L::kLd, L::kThreads>(stages, kb, kv_stride,
-                                                      k0, Sk);
-        load_rows<T, D, kBlockK, L::kLd, L::kThreads>(stages + L::kTile, vb,
-                                                      kv_stride, k0, Sk);
-    }
-    cp_async_commit();
-
-    // this thread's rows: 16*warp + g and + 8
-    const int64_t wpos_lo = pos_lo + 16 * warp;
-    const int64_t my_pos[2] = {wpos_lo + g, wpos_lo + g + 8};
-    float my_lse[2], my_delta[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int64_t row = q0 + 16 * warp + g + 8 * r;
-        my_lse[r] = row < Sq ? lse_b[row] : inf_f();
-        my_delta[r] = row < Sq ? delta_b[row] : 0.f;
-    }
-    float acc[D / 8][4];
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            acc[c][e] = 0.f;
+    __device__ __forceinline__ static void cols(const float* y, int m0,
+                                                int k0, int g, int t,
+                                                uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4]) {
+        const int d = m0 + 2 * g;
+        float2 x0 = make_float2(0.f, 0.f);
+        float2 x1 = x0;
+        if (D >= 64 || d < D) {
+            const float* p = y + (k0 + t) * kLd + d;
+            x0 = *reinterpret_cast<const float2*>(p);
+            x1 = *reinterpret_cast<const float2*>(p + 4 * kLd);
         }
+        split(x0.x, hi[0], lo[0]);
+        split(x0.y, hi[1], lo[1]);
+        split(x1.x, hi[2], lo[2]);
+        split(x1.y, hi[3], lo[3]);
     }
-    const T* qw = qs + 16 * warp * L::kLd;
-    const T* dow = dos + 16 * warp * L::kLd;
+};
 
-    for (int64_t kt = t_begin; kt < t_end; ++kt) {
-        const int64_t k0 = kt * kBlockK;
-        const T* ks = stages + ((kt - t_begin) & 1) * L::kStage;
-        const T* vs = ks + L::kTile;
-        cp_async_wait_all();
-        __syncthreads();   // tile kt is in; every warp is done with kt-1
-        if (kt + 1 < t_end) {
-            T* nxt = stages + ((kt + 1 - t_begin) & 1) * L::kStage;
-            load_rows<T, D, kBlockK, L::kLd, L::kThreads>(
-                nxt, kb, kv_stride, k0 + kBlockK, Sk);
-            load_rows<T, D, kBlockK, L::kLd, L::kThreads>(
-                nxt + L::kTile, vb, kv_stride, k0 + kBlockK, Sk);
-            cp_async_commit();
-        }
-
-        float s[kBlockK / 8][4], dp[kBlockK / 8][4];
-        Mma<T>::template scores<D, L::kLd>(qw, ks, g, t, s);
-        Mma<T>::template scores<D, L::kLd>(dow, vs, g, t, dp);
-
-        const bool inside =
-            k0 + kBlockK <= Sk &&
-            (!causal || k0 + kBlockK - 1 <= wpos_lo) &&
-            (!has_window || k0 > wpos_lo + 15 - window);
-#pragma unroll
-        for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int r = e >> 1;
-                float dfac;
-                const float x = logit(s[j][e], scale, has_softcap, softcap,
-                                      dfac);
-                bool ok = true;
-                if (!inside) {
-                    const int64_t kp = k0 + 8 * j + 2 * t + (e & 1);
-                    ok = kp < Sk;
-                    if (causal) {
-                        ok = ok && kp <= my_pos[r];
-                    }
-                    if (has_window) {
-                        ok = ok && kp > my_pos[r] - window;
-                    }
-                }
-                const float p = ok ? expf(x - my_lse[r]) : 0.f;
-                s[j][e] = p * (dp[j][e] - my_delta[r]) * dfac;   // dS
-            }
-        }
-        Mma<T>::template pv<D, L::kLd>(s, ks, g, t, acc);
+template <int D>
+struct Frag<__nv_bfloat16, D> {
+    static constexpr int kLd = BwdCfg<__nv_bfloat16, D>::kLd;
+    __device__ __forceinline__ static uint32_t word(const __nv_bfloat16* y,
+                                                    int off) {
+        return *reinterpret_cast<const uint32_t*>(y + off);
     }
-    cp_async_wait_all();
-
+    __device__ __forceinline__ static void rows(const __nv_bfloat16* y,
+                                                int m0, int k0, int g, int t,
+                                                uint32_t (&a)[4],
+                                                uint32_t (&)[4]) {
+        const int at = (m0 + g) * kLd + k0 + 2 * t;
+        a[0] = word(y, at);
+        a[1] = word(y, at + 8 * kLd);
+        a[2] = word(y, at + 8);
+        a[3] = word(y, at + 8 * kLd + 8);
+    }
+    __device__ __forceinline__ static void cols(const __nv_bfloat16* y,
+                                                int m0, int k0, int g, int t,
+                                                uint32_t (&a)[4],
+                                                uint32_t (&)[4]) {
+        // rows k and k + 1 at d and d + 1: a0 = (d; k, k+1), a1 = (d + 1;
+        // k, k+1), a2, a3 the same at k + 8
+        const int d = m0 + 2 * g;
+        a[0] = a[1] = a[2] = a[3] = 0u;
+        if (D >= 64 || d < D) {
+            const int at = (k0 + 2 * t) * kLd + d;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int64_t row = q0 + 16 * warp + g + 8 * r;
-        if (row < Sq) {
-            T* dst = dqb + row * q_stride + 4 * t;
-#pragma unroll
-            for (int c = 0; c < D / 16; ++c) {
-                store4<T>(dst + 16 * c, acc[2 * c][2 * r] * scale,
-                          acc[2 * c + 1][2 * r] * scale,
-                          acc[2 * c][2 * r + 1] * scale,
-                          acc[2 * c + 1][2 * r + 1] * scale);
+            for (int h = 0; h < 2; ++h) {
+                const uint32_t w0 = word(y, at + 8 * h * kLd);
+                const uint32_t w1 = word(y, at + (8 * h + 1) * kLd);
+                a[2 * h] = __byte_perm(w0, w1, 0x5410);
+                a[2 * h + 1] = __byte_perm(w0, w1, 0x7632);
             }
         }
     }
+};
+
+// d (=, or += when `acc`) A B^T over the k-steps [0, KS) on the tensor
+// cores, split TF32 (hi.hi, hi.lo, lo.hi) or bf16: the A fragments of
+// KC k-steps go to registers first (`frag(kk, hi, lo)`), then one fence
+// and their wgmma (B from `desc(kk, copy)`), then a commit; so no
+// instruction defines a running wgmma's registers.  The next chunk's
+// fragments load while this chunk's products run, and at most two
+// chunks are in flight, so their registers stay few.
+template <typename T, int N, int KS, int KC, typename F, typename B>
+__device__ __forceinline__ void product(float (&d)[N / 2], F frag, B desc,
+                                        bool acc) {
+    static_assert(KS % KC == 0, "chunks of whole k-steps");
+#pragma unroll
+    for (int c0 = 0; c0 < KS; c0 += KC) {
+        uint32_t hi[KC][4], lo[KC][4];
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+            frag(c0 + i, hi[i], lo[i]);
+            fence_regs(hi[i]);
+            if constexpr (std::is_same<T, float>::value) {
+                fence_regs(lo[i]);
+            }
+        }
+        fence_regs(d);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+            const int first = (acc || c0 + i > 0) ? 1 : 0;
+            Wgmma<T, N>::mma(d, hi[i], desc(c0 + i, 0), first);
+            if constexpr (std::is_same<T, float>::value) {
+                Wgmma<T, N>::mma(d, hi[i], desc(c0 + i, 1), 1);
+                Wgmma<T, N>::mma(d, lo[i], desc(c0 + i, 0), 1);
+            }
+        }
+        wgmma_commit();
+        fence_regs(d);
+        wgmma_wait<1>();   // the chunk before is done: its registers free
+    }
+}
+
+// store a value of P or dS at `at` in a swizzled tile (float32: its TF32
+// hi there, the rest lo kStore bytes on)
+template <typename T, int D>
+__device__ __forceinline__ void put(unsigned char* at, float x) {
+    using C = BwdCfg<T, D>;
+    if constexpr (C::kF32) {
+        const uint32_t hi = tf32_rna(x);
+        *reinterpret_cast<uint32_t*>(at) = hi;
+        *reinterpret_cast<float*>(at + C::kStore) = x - __uint_as_float(hi);
+    } else {
+        *reinterpret_cast<__nv_bfloat16*>(at) = __float2bfloat16(x);
+    }
+}
+
+// two adjacent outputs
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // ------------------------------------------------------------------ //
-// dK, dV: a block per (k tile, q head, batch); each q head's share of
-// the kv head's gradient, float32, into dk_h / dv_h [B, Sk, Hq, D]
+// The backward body: kDQ false gives dK and dV (owned K, V; streamed Q,
+// dO over the group's q heads), true gives dQ (owned Q, dO; streamed K, V)
 // ------------------------------------------------------------------ //
-template <typename T, int D, bool kDK, bool kDV>
-__global__ void __launch_bounds__(BwdTiles<T, D>::kThreads, 1)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk_h, float* __restrict__ dv_h, int64_t Sq,
-            int64_t Sk, int Hq, int Hkv, int causal, int has_window,
-            int64_t window, int has_softcap, float softcap, float scale,
-            int64_t q_offset) {
-    using L = BwdTiles<T, D>;
+template <typename T, int D, bool kDQ>
+__global__ void __launch_bounds__(BwdCfg<T, D>::kThreads, 1)
+bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const T* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           T* __restrict__ g1, T* __restrict__ g2, int64_t Sq, int64_t Sk,
+           int Hq, int Hkv, int causal, int has_window, int64_t window,
+           int has_softcap, float softcap, float scale, int64_t q_offset) {
+    using C = BwdCfg<T, D>;
+    constexpr int kNo = C::kNo;
+    constexpr int kCta = kNo * C::kWG;   // a block's owned rows
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* ks = reinterpret_cast<T*>(smem_raw);
-    T* vs = ks + L::kOwn;
-    T* stages = vs + L::kOwn;
-    float* stats = reinterpret_cast<float*>(stages + 2 * L::kStage);
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    unsigned char* ring = smem + C::kOffRing;
+    const uint32_t bar0 = smem_u32(smem + C::kOffBar);   // full, then empty
+    auto full = [&](int s) { return bar0 + 8 * s; };
+    auto empty = [&](int s) { return bar0 + 8 * (C::kStages + s); };
+
+    const int groups = Hq / Hkv;
+    const int64_t b = blockIdx.x / (kDQ ? Hq : Hkv);
+    const int hx = blockIdx.x % (kDQ ? Hq : Hkv);    // q head, or kv head
+    const int tile = kDQ ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+    const int64_t o_cta = static_cast<int64_t>(tile) * kCta;
+    const int64_t S_own = kDQ ? Sq : Sk;
+    const int64_t S_str = kDQ ? Sk : Sq;
+    const int cta_valid =
+        static_cast<int>(S_own - o_cta < kCta ? S_own - o_cta : kCta);
+
+    // the band of streamed rows [lo_row, hi_row) the block's rows can see
+    int64_t lo_row = 0;
+    int64_t hi_row = S_str;
+    if constexpr (kDQ) {
+        const int64_t pos_lo = q_offset + o_cta;
+        const int64_t pos_hi = pos_lo + cta_valid - 1;
+        if (causal && pos_hi + 1 < hi_row) {
+            hi_row = pos_hi + 1;
+        }
+        if (has_window && pos_lo - window + 1 > lo_row) {
+            lo_row = pos_lo - window + 1;
+        }
+    } else {
+        const int64_t k_last = o_cta + cta_valid - 1;
+        if (causal && o_cta - q_offset > lo_row) {
+            lo_row = o_cta - q_offset;
+        }
+        if (has_window && k_last + window - q_offset < hi_row) {
+            hi_row = k_last + window - q_offset;
+        }
+    }
+    const int64_t t_begin = lo_row / kRows;
+    const int64_t n_band =
+        hi_row > lo_row ? (hi_row + kRows - 1) / kRows - t_begin : 0;
+    // dK/dV walk the group's q heads, dQ its one kv head
+    const int64_t n_tiles = n_band * (kDQ ? 1 : groups);
+    const int64_t q_stride = static_cast<int64_t>(Hq) * D;
+    const int64_t kv_stride = static_cast<int64_t>(Hkv) * D;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < C::kStages; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), C::kConsumers);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();
 
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const int64_t k0 = static_cast<int64_t>(blockIdx.x) * L::kRows;
-    const int h = blockIdx.y;
-    const int64_t b = blockIdx.z;
-    const int hk = h / (Hq / Hkv);
-    const int64_t q_stride = static_cast<int64_t>(Hq) * D;
-    const int64_t kv_stride = static_cast<int64_t>(Hkv) * D;
-    const T* qb = q + (b * Sq * Hq + h) * D;
-    const T* dob = dout + (b * Sq * Hq + h) * D;
-    const T* kb = k + (b * Sk * Hkv + hk) * D;
-    const T* vb = v + (b * Sk * Hkv + hk) * D;
-    const float* lse_b = lse + (b * Hq + h) * Sq;
-    const float* delta_b = delta + (b * Hq + h) * Sq;
 
-    // the q tiles that can see a key of this block: pos >= k0 when causal,
-    // pos <= k_last + window - 1 when windowed
-    const int64_t k_last = (k0 + L::kRows < Sk ? k0 + L::kRows : Sk) - 1;
-    int64_t i_begin = 0;
-    int64_t i_end = Sq;
-    if (causal && k0 - q_offset > i_begin) {
-        i_begin = k0 - q_offset;
-    }
-    if (has_window && k_last + window - q_offset < i_end) {
-        i_end = k_last + window - q_offset;
-    }
-    const int64_t t_begin = i_begin / kBlockK;
-    const int64_t t_end =
-        i_end > i_begin ? (i_end + kBlockK - 1) / kBlockK : t_begin;
-
-    // stage `slot` <- the q tile starting at row i0: Q, dO, L and D
-    auto load_stage = [&](int64_t i0, int slot) {
-        T* qt = stages + slot * L::kStage;
-        load_rows<T, D, kBlockK, L::kLd, L::kThreads>(qt, qb, q_stride, i0,
-                                                      Sq);
-        load_rows<T, D, kBlockK, L::kLd, L::kThreads>(qt + L::kTile, dob,
-                                                      q_stride, i0, Sq);
-        if (threadIdx.x < 2 * kBlockK) {
-            const int c = threadIdx.x % kBlockK;
-            const bool live = i0 + c < Sq;
-            float* st = stats + slot * 2 * kBlockK;
-            if (threadIdx.x < kBlockK) {
-                st[c] = live ? lse_b[i0 + c] : inf_f();
-            } else {
-                st[kBlockK + c] = live ? delta_b[i0 + c] : 0.f;
-            }
-        }
-    };
-
-    load_rows<T, D, L::kRows, L::kLd, L::kThreads>(ks, kb, kv_stride, k0, Sk);
-    if constexpr (kDK) {
-        load_rows<T, D, L::kRows, L::kLd, L::kThreads>(vs, vb, kv_stride, k0,
-                                                       Sk);
-    }
-    if (t_begin < t_end) {
-        load_stage(t_begin * kBlockK, 0);
-    }
-    cp_async_commit();
-
-    // this thread's keys: 16*warp + g and + 8
-    const int64_t wk0 = k0 + 16 * warp;
-    const int64_t my_k[2] = {wk0 + g, wk0 + g + 8};
-    float acc_k[kDK ? D / 8 : 1][4];
-    float acc_v[kDV ? D / 8 : 1][4];
-#pragma unroll
-    for (int c = 0; c < (kDK ? D / 8 : 1); ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            acc_k[c][e] = 0.f;
-        }
-    }
-#pragma unroll
-    for (int c = 0; c < (kDV ? D / 8 : 1); ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            acc_v[c][e] = 0.f;
-        }
-    }
-    const T* kw = ks + 16 * warp * L::kLd;
-    const T* vw = vs + 16 * warp * L::kLd;
-
-    for (int64_t it = t_begin; it < t_end; ++it) {
-        const int64_t i0 = it * kBlockK;
-        const int slot = static_cast<int>((it - t_begin) & 1);
-        const T* qt = stages + slot * L::kStage;
-        const T* dot = qt + L::kTile;
-        const float* lse_s = stats + slot * 2 * kBlockK;
-        const float* delta_s = lse_s + kBlockK;
-        cp_async_wait_all();
-        __syncthreads();   // tile it is in; every warp is done with it-1
-        if (it + 1 < t_end) {
-            load_stage(i0 + kBlockK, slot ^ 1);
-            cp_async_commit();
-        }
-
-        float s[kBlockK / 8][4];        // S^T: rows keys, columns q rows
-        Mma<T>::template scores<D, L::kLd>(kw, qt, g, t, s);
-        float dp[kBlockK / 8][4];
-        if constexpr (kDK) {
-            Mma<T>::template scores<D, L::kLd>(vw, dot, g, t, dp);
-        }
-
-        const int64_t p0 = q_offset + i0;   // the tile's first position
-        const bool inside =
-            wk0 + 15 < Sk && i0 + kBlockK <= Sq &&
-            (!causal || wk0 + 15 <= p0) &&
-            (!has_window || wk0 > p0 + kBlockK - 1 - window);
-        float pt[kBlockK / 8][4];
-#pragma unroll
-        for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = 8 * j + 2 * t + (e & 1);
-                float dfac;
-                const float x = logit(s[j][e], scale, has_softcap, softcap,
-                                      dfac);
-                bool ok = true;
-                if (!inside) {
-                    const int64_t kp = my_k[e >> 1];
-                    const int64_t pos = p0 + col;
-                    ok = kp < Sk && i0 + col < Sq;
-                    if (causal) {
-                        ok = ok && kp <= pos;
-                    }
-                    if (has_window) {
-                        ok = ok && kp > pos - window;
-                    }
+    if (warp == C::kConsumers / 32) {
+        // ---------------- producer: the streamed tiles ---------------- //
+        for (int64_t n = 0; n < n_tiles; ++n) {
+            const int64_t i0 = (t_begin + n % n_band) * kRows;
+            const int hs = kDQ ? hx / groups
+                               : hx * groups + static_cast<int>(n / n_band);
+            const int64_t stride = kDQ ? kv_stride : q_stride;
+            const int rows = static_cast<int>(
+                S_str - i0 < kRows ? S_str - i0 : kRows);
+            const uint32_t bytes = static_cast<uint32_t>(rows * D * C::kEs);
+            for (int y = 0; y < 2; ++y) {
+                const int64_t slot = 2 * n + y;
+                const int s = static_cast<int>(slot % C::kStages);
+                const uint32_t par =
+                    static_cast<uint32_t>((slot / C::kStages) & 1);
+                const T* src = kDQ ? (y == 0 ? k : v) : (y == 0 ? q : dout);
+                src += (b * S_str + i0) * stride +
+                       static_cast<int64_t>(hs) * D;
+                mbar_wait(empty(s), par ^ 1);
+                if (lane == 0) {
+                    mbar_expect_tx(full(s), bytes);
                 }
-                const float p = ok ? expf(x - lse_s[col]) : 0.f;
-                pt[j][e] = p;
-                if constexpr (kDK) {
-                    s[j][e] = p * (dp[j][e] - delta_s[col]) * dfac;  // dS^T
+                __syncwarp();
+                const uint32_t dst = smem_u32(ring + s * C::kStage);
+                for (int r = lane; r < rows; r += 32) {
+                    bulk_g2s(dst + r * C::kLd * C::kEs, src + r * stride,
+                             D * C::kEs, full(s));
                 }
             }
         }
-        if constexpr (kDV) {
-            Mma<T>::template pv<D, L::kLd>(pt, dot, g, t, acc_v);
-        }
-        if constexpr (kDK) {
-            Mma<T>::template pv<D, L::kLd>(s, qt, g, t, acc_k);
-        }
-    }
-    cp_async_wait_all();
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int64_t kp = my_k[r];
-        if (kp < Sk) {
-            const int64_t at = ((b * Sk + kp) * Hq + h) * D + 4 * t;
-#pragma unroll
-            for (int c = 0; c < D / 16; ++c) {
-                if constexpr (kDK) {
-                    *reinterpret_cast<float4*>(dk_h + at + 16 * c) =
-                        make_float4(acc_k[2 * c][2 * r] * scale,
-                                    acc_k[2 * c + 1][2 * r] * scale,
-                                    acc_k[2 * c][2 * r + 1] * scale,
-                                    acc_k[2 * c + 1][2 * r + 1] * scale);
-                }
-                if constexpr (kDV) {
-                    *reinterpret_cast<float4*>(dv_h + at + 16 * c) =
-                        make_float4(acc_v[2 * c][2 * r],
-                                    acc_v[2 * c + 1][2 * r],
-                                    acc_v[2 * c][2 * r + 1],
-                                    acc_v[2 * c + 1][2 * r + 1]);
-                }
-            }
-        }
-    }
-}
-
-template <typename T>
-__device__ __forceinline__ T cast_out(float v);
-template <>
-__device__ __forceinline__ float cast_out<float>(float v) {
-    return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 cast_out<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
-}
-
-// dk[b, j, hk, d] = sum over the group's q heads h (in order) of
-// dk_h[b, j, h, d]; the same for dv
-template <typename T>
-__global__ void __launch_bounds__(256)
-reduce_kernel(const float* __restrict__ dk_h, const float* __restrict__ dv_h,
-              T* __restrict__ dk, T* __restrict__ dv, int64_t n, int Hkv,
-              int groups, int D) {
-    const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
-    if (i >= n) {
         return;
     }
-    const int64_t d = i % D;
-    const int64_t hk = (i / D) % Hkv;
-    const int64_t bj = i / (static_cast<int64_t>(D) * Hkv);   // b * Sk + j
-    const int64_t src = (bj * Hkv * groups + hk * groups) * D + d;
-    float sk = 0.f;
-    float sv = 0.f;
-    for (int gi = 0; gi < groups; ++gi) {
-        sk += dk_h[src + static_cast<int64_t>(gi) * D];
-        sv += dv_h[src + static_cast<int64_t>(gi) * D];
+
+    // ---------------- consumers: kWG warpgroups ---------------- //
+    // warpgroup wg owns rows [o0, o0 + own_valid) of the block's; all read
+    // every streamed tile.  Barrier 1 + wg is this warpgroup's.
+    const int wg = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int bar_id = 1 + wg;
+    const int64_t o0 = o_cta + static_cast<int64_t>(wg) * kNo;
+    const int own_valid = static_cast<int>(
+        S_own - o0 < kNo ? (S_own > o0 ? S_own - o0 : 0) : kNo);
+    unsigned char* own = smem + wg * C::kPerWG;   // X1 hi, lo, X2 hi, lo
+    unsigned char* store = own + C::kOffStore;     // P (hi, lo), dS
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int m0 = 16 * (warp % 4);    // this warp's rows of a 64-row M
+
+    // the owned tiles, split (float32) into the swizzled layout once;
+    // float32 permutes k within each 8 as Frag::rows reads it (slots 0-3
+    // hold d 0, 2, 4, 6, slots 4-7 d 1, 3, 5, 7)
+    {
+        const int64_t stride = kDQ ? q_stride : kv_stride;
+        constexpr int kSteps = D / 8;    // 8 elements a step
+        for (int x = 0; x < 2; ++x) {
+            const T* src = kDQ ? (x == 0 ? q : dout) : (x == 0 ? k : v);
+            src += b * S_own * stride + static_cast<int64_t>(hx) * D;
+            unsigned char* dst = own + x * C::kCopies * C::kOwn;
+            for (int i = tid; i < kNo * kSteps; i += 128) {
+                const int n = i / kSteps;
+                const int c = (i % kSteps) * 8;
+                uint4 raw[C::kF32 ? 2 : 1];
+#pragma unroll
+                for (int h = 0; h < (C::kF32 ? 2 : 1); ++h) {
+                    raw[h] = n < own_valid
+                                 ? *reinterpret_cast<const uint4*>(
+                                       src + (o0 + n) * stride + c + 4 * h)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+                }
+                const uint32_t off = sw128_offset(kNo, n, c * C::kEs);
+                if constexpr (C::kF32) {
+                    const uint32_t off2 = sw128_offset(kNo, n, c * 4 + 16);
+                    const float xs[8] = {
+                        __uint_as_float(raw[0].x), __uint_as_float(raw[0].z),
+                        __uint_as_float(raw[1].x), __uint_as_float(raw[1].z),
+                        __uint_as_float(raw[0].y), __uint_as_float(raw[0].w),
+                        __uint_as_float(raw[1].y), __uint_as_float(raw[1].w)};
+                    uint32_t hi[8], lo[8];
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) {
+                        split(xs[e], hi[e], lo[e]);
+                    }
+                    *reinterpret_cast<uint4*>(dst + off) =
+                        make_uint4(hi[0], hi[1], hi[2], hi[3]);
+                    *reinterpret_cast<uint4*>(dst + off2) =
+                        make_uint4(hi[4], hi[5], hi[6], hi[7]);
+                    *reinterpret_cast<uint4*>(dst + C::kOwn + off) =
+                        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+                    *reinterpret_cast<uint4*>(dst + C::kOwn + off2) =
+                        make_uint4(lo[4], lo[5], lo[6], lo[7]);
+                } else {
+                    *reinterpret_cast<uint4*>(dst + off) = raw[0];
+                }
+            }
+        }
+        fence_proxy_async();
+        bar_sync(bar_id, 128);
     }
-    dk[i] = cast_out<T>(sk);
-    dv[i] = cast_out<T>(sv);
+    const uint32_t own_base = smem_u32(own);
+    const uint32_t store_base = smem_u32(store);
+    auto own_desc = [&](int x, int copy, int kk) {
+        return sw128_desc(own_base + (x * C::kCopies + copy) * C::kOwn, kNo,
+                          32 * kk);
+    };
+    // P's tile (x = 0) and dS's (x = 1; the same tile when they share)
+    constexpr int kDsTile = C::kStoreTiles - 1;
+    auto store_desc = [&](int x, int copy, int kk) {
+        return sw128_desc(
+            store_base + (x * kDsTile * C::kCopies + copy) * C::kStore, kNo,
+            32 * kk);
+    };
+    unsigned char* const ds_tile = store + kDsTile * C::kCopies * C::kStore;
+
+    // exp(x - L) = exp2(x log2(e) - L log2(e)): the logits and L are
+    // taken in base 2
+    constexpr float kLog2e = 1.4426950408889634f;
+    const float scale2 = scale * kLog2e;
+    // dQ: L (base 2) and D of the owned q rows this thread's columns hold
+    float own_l2[kNo / 8][2], own_delta[kNo / 8][2];
+    if constexpr (kDQ) {
+        const float* lse_b = lse + (b * Hq + hx) * Sq;
+        const float* delta_b = delta + (b * Hq + hx) * Sq;
+#pragma unroll
+        for (int j = 0; j < kNo / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int c = 8 * j + 2 * t + e;
+                own_l2[j][e] = c < own_valid ? lse_b[o0 + c] * kLog2e
+                                             : inf_f();
+                own_delta[j][e] = c < own_valid ? delta_b[o0 + c] : 0.f;
+            }
+        }
+    }
+    // where this thread's element e of the T accumulators (streamed row
+    // m0 + g + 8(e/2), owned row 8j + 2t + e%2) goes in the swizzled P and
+    // dS tiles: off[e] + 1024 j (owned rows 8 apart are 1024 bytes apart)
+    uint32_t off[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        off[e] = sw128_offset(kNo, 2 * t + (e & 1),
+                              (m0 + g + 8 * (e >> 1)) * C::kEs);
+    }
+
+    float acc1[kDQ ? 1 : C::kMb][kNo / 2];   // dV^T (dK/dV only)
+    float acc2[C::kMb][kNo / 2];             // dK^T, or dQ^T
+#pragma unroll
+    for (int mb = 0; mb < C::kMb; ++mb) {
+#pragma unroll
+        for (int i = 0; i < kNo / 2; ++i) {
+            acc1[kDQ ? 0 : mb][i] = 0.f;
+            acc2[mb][i] = 0.f;
+        }
+    }
+
+    for (int64_t n = 0; n < n_tiles; ++n) {
+        const int64_t i0 = (t_begin + n % n_band) * kRows;
+        const int nv = static_cast<int>(S_str - i0 < kRows ? S_str - i0
+                                                            : kRows);
+        const int hq = kDQ ? hx : hx * groups + static_cast<int>(n / n_band);
+        const int s1 = static_cast<int>((2 * n) % C::kStages);
+        const int s2 = static_cast<int>((2 * n + 1) % C::kStages);
+        const uint32_t p1 = static_cast<uint32_t>(((2 * n) / C::kStages) & 1);
+        const uint32_t p2 =
+            static_cast<uint32_t>(((2 * n + 1) / C::kStages) & 1);
+        T* y1 = reinterpret_cast<T*>(ring + s1 * C::kStage);
+        T* y2 = reinterpret_cast<T*>(ring + s2 * C::kStage);
+
+        // dK/dV: L (base 2) and D of this thread's streamed q rows
+        float row_l2[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+        if constexpr (!kDQ) {
+            const float* lse_b = lse + (b * Hq + hq) * Sq;
+            const float* delta_b = delta + (b * Hq + hq) * Sq;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int64_t row = i0 + m0 + g + 8 * r;
+                row_l2[r] = row < Sq ? lse_b[row] * kLog2e : inf_f();
+                row_delta[r] = row < Sq ? delta_b[row] : 0.f;
+            }
+        }
+
+        mbar_wait(full(s1), p1);
+        mbar_wait(full(s2), p2);
+        if (nv < kRows) {   // the last tile: its rows past the end are zero
+            // (every warpgroup writes the same zeros, then reads)
+            for (int i = tid; i < (kRows - nv) * D; i += 128) {
+                const int at = (nv + i / D) * C::kLd + i % D;
+                y1[at] = cast_out<T>(0.f);
+                y2[at] = cast_out<T>(0.f);
+            }
+            fence_proxy_async();   // before the producer's next copy here
+            bar_sync(bar_id, 128);
+        }
+
+        // T1 = Y1 X1^T, T2 = Y2 X2^T
+        constexpr int kTs = D / C::kK;
+        constexpr int kTc = C::kChunk < kTs ? C::kChunk : kTs;
+        float t1[kNo / 2], t2[kNo / 2];
+        product<T, kNo, kTs, kTc>(
+            t1,
+            [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                Frag<T, D>::rows(y1, m0, kk * C::kK, g, t, hi, lo);
+            },
+            [&](int kk, int copy) { return own_desc(0, copy, kk); }, false);
+        product<T, kNo, kTs, kTc>(
+            t2,
+            [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                Frag<T, D>::rows(y2, m0, kk * C::kK, g, t, hi, lo);
+            },
+            [&](int kk, int copy) { return own_desc(1, copy, kk); }, false);
+        wgmma_wait<0>();
+        fence_regs(t1);
+        fence_regs(t2);
+
+        // P and dS (dS kept in t2); the mask and the softcap are decided
+        // once a tile
+        const int64_t q_lo = kDQ ? o0 : i0;
+        const int64_t q_hi = q_lo + (kDQ ? kNo : kRows) - 1;
+        const int64_t k_lo = kDQ ? i0 : o0;
+        const int64_t k_hi = k_lo + (kDQ ? kRows : kNo) - 1;
+        const bool inside = q_hi < Sq && k_hi < Sk &&
+                            (!causal || k_hi <= q_offset + q_lo) &&
+                            (!has_window || k_lo > q_offset + q_hi - window);
+        auto body = [&](auto masked, auto capped) {
+            constexpr bool kMasked = decltype(masked)::value;
+            constexpr bool kCapped = decltype(capped)::value;
+#pragma unroll
+            for (int j = 0; j < kNo / 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float L2 = kDQ ? own_l2[j][e & 1] : row_l2[e >> 1];
+                    const float Dl = kDQ ? own_delta[j][e & 1]
+                                         : row_delta[e >> 1];
+                    float x2, dfac = 1.f;
+                    if constexpr (kCapped) {
+                        const float th = tanhf(t1[4 * j + e] * scale /
+                                               softcap);
+                        x2 = th * softcap * kLog2e;
+                        dfac = 1.f - th * th;
+                    } else {
+                        x2 = t1[4 * j + e] * scale2;
+                    }
+                    float p = exp2f(x2 - L2);
+                    float ds = p * (t2[4 * j + e] - Dl);
+                    if constexpr (kCapped) {
+                        ds = ds * dfac;
+                    }
+                    if constexpr (kMasked) {
+                        const int r = m0 + g + 8 * (e >> 1);
+                        const int c = 8 * j + 2 * t + (e & 1);
+                        const int64_t qi = kDQ ? o0 + c : i0 + r;
+                        const int64_t kj = kDQ ? i0 + r : o0 + c;
+                        const int64_t pos = q_offset + qi;
+                        const bool ok =
+                            qi < Sq && kj < Sk && (!causal || kj <= pos) &&
+                            (!has_window || kj > pos - window);
+                        p = ok ? p : 0.f;
+                        ds = ok ? ds : 0.f;
+                    }
+                    t2[4 * j + e] = ds;
+                    if constexpr (!kDQ) {
+                        put<T, D>(store + off[e] + 1024 * j, p);
+                    }
+                    if constexpr (kDQ || kDsTile == 1) {
+                        put<T, D>(ds_tile + off[e] + 1024 * j, ds);
+                    }
+                }
+            }
+        };
+        if (inside) {
+            if (has_softcap) {
+                body(std::false_type{}, std::true_type{});
+            } else {
+                body(std::false_type{}, std::false_type{});
+            }
+        } else {
+            if (has_softcap) {
+                body(std::true_type{}, std::true_type{});
+            } else {
+                body(std::true_type{}, std::false_type{});
+            }
+        }
+        fence_proxy_async();
+        bar_sync(bar_id, 128);
+
+        // A1 = Y2^T P (dV^T), A2 = Y1^T dS (dK^T or dQ^T), one M block at
+        // a time into fresh accumulators (t1, t2: free now), then added to
+        // the sums on the CUDA cores: no tensor-core sum runs longer than
+        // one tile, whose rounding would otherwise grow with the band and
+        // the group.  When P and dS share a tile, dS goes in once A1 has
+        // read P.
+        constexpr int kAs = kRows / C::kK;
+        constexpr int kAc = C::kChunk < kAs ? C::kChunk : kAs;
+        constexpr bool kShared = !kDQ && kDsTile == 0;
+        static_assert(!kShared || C::kMb == 1, "a shared tile, one M block");
+#pragma unroll
+        for (int mb = 0; mb < C::kMb; ++mb) {
+            if constexpr (!kDQ) {
+                product<T, kNo, kAs, kAc>(
+                    t1,
+                    [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                        Frag<T, D>::cols(y2, 64 * mb + m0, kk * C::kK, g, t,
+                                         hi, lo);
+                    },
+                    [&](int kk, int copy) { return store_desc(0, copy, kk); },
+                    false);
+            }
+            if constexpr (kShared) {
+                wgmma_wait<0>();   // P is read
+                fence_regs(t1);
+#pragma unroll
+                for (int i = 0; i < kNo / 2; ++i) {
+                    acc1[mb][i] = acc1[mb][i] + t1[i];
+                }
+#pragma unroll
+                for (int j = 0; j < kNo / 8; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        put<T, D>(ds_tile + off[e] + 1024 * j, t2[4 * j + e]);
+                    }
+                }
+                fence_proxy_async();
+                bar_sync(bar_id, 128);
+            }
+            product<T, kNo, kAs, kAc>(
+                t2,
+                [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                    Frag<T, D>::cols(y1, 64 * mb + m0, kk * C::kK, g, t, hi,
+                                     lo);
+                },
+                [&](int kk, int copy) { return store_desc(1, copy, kk); },
+                false);
+            if (mb == C::kMb - 1) {
+                mbar_arrive(empty(s1));   // the tiles are in registers now
+                mbar_arrive(empty(s2));
+            }
+            wgmma_wait<0>();
+            fence_regs(t1);
+            fence_regs(t2);
+#pragma unroll
+            for (int i = 0; i < kNo / 2; ++i) {
+                if constexpr (!kDQ && !kShared) {
+                    acc1[mb][i] = acc1[mb][i] + t1[i];
+                }
+                acc2[mb][i] = acc2[mb][i] + t2[i];
+            }
+        }
+    }
+
+    // out: acc[mb][4j + e] at d = 64mb + m0 + 2g + e/2 (Frag::cols' row
+    // order), owned row c = 8j + 2t + e%2; d and d + 1 are written together
+    const int64_t stride_out = kDQ ? q_stride : kv_stride;
+#pragma unroll
+    for (int mb = 0; mb < C::kMb; ++mb) {
+        const int d = 64 * mb + m0 + 2 * g;
+#pragma unroll
+        for (int j = 0; j < kNo / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int c = 8 * j + 2 * t + e;
+                if ((D >= 64 || d < D) && c < own_valid) {
+                    const int64_t at = (b * S_own + o0 + c) * stride_out +
+                                       static_cast<int64_t>(hx) * D + d;
+                    store2<T>(g1 + at, acc2[mb][4 * j + e] * scale,
+                              acc2[mb][4 * j + e + 2] * scale);
+                    if constexpr (!kDQ) {
+                        store2<T>(g2 + at, acc1[mb][4 * j + e],
+                                  acc1[mb][4 * j + e + 2]);
+                    }
+                }
+            }
+        }
+    }
 }
 
 template <typename K>
@@ -515,12 +789,11 @@ int set_smem(K kernel, int bytes) {
 
 template <typename T, int D>
 int launch(const T* q, const T* k, const T* v, const T* out, const T* dout,
-           const float* lse, float* delta, float* dk_h, float* dv_h, T* dq,
-           T* dk, T* dv, int64_t B, int64_t Sq, int64_t Sk, int64_t Hq,
-           int64_t Hkv, int causal, int has_window, int64_t window,
-           int has_softcap, float softcap, float scale, int64_t q_offset,
-           cudaStream_t stream) {
-    using L = BwdTiles<T, D>;
+           const float* lse, float* delta, T* dq, T* dk, T* dv, int64_t B,
+           int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int causal,
+           int has_window, int64_t window, int has_softcap, float softcap,
+           float scale, int64_t q_offset, cudaStream_t stream) {
+    using C = BwdCfg<T, D>;
     const int64_t rows = B * Sq * Hq;
     delta_kernel<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
                          stream>>>(out, dout, delta, rows, Sq,
@@ -531,73 +804,48 @@ int launch(const T* q, const T* k, const T* v, const T* out, const T* dout,
     }
     const int hq = static_cast<int>(Hq);
     const int hkv = static_cast<int>(Hkv);
-    const dim3 kgrid(static_cast<unsigned>((Sk + L::kRows - 1) / L::kRows),
-                     static_cast<unsigned>(Hq), static_cast<unsigned>(B));
-    if constexpr (D == 256) {       // dV, then dK: one accumulator a pass
-        if ((err = set_smem(dkdv_kernel<T, D, false, true>, L::kBytes))) {
-            return err;
-        }
-        dkdv_kernel<T, D, false, true><<<kgrid, L::kThreads, L::kBytes,
-                                         stream>>>(
-            q, k, v, dout, lse, delta, dk_h, dv_h, Sq, Sk, hq, hkv, causal,
-            has_window, window, has_softcap, softcap, scale, q_offset);
-        if ((err = static_cast<int>(cudaGetLastError()))) {
-            return err;
-        }
-        if ((err = set_smem(dkdv_kernel<T, D, true, false>, L::kBytes))) {
-            return err;
-        }
-        dkdv_kernel<T, D, true, false><<<kgrid, L::kThreads, L::kBytes,
-                                         stream>>>(
-            q, k, v, dout, lse, delta, dk_h, dv_h, Sq, Sk, hq, hkv, causal,
-            has_window, window, has_softcap, softcap, scale, q_offset);
-    } else {
-        if ((err = set_smem(dkdv_kernel<T, D, true, true>, L::kBytes))) {
-            return err;
-        }
-        dkdv_kernel<T, D, true, true><<<kgrid, L::kThreads, L::kBytes,
-                                        stream>>>(
-            q, k, v, dout, lse, delta, dk_h, dv_h, Sq, Sk, hq, hkv, causal,
-            has_window, window, has_softcap, softcap, scale, q_offset);
+    constexpr int kCta = C::kNo * C::kWG;    // owned rows of a block
+    // dK, dV: blocks key tile by key tile (the longest causal bands first)
+    if ((err = set_smem(bwd_kernel<T, D, false>, C::kBytes))) {
+        return err;
     }
+    const dim3 kgrid(static_cast<unsigned>(B * Hkv),
+                     static_cast<unsigned>((Sk + kCta - 1) / kCta));
+    bwd_kernel<T, D, false><<<kgrid, C::kThreads, C::kBytes, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, Sq, Sk, hq, hkv, causal,
+        has_window, window, has_softcap, softcap, scale, q_offset);
     if ((err = static_cast<int>(cudaGetLastError()))) {
         return err;
     }
-    const int64_t n = B * Sk * Hkv * D;
-    reduce_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                       stream>>>(dk_h, dv_h, dk, dv, n, hkv, hq / hkv, D);
-    if ((err = static_cast<int>(cudaGetLastError()))) {
+    if ((err = set_smem(bwd_kernel<T, D, true>, C::kBytes))) {
         return err;
     }
-    if ((err = set_smem(dq_kernel<T, D>, L::kBytes))) {
-        return err;
-    }
-    const dim3 qgrid(static_cast<unsigned>((Sq + L::kRows - 1) / L::kRows),
-                     static_cast<unsigned>(Hq), static_cast<unsigned>(B));
-    dq_kernel<T, D><<<qgrid, L::kThreads, L::kBytes, stream>>>(
-        q, k, v, dout, lse, delta, dq, Sq, Sk, hq, hkv, causal, has_window,
-        window, has_softcap, softcap, scale, q_offset);
+    const dim3 qgrid(static_cast<unsigned>(B * Hq),
+                     static_cast<unsigned>((Sq + kCta - 1) / kCta));
+    bwd_kernel<T, D, true><<<qgrid, C::kThreads, C::kBytes, stream>>>(
+        q, k, v, dout, lse, delta, dq, nullptr, Sq, Sk, hq, hkv, causal,
+        has_window, window, has_softcap, softcap, scale, q_offset);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const T* q, const T* k, const T* v, const T* out,
-             const T* dout, const float* lse, float* delta, float* dk_h,
-             float* dv_h, T* dq, T* dk, T* dv, int64_t B, int64_t Sq,
-             int64_t Sk, int64_t Hq, int64_t Hkv, int64_t D, int causal,
-             int has_window, int64_t window, int has_softcap, float softcap,
-             float scale, int64_t q_offset, void* stream) {
+             const T* dout, const float* lse, float* delta, T* dq, T* dk,
+             T* dv, int64_t B, int64_t Sq, int64_t Sk, int64_t Hq,
+             int64_t Hkv, int64_t D, int causal, int has_window,
+             int64_t window, int has_softcap, float softcap, float scale,
+             int64_t q_offset, void* stream) {
     if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-        Hq > 65535 || B > 65535) {
+        B * Hq > 0x7fffffff || Sq / 16 >= 65535 || Sk / 16 >= 65535) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FA_BWD_CASE(DIM)                                              \
     case DIM:                                                               \
-        return launch<T, DIM>(q, k, v, out, dout, lse, delta, dk_h, dv_h,   \
-                              dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal,       \
-                              has_window, window, has_softcap, softcap,     \
-                              scale, q_offset, s);
+        return launch<T, DIM>(q, k, v, out, dout, lse, delta, dq, dk, dv,   \
+                              B, Sq, Sk, Hq, Hkv, causal, has_window,       \
+                              window, has_softcap, softcap, scale,          \
+                              q_offset, s);
     switch (D) {
         REPRO_FA_BWD_CASE(16)
         REPRO_FA_BWD_CASE(32)
@@ -617,36 +865,32 @@ extern "C" {
 // Each entry launches its kernels on `stream` without synchronising and
 // returns a CUDA error code: 0 when every launch was accepted.  out and
 // lse are the forward's (flash_attention_f32/bf16 with lse), dout the
-// gradient of out; delta [B, Hq, Sq] and dk_h, dv_h [B, Sk, Hq, D] are
-// float32 scratch; dq, dk, dv have the shapes of q, k, v.  Every tensor
-// is contiguous and 16-byte aligned.
+// gradient of out; delta [B, Hq, Sq] is float32 scratch; dq, dk, dv have
+// the shapes of q, k, v.  Every tensor is contiguous and 16-byte aligned.
 int flash_attention_bwd_f32(const float* q, const float* k, const float* v,
                             const float* out, const float* dout,
-                            const float* lse, float* delta, float* dk_h,
-                            float* dv_h, float* dq, float* dk, float* dv,
-                            int64_t B, int64_t Sq, int64_t Sk, int64_t Hq,
-                            int64_t Hkv, int64_t D, int causal,
-                            int has_window, int64_t window, int has_softcap,
-                            float softcap, float scale, int64_t q_offset,
-                            void* stream) {
-    return dispatch<float>(q, k, v, out, dout, lse, delta, dk_h, dv_h, dq, dk,
-                           dv, B, Sq, Sk, Hq, Hkv, D, causal, has_window,
-                           window, has_softcap, softcap, scale, q_offset,
-                           stream);
+                            const float* lse, float* delta, float* dq,
+                            float* dk, float* dv, int64_t B, int64_t Sq,
+                            int64_t Sk, int64_t Hq, int64_t Hkv, int64_t D,
+                            int causal, int has_window, int64_t window,
+                            int has_softcap, float softcap, float scale,
+                            int64_t q_offset, void* stream) {
+    return dispatch<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq,
+                           Sk, Hq, Hkv, D, causal, has_window, window,
+                           has_softcap, softcap, scale, q_offset, stream);
 }
 
 int flash_attention_bwd_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* out, const __nv_bfloat16* dout, const float* lse,
-    float* delta, float* dk_h, float* dv_h, __nv_bfloat16* dq,
-    __nv_bfloat16* dk, __nv_bfloat16* dv, int64_t B, int64_t Sq, int64_t Sk,
-    int64_t Hq, int64_t Hkv, int64_t D, int causal, int has_window,
-    int64_t window, int has_softcap, float softcap, float scale,
-    int64_t q_offset, void* stream) {
-    return dispatch<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dk_h,
-                                   dv_h, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
-                                   causal, has_window, window, has_softcap,
-                                   softcap, scale, q_offset, stream);
+    float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+    int64_t B, int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int64_t D,
+    int causal, int has_window, int64_t window, int has_softcap,
+    float softcap, float scale, int64_t q_offset, void* stream) {
+    return dispatch<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk,
+                                   dv, B, Sq, Sk, Hq, Hkv, D, causal,
+                                   has_window, window, has_softcap, softcap,
+                                   scale, q_offset, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,286 @@
+// Hopper (sm_90a) building blocks of the flash-attention backward
+// (flash_attention_bwd.cu): mbarriers, the bulk async copy that completes
+// on one, the async-proxy fence, named barriers, and warpgroup products
+// (`wgmma`) with A in registers and B in shared memory, in the 128-byte
+// swizzled K-major layout that `sw128_offset` writes and `sw128_desc`
+// describes.
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------------ //
+// mbarriers and the bulk copy
+// ------------------------------------------------------------------ //
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+                 "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            bar),
+        "r"(bytes)
+        : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    return done != 0;
+}
+
+// returns once the barrier has completed the phase of parity `parity`; a
+// wait of more than 2^34 cycles (about 10 s) can only be a lost arrival,
+// and traps, so that a fault ends the kernel with an error instead of
+// holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    if (mbar_try(bar, parity)) {
+        return;
+    }
+    const long long t0 = clock64();
+    while (!mbar_try(bar, parity)) {
+        if (clock64() - t0 > (1ll << 34)) {
+            __trap();
+        }
+    }
+}
+
+// `bytes` (a multiple of 16) from global to shared memory (both 16-byte
+// aligned); completes `bytes` of the barrier's transaction count
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// this thread's shared-memory writes become visible to the async proxy
+// (wgmma's operand reads)
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15) among `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ------------------------------------------------------------------ //
+// The 128-byte swizzled K-major layout: a tile of R rows (R % 8 == 0) by
+// K bytes (K % 128 == 0) is K/128 column blocks of R x 128 bytes, each
+// 1024-byte aligned; in a block, the 16-byte chunk c of row n lies at
+// chunk c ^ (n % 8) of the row's 128 bytes.
+// ------------------------------------------------------------------ //
+__device__ __forceinline__ uint32_t sw128_offset(int rows, int n, int byte) {
+    const int chunk = ((byte >> 4) & 7) ^ (n & 7);
+    return static_cast<uint32_t>((byte >> 7) * rows * 128 + n * 128 +
+                                 (chunk << 4) + (byte & 15));
+}
+
+// the wgmma descriptor of rows 0..R-1 and bytes kb..kb+31 of such a tile
+// at shared address `base` (kb % 32 == 0): start address, leading offset
+// 1 (unused when swizzled), stride 1024 bytes between 8-row groups,
+// layout 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t base, int rows,
+                                               int kb) {
+    const uint32_t addr =
+        base + static_cast<uint32_t>((kb >> 7) * rows * 128 + (kb & 127));
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>(1) << 16) |
+           (static_cast<uint64_t>(1024 >> 4) << 32) |
+           (static_cast<uint64_t>(1) << 62);
+}
+
+// ------------------------------------------------------------------ //
+// wgmma: D[64 x N] = A[64 x K] B[N x K]^T (+ D when acc != 0), A in
+// registers (K = 8 tf32 or 16 bf16), B K-major in shared memory.
+// Register layouts (warp w of the warpgroup, lane = 4g + t): A tf32 a0
+// (16w+g, t), a1 (16w+g+8, t), a2 (16w+g, t+4), a3 (16w+g+8, t+4); A
+// bf16 a0 (16w+g, 2t..2t+1), a1 (16w+g+8, 2t..), a2 (16w+g, 2t+8..), a3
+// (16w+g+8, 2t+8..), the lower k in the low half; D d[4j+e] at
+// (16w+g+8(e/2), 8j+2t+(e%2)).
+// ------------------------------------------------------------------ //
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin registers in program order around the asynchronous products: the
+// compiler may not move their definitions or uses across the wgmma
+// fence, commit and wait (which name no registers themselves)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        asm volatile("" : "+f"(r[i])::"memory");
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        asm volatile("" : "+r"(r[i])::"memory");
+    }
+}
+
+template <typename T, int N>
+struct Wgmma;
+
+#define REPRO_WG_TAIL_TF32 " p, 1, 1;\n}\n"
+#define REPRO_WG_TAIL_BF16 " p, 1, 1, 0;\n}\n"
+
+#define REPRO_WGMMA_16(TYPE, SHAPE, TAIL)                                    \
+    __device__ __forceinline__ static void mma(float (&d)[8],                \
+                                               const uint32_t (&a)[4],       \
+                                               uint64_t desc, int acc) {     \
+        asm volatile(                                                         \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                      \
+            "wgmma.mma_async.sync.aligned." SHAPE ".f32." TYPE "." TYPE      \
+            " {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12,"    \
+            TAIL                                                              \
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),    \
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                              \
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),         \
+              "r"(acc));                                                      \
+    }
+
+#define REPRO_WGMMA_32(TYPE, SHAPE, TAIL)                                    \
+    __device__ __forceinline__ static void mma(float (&d)[16],               \
+                                               const uint32_t (&a)[4],       \
+                                               uint64_t desc, int acc) {     \
+        asm volatile(                                                         \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                      \
+            "wgmma.mma_async.sync.aligned." SHAPE ".f32." TYPE "." TYPE      \
+            " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"  \
+            " %14, %15}, {%16, %17, %18, %19}, %20," TAIL                     \
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),    \
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),    \
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),            \
+              "+f"(d[14]), "+f"(d[15])                                        \
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),         \
+              "r"(acc));                                                      \
+    }
+
+#define REPRO_WGMMA_48(TYPE, SHAPE, TAIL)                                    \
+    __device__ __forceinline__ static void mma(float (&d)[24],               \
+                                               const uint32_t (&a)[4],       \
+                                               uint64_t desc, int acc) {     \
+        asm volatile(                                                         \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"                      \
+            "wgmma.mma_async.sync.aligned." SHAPE ".f32." TYPE "." TYPE      \
+            " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"  \
+            " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23},"            \
+            " {%24, %25, %26, %27}, %28," TAIL                                \
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),    \
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),    \
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),            \
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),            \
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),            \
+              "+f"(d[22]), "+f"(d[23])                                        \
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),         \
+              "r"(acc));                                                      \
+    }
+
+#define REPRO_WGMMA_64(TYPE, SHAPE, TAIL)                                    \
+    __device__ __forceinline__ static void mma(float (&d)[32],               \
+                                               const uint32_t (&a)[4],       \
+                                               uint64_t desc, int acc) {     \
+        asm volatile(                                                         \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                      \
+            "wgmma.mma_async.sync.aligned." SHAPE ".f32." TYPE "." TYPE      \
+            " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"  \
+            " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"   \
+            " %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36,"     \
+            TAIL                                                              \
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),    \
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),    \
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),            \
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),            \
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),            \
+              "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+              "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),            \
+              "+f"(d[30]), "+f"(d[31])                                        \
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),         \
+              "r"(acc));                                                      \
+    }
+
+template <>
+struct Wgmma<float, 16> {
+    REPRO_WGMMA_16("tf32", "m64n16k8", REPRO_WG_TAIL_TF32)
+};
+template <>
+struct Wgmma<float, 32> {
+    REPRO_WGMMA_32("tf32", "m64n32k8", REPRO_WG_TAIL_TF32)
+};
+template <>
+struct Wgmma<float, 48> {
+    REPRO_WGMMA_48("tf32", "m64n48k8", REPRO_WG_TAIL_TF32)
+};
+template <>
+struct Wgmma<float, 64> {
+    REPRO_WGMMA_64("tf32", "m64n64k8", REPRO_WG_TAIL_TF32)
+};
+template <>
+struct Wgmma<__nv_bfloat16, 16> {
+    REPRO_WGMMA_16("bf16", "m64n16k16", REPRO_WG_TAIL_BF16)
+};
+template <>
+struct Wgmma<__nv_bfloat16, 32> {
+    REPRO_WGMMA_32("bf16", "m64n32k16", REPRO_WG_TAIL_BF16)
+};
+template <>
+struct Wgmma<__nv_bfloat16, 48> {
+    REPRO_WGMMA_48("bf16", "m64n48k16", REPRO_WG_TAIL_BF16)
+};
+template <>
+struct Wgmma<__nv_bfloat16, 64> {
+    REPRO_WGMMA_64("bf16", "m64n64k16", REPRO_WG_TAIL_BF16)
+};
+
+#undef REPRO_WGMMA_16
+#undef REPRO_WGMMA_32
+#undef REPRO_WGMMA_48
+#undef REPRO_WGMMA_64
+#undef REPRO_WG_TAIL_TF32
+#undef REPRO_WG_TAIL_BF16
+
+}  // namespace

@@ -15,7 +15,12 @@ launches the kernels of `csrc/flash_attention_bwd.cu` (the Pallas kernel
 has none; the JAX package differentiates `attention_ref` instead, and
 `flash_attention_bwd_plain` is that gradient, the autograd of the plain
 forward).  Otherwise the forward launches without the log-sum-exp, and
-its output is the same.
+its output is the same.  The backward is three launches on `wgmma`: each
+row's dO.O, then one block per key tile that walks every q head of its
+kv head's group and writes dK and dV once, then one block per q tile for
+dQ; a producer warp streams 64-row tiles into a ring of shared memory
+with bulk copies.  It needs no scratch beyond the [B, Hq, Sq] float32
+dO.O, uses no atomics, and two calls give the same bits.
 
 What the kernels take: float32 or bfloat16, q, k and v of one dtype, on
 one card, contiguous and 16-byte aligned, with D one of `HEAD_DIMS` and
@@ -146,15 +151,12 @@ def _launch_bwd(q, k, v, out, dout, lse, causal, window, softcap, scale,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if out.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty((B, Hq, Sq), **f32)
-    dk_h = torch.empty((B, Sk, Hq, D), **f32)
-    dv_h = torch.empty((B, Sk, Hq, D), **f32)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     fn = getattr(_build.load_library(), _BWD_ENTRIES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta,
-                                         dk_h, dv_h, dq, dk, dv)),
+                                         dq, dk, dv)),
                 B, Sq, Sk, Hq, Hkv, D, int(causal),
                 int(window is not None), window or 0,
                 int(softcap is not None), float(softcap or 0.0), scale,

@@ -5,12 +5,12 @@ CPU tensor takes, and what `chip_smoke.py` compares each CUDA kernel
 with on the card.  Each mirrors the JAX package's `repro.kernels.ref`
 (`attention_ref`, `rglru_ref`, `rwkv6_ref`, `rwkv6_chunked`): float32
 inside, the `-1e30` mask, and the result in the input's dtype (the RWKV6
-state in float32).  One exception: `rwkv6_ref` given float64 inputs
-computes in float64 and returns its state in float64, so that its
-autograd is a float64 reference for the RWKV6 backward kernel; no kernel
-takes float64, so only that check and CPU callers who pass float64 see
-it.  `attention_ref` and `rglru_ref` compute in float32 whatever they are
-given.
+state in float32).  Two exceptions: `rwkv6_ref` and `attention_ref`
+given float64 inputs compute in float64 (and return float64), so that
+their autograd is a float64 reference for the RWKV6 and flash-attention
+backward kernels; no kernel takes float64, so only those checks and CPU
+callers who pass float64 see it.  `rglru_ref` computes in float32
+whatever it is given.
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Shapes: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] with Hq % Hkv == 0.
     `q_offset` is the absolute position of q[:, 0] (decode: Sq=1,
     q_offset=pos).  `kv_len` optionally masks cache positions >= kv_len.
-    Computation in float32, result cast back to q.dtype.
+    Computation in float32 (in float64 for float64 q), result cast back to
+    q.dtype.
     """
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -39,10 +40,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     groups = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
 
-    qf = q.float() * scale
+    ft = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(ft) * scale
     # expand kv heads for GQA: head h reads kv head h // groups
-    kf = k.float().repeat_interleave(groups, dim=2)
-    vf = v.float().repeat_interleave(groups, dim=2)
+    kf = k.to(ft).repeat_interleave(groups, dim=2)
+    vf = v.to(ft).repeat_interleave(groups, dim=2)
 
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     if softcap is not None:
@@ -58,7 +60,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_len is not None:
         mask &= k_pos[None, :] < kv_len
     logits = torch.where(mask[None, None], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+                         torch.tensor(NEG_INF, dtype=ft, device=q.device))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     return out.to(q.dtype)

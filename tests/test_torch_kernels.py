@@ -107,6 +107,69 @@ def test_attention_ref_matches_jax_ref(q_offset, kv_len, jx):
     assert np.abs(_np(got) - _np(want)).max() < 1e-5
 
 
+def _attention_np(q, k, v, causal, window, softcap, q_offset):
+    """Attention in float64 numpy: what attention_ref's float64 path must
+    compute (scale D^-0.5, GQA, softcap, the -1e30 mask, softmax)."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    groups = q.shape[2] // k.shape[2]
+    kk = np.repeat(k, groups, axis=2)
+    vv = np.repeat(v, groups, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q * q.shape[3] ** -0.5, kk)
+    if softcap is not None:
+        s = np.tanh(s / softcap) * softcap
+    pos = np.arange(Sq)[:, None] + q_offset
+    kp = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if causal:
+        ok &= kp <= pos
+    if window is not None:
+        ok &= kp > pos - window
+    s = np.where(ok, s, -1e30)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bhqk,bkhd->bqhd", p, vv)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, q_offset)
+ATTN_F64_CASES = [
+    (2, 33, 33, 4, 2, 16, True, None, None, 0),
+    (1, 40, 72, 6, 3, 32, True, 16, 30.0, 32),
+    (1, 20, 9, 16, 1, 64, False, None, None, 0),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_F64_CASES)
+def test_attention_ref_computes_float64_inputs_in_float64(case):
+    """Float64 inputs are computed in float64 (the backward checks' float64
+    reference); the same inputs in float32 miss the float64 result by far
+    more than float64 rounding."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, cap, off = case
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal(s) for s in (
+        (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    want = _attention_np(q, k, v, causal, window, cap, off)
+    got = attention_ref(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+    assert got.dtype == torch.float64
+    assert np.abs(got.numpy() - want).max() < 1e-12
+    got32 = attention_ref(*(torch.from_numpy(x).float() for x in (q, k, v)),
+                          **kw)
+    assert got32.dtype == torch.float32
+    assert np.abs(got32.double().numpy() - want).max() > 1e-10
+
+
+@pytest.mark.parametrize("case", [c for c in FA_CASES if c[-1] == "float32"])
+def test_attention_ref_float32_inputs_still_match_jax_ref(case, jx):
+    causal, window, cap, _ = case[6:]
+    q, k, v = _qkv(case)
+    want = jx.ref.attention_ref(jx.a(q), jx.a(k), jx.a(v), causal=causal,
+                                window=window, softcap=cap)
+    got = attention_ref(_t(q), _t(k), _t(v), causal=causal, window=window,
+                        softcap=cap)
+    assert got.dtype == torch.float32
+    assert np.abs(_np(got) - _np(want)).max() < 1e-6, case
+
+
 def test_chunked_attention_vs_ref_decode_path():
     """Dynamic q_offset (a tensor) and kv_len go to the chunked path."""
     rng = np.random.default_rng(1)
@@ -1110,6 +1173,46 @@ def test_flash_attention_backward_is_deterministic_and_keeps_out(
     torch.cuda.synchronize()
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# FA_EDGES, then GQA groups of 3 (path A's 15 heads on 5) and 16 (MQA), at
+# lengths that are not a multiple of the backward's tiles (64 streamed
+# rows; 48, 64 or fewer owned rows a warpgroup)
+FA_BWD_EDGES = FA_EDGES + [
+    (150, 150, 15, 5, True, None, None, 0),
+    (100, 100, 16, 1, True, 7, None, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", FA_BWD_EDGES)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_flash_attention_backward_every_head_dim(D, dt, edge, cuda_device):
+    """Every instantiation of the backward against the plain version's
+    autograd in float64, and two calls bit-identical."""
+    Sq, Sk, Hq, Hkv, causal, window, cap, q_offset = edge
+    q, k, v = (_t(a, dt, cuda_device) for a in _qkv(
+        (2, Sq, Sk, Hq, Hkv, D), seed=D))
+    dout = _t(np.random.default_rng(D + 1).standard_normal(q.shape).astype(
+        np.float32), dt, cuda_device)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
+    grads = []
+    for _ in range(2):
+        qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = fa.launches_bwd
+        fa.flash_attention(*qkv, **kw).backward(dout)
+        torch.cuda.synchronize()
+        assert fa.launches_bwd == before + 1
+        grads.append([x.grad for x in qkv])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    want = fa.flash_attention_bwd_plain(q.double(), k.double(), v.double(),
+                                        dout.double(), **kw)
+    for got, w in zip(grads[0], want):
+        assert got.dtype == q.dtype and got.shape == w.shape
+        err = _grad_err(got, w)
+        assert err < BWD_TOL[dt], (D, dt, edge, err)
 
 
 def _rglru_grads(x, a, h0, dh, dh_last):

@@ -1,0 +1,426 @@
+"""Check and time the flash-attention backward kernel on one NVIDIA GPU.
+
+    python3 tools/fa_bwd_sweep.py [--parent DIR] [--no-checks]
+                                  [--errors] [--variants]
+
+Builds the kernel library (`src/repro_torch/csrc/*.cu`) and prints, for
+each instantiation of the backward's `bwd_kernel`, its registers and
+spills, ptxas's notes on it (C75xx: wgmma serialized, and why), and from
+its SASS (`cuobjdump -sass`) the HGMMA (`wgmma`) instructions, those that
+close a group, and the warpgroup arrives and waits.  Then it holds the
+backward, through `flash_attention`'s autograd Function, against the
+plain version's autograd in float64 on every head dim in both dtypes over
+layouts that stress its tiles (5e-5 float32, 2e-2 bf16, of max(1,
+max|g|)), each case twice, bit-identical (skipped with `--no-checks`),
+and times it with CUDA events at the two
+training paths' attention shapes (path A: q, dout [4,2048,15,64], k/v
+[4,2048,5,64], causal; path B: [1,3072,16,256] on one kv head, causal,
+window 2048), float32 and bfloat16, with each kernel's device time from
+`torch.profiler`.  With `--parent DIR`, a checkout of an earlier commit
+(for example unpacked from `git archive`), that checkout's
+`flash_attention_bwd.cu` is built beside it and timed at the same shapes
+in turns (parent, this, this, parent).  `--errors` prints dq, dk and dv's
+errors against float64 at path A's and B's shapes for this kernel, the
+parent's and the plain version in float32.  `--variants` builds copies
+of this source with other tile shapes for one instantiation each
+(`VARIANTS`: owned rows kNo, consumer warpgroups kWG, P/dS tiles
+kStoreTiles, ring stages kStages, k-steps a fence kChunk, of `BwdCfg`),
+holds each to the library's gradient at path A (head_dim 64) or B (256)
+(1e-4 of max(1, max|g|) in float32, 2e-2 in bf16) and times it there in
+turns with the library.  Every check runs even after one fails; the exit
+code is 1 if any failed.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+from kernel_sweep import (build, card_line, cuda_ms, entry,  # noqa: E402
+                          sass_counts)
+
+from repro_torch.core.cuda import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# (B, Sq, Sk, Hq, Hkv, causal, window, softcap, q_offset): groups of 1, 3
+# and 16, lengths that are not a multiple of a tile, Sk shorter than a
+# tile, a window smaller than a tile, softcap with a static offset
+EDGES = [
+    (2, 77, 77, 2, 2, True, None, None, 0),
+    (1, 150, 150, 15, 5, True, None, None, 0),
+    (1, 100, 100, 16, 1, True, 7, None, 0),
+    (2, 20, 9, 3, 1, False, None, None, 0),
+    (1, 70, 130, 4, 2, True, 48, 30.0, 60),
+]
+# (B, S, Hq, Hkv, D, window): the training paths' attention layers
+PATH_A = (4, 2048, 15, 5, 64, None)
+PATH_B = (1, 3072, 16, 1, 256, 2048)
+# (dtype, head_dim, kNo, kWG, kStoreTiles, kStages, kChunk): other tile
+# shapes of one instantiation, timed at path A (head_dim 64) or B (256)
+VARIANTS = [("float32", 64, 48, 2, 1, 4, 1), ("float32", 64, 48, 2, 1, 4, 4),
+            ("float32", 64, 64, 1, 2, 4, 4), ("bfloat16", 64, 64, 2, 2, 4, 2),
+            ("float32", 256, 16, 1, 1, 2, 2)]
+TUNABLES = ("kNo", "kWG", "kStoreTiles", "kStages", "kChunk")
+V = ctypes.c_void_p
+I32, I64, F32 = ctypes.c_int, ctypes.c_int64, ctypes.c_float
+
+
+def _inputs(B, Sq, Sk, Hq, Hkv, D, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=g, device="cuda").to(dtype)
+            for s in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D),
+                      (B, Sq, Hq, D))]
+
+
+def _err(got, want) -> float:
+    want = want.double()
+    return float((got.double() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def check_case(B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, cap,
+               q_offset) -> float:
+    q, k, v, dout = _inputs(B, Sq, Sk, Hq, Hkv, D, dtype, seed=D + Sq)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
+    runs = []
+    for _ in range(2):
+        qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fa.flash_attention(*qkv, **kw).backward(dout)
+        runs.append([x.grad for x in qkv])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    want = fa.flash_attention_bwd_plain(q.double(), k.double(), v.double(),
+                                        dout.double(), **kw)
+    err = max(_err(g, w) for g, w in zip(runs[0], want))
+    if not same:
+        return float("inf")
+    return err
+
+
+def inlined(csrc: str) -> str:
+    """`flash_attention_bwd.cu` of a source directory with its headers
+    inlined, so that a copy builds anywhere."""
+    with open(os.path.join(csrc, "flash_attention_bwd.cu")) as f:
+        text = f.read()
+    for name in re.findall(r'#include "(\w+\.cuh)"', text):
+        with open(os.path.join(csrc, name)) as f:
+            text = text.replace(f'#include "{name}"', f.read())
+    return text
+
+
+def variant(text: str, key) -> str:
+    """`text` with each tunable of `BwdCfg` set as `key` says for its
+    dtype and head dim, and left as it is elsewhere."""
+    dt, dim, *values = key
+    cond = f"(kF32 == {str(dt == 'float32').lower()} && D == {dim})"
+    for name, value in zip(TUNABLES, values):
+        m = re.search(rf"static constexpr int {name} =\s*(.+?);", text,
+                      re.S)
+        text = text.replace(m.group(0), f"static constexpr int {name} = "
+                            f"{cond} ? {value} : ({m.group(1)});")
+    return text
+
+
+def parent_entry(parent: str, tmp: str):
+    """The parent checkout's backward, built alone with its headers
+    inlined: (C function, whether it takes the dk_h/dv_h scratch)."""
+    text = inlined(os.path.join(parent, "src", "repro_torch", "csrc"))
+    built = build(tmp, {"parent": text}, label=str)
+    if "parent" not in built:
+        return None, False
+    scratch = "dk_h" in text
+    n_ptr = 12 if scratch else 10
+    fn = entry(built["parent"][0], "flash_attention_bwd_f32",
+               [V] * n_ptr + [I64] * 6 + [I32, I32, I64, I32, F32, F32, I64,
+                                         V])
+    return fn, scratch
+
+
+def timed(shape, dtype, parent_fn, parent_scratch) -> dict:
+    B, S, Hq, Hkv, D, window = shape
+    q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, dtype)
+    scale = D ** -0.5
+    out, lse = fa._launch(q, k, v, True, window, None, scale, 0,
+                          with_lse=True)
+    this = lambda: fa._launch_bwd(q, k, v, out, dout, lse, True, window,  # noqa
+                                  None, scale, 0)
+    res = {}
+    if parent_fn is not None and dtype == torch.float32:
+        f32 = dict(dtype=torch.float32, device="cuda")
+        delta = torch.empty((B, Hq, S), **f32)
+        extra = ([torch.empty((B, S, Hq, D), **f32) for _ in range(2)]
+                 if parent_scratch else [])
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        ptrs = [x.data_ptr() for x in [q, k, v, out, dout, lse, delta,
+                                       *extra, *grads]]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def parent():
+            rc = parent_fn(*ptrs, B, S, S, Hq, Hkv, D, 1,
+                           int(window is not None), window or 0, 0, 0.0,
+                           scale, 0, stream)
+            assert rc == 0, rc
+        parent()
+        torch.cuda.synchronize()
+        mine = this()
+        torch.cuda.synchronize()
+        res["parent_vs_this"] = max(_err(a, b) for a, b in zip(grads, mine))
+        ms = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            ms[who].append(cuda_ms(parent if who == "parent" else this, 10))
+        res["parent_ms"] = ms["parent"]
+        res["ms"] = ms["this"]
+    else:
+        res["ms"] = [cuda_ms(this, 10), cuda_ms(this, 10)]
+    return res
+
+
+def time_variants(tmp: str) -> None:
+    """Each variant of VARIANTS held to the library and timed beside it at
+    its path's shape, in turns."""
+    text = inlined(os.path.join(HERE, "..", "src", "repro_torch", "csrc"))
+    built = build(tmp, {key: variant(text, key) for key in VARIANTS},
+                  label=str)
+    for dt, dim in sorted({key[:2] for key in built}):
+        shape = PATH_A if dim == 64 else PATH_B
+        B, S, Hq, Hkv, D, window = shape
+        dtype = getattr(torch, dt)
+        q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, dtype)
+        scale = D ** -0.5
+        out, lse = fa._launch(q, k, v, True, window, None, scale, 0,
+                              with_lse=True)
+        want = fa._launch_bwd(q, k, v, out, dout, lse, True, window, None,
+                              scale, 0)
+        stream = torch.cuda.current_stream().cuda_stream
+        delta = torch.empty((B, Hq, S), dtype=torch.float32, device="cuda")
+        runs = {"library": lambda: fa._launch_bwd(
+            q, k, v, out, dout, lse, True, window, None, scale, 0)}
+        for key, (so, log) in built.items():
+            if key[:2] != (dt, dim):
+                continue
+            tag = "fLi" if dt == "float32" else "__nv_bfloat16Li"
+            lines = log.splitlines()
+            regs = [re.search(r"Used (\d+) registers",
+                              " ".join(lines[i + 1:i + 4]))
+                    for i, line in enumerate(lines)
+                    if "Compiling entry function" in line
+                    and f"bwd_kernelI{tag}{dim}E" in line]
+            serial = sum("C751" in line and f"{tag}{dim}E" in line
+                         for line in lines)
+            name = "flash_attention_bwd_" + ("f32" if dt == "float32"
+                                             else "bf16")
+            fn = entry(so, name, [V] * 10 + [I64] * 6 + [
+                I32, I32, I64, I32, F32, F32, I64, V])
+            grads = [torch.empty_like(x) for x in (q, k, v)]
+            ptrs = [x.data_ptr() for x in (q, k, v, out, dout, lse, delta,
+                                           *grads)]
+
+            def run(fn=fn, ptrs=ptrs):
+                return fn(*ptrs, B, S, S, Hq, Hkv, D, 1,
+                          int(window is not None), window or 0, 0, 0.0,
+                          scale, 0, stream)
+            label = str(dict(zip(TUNABLES, key[2:])))
+            rc = run()
+            torch.cuda.synchronize()
+            if rc != 0:
+                rc2 = run()
+                torch.cuda.synchronize()
+                print(f"variant {dt} D={dim} {label}: launch failed, CUDA "
+                      f"error {rc} (again: {rc2})", flush=True)
+                continue
+            err = max(_err(a, b) for a, b in zip(grads, want))
+            print(f"variant {dt} D={dim} {label}: registers "
+                  f"{[r.group(1) if r else '?' for r in regs]}, "
+                  f"serialization notes {serial}, against the library "
+                  f"{err!r}", flush=True)
+            if err <= (1e-4 if dt == "float32" else 2e-2):
+                runs[label] = run
+        order = list(runs) + list(runs)[::-1]
+        ms = {name: [] for name in runs}
+        for name in order:
+            ms[name].append(cuda_ms(runs[name], 10))
+        for name, t in ms.items():
+            print(f"time {dt} D={dim} {name}: {t} ms", flush=True)
+        del q, k, v, dout, out, lse, want
+        torch.cuda.empty_cache()
+
+
+def wgmma_counts(so: str) -> str:
+    """For each backward kernel: its HGMMA (wgmma) instructions, those that
+    close a group (`gsb0`), and the warpgroup arrives and waits
+    (`WARPGROUP.ARRIVE`, `WARPGROUP.DEPBAR`) in its SASS."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return "cuobjdump not found"
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, timeout=120).stdout
+    out = []
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        m = re.search(r"bwd_kernelI(\w+?)EEv", name)
+        if not m:
+            continue
+        out.append(f"{m.group(1)}: HGMMA {func.count('HGMMA')}, gsb0 "
+                   f"{len(re.findall(r'HGMMA[^;]*gsb0', func))}, ARRIVE "
+                   f"{func.count('WARPGROUP.ARRIVE')}, DEPBAR "
+                   f"{func.count('WARPGROUP.DEPBAR')}")
+    return "; ".join(out)
+
+
+def profile_split(shape, dtype) -> str:
+    """Device time of each kernel of one backward call (torch.profiler,
+    mean of 5 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    B, S, Hq, Hkv, D, window = shape
+    q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, dtype)
+    scale = D ** -0.5
+    out, lse = fa._launch(q, k, v, True, window, None, scale, 0,
+                          with_lse=True)
+    fa._launch_bwd(q, k, v, out, dout, lse, True, window, None, scale, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fa._launch_bwd(q, k, v, out, dout, lse, True, window, None,
+                           scale, 0)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append(f"{ev.key[:70]} {us / 5e3:.4f} ms")
+    return "; ".join(rows)
+
+
+def errors(shape, parent_fn, scratch) -> None:
+    """dq, dk, dv of this kernel (and the parent's) against the plain
+    version's float64 autograd at `shape`, each scaled by max(1,
+    max|g|)."""
+    B, S, Hq, Hkv, D, window = shape
+    q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, torch.float32)
+    scale = D ** -0.5
+    out, lse = fa._launch(q, k, v, True, window, None, scale, 0,
+                          with_lse=True)
+    mine = fa._launch_bwd(q, k, v, out, dout, lse, True, window, None,
+                          scale, 0)
+    want = fa.flash_attention_bwd_plain(q.double(), k.double(), v.double(),
+                                        dout.double(), causal=True,
+                                        window=window)
+    plain32 = fa.flash_attention_bwd_plain(q, k, v, dout, causal=True,
+                                           window=window)
+    res = {"this": [_err(a, b) for a, b in zip(mine, want)],
+           "plain float32": [_err(a, b) for a, b in zip(plain32, want)]}
+    if parent_fn is not None:
+        f32 = dict(dtype=torch.float32, device="cuda")
+        delta = torch.empty((B, Hq, S), **f32)
+        extra = ([torch.empty((B, S, Hq, D), **f32) for _ in range(2)]
+                 if scratch else [])
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        rc = parent_fn(*[x.data_ptr() for x in (q, k, v, out, dout, lse,
+                                                delta, *extra, *grads)],
+                       B, S, S, Hq, Hkv, D, 1, int(window is not None),
+                       window or 0, 0, 0.0, scale, 0,
+                       torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        res["parent"] = [_err(a, b) for a, b in zip(grads, want)] + [rc]
+    print(f"errors {shape} float32 (dq, dk, dv) against float64: {res}",
+          flush=True)
+    del q, k, v, dout, out, lse, mine, want, plain32
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", help="a checkout of an earlier commit")
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--no-checks", action="store_true")
+    ap.add_argument("--errors", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("fa_bwd_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"card: {card_line()}", flush=True)
+    so, log = _build.build_library()
+    notes = {}
+    for line in log.splitlines():
+        code = re.search(r"\((C7\d+)\)", line)
+        name = re.search(r"bwd_kernelI(\w+?)EEv", line)
+        if code and name:
+            key = (name.group(1), code.group(1))
+            notes[key] = notes.get(key, 0) + 1
+    for (name, code), count in sorted(notes.items()):
+        print(f"ptxas note {code} x{count} in {name}", flush=True)
+    for code in sorted({code for _, code in notes}):
+        text = next(line for line in log.splitlines() if f"({code})" in line)
+        print(f"ptxas {code}: {text.split('in the function')[0][-160:]}",
+              flush=True)
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "bwd_kernel" in line:
+            rest = " ".join(p.strip() for p in lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", rest)
+            spill = re.search(r"(\d+) bytes spill stores", rest)
+            name = re.search(r"bwd_kernelI(\w+?)EEv", line)
+            print(f"ptxas {name.group(1) if name else line[-60:]}: "
+                  f"{regs.group(1) if regs else '?'} registers, "
+                  f"{spill.group(1) if spill else '?'} bytes spill stores",
+                  flush=True)
+    print("sass:", sass_counts(so, "bwd_kernelIfLi64E"), flush=True)
+    print("sass wgmma:", wgmma_counts(so), flush=True)
+
+    failed = 0
+    for D in ([] if args.no_checks else fa.HEAD_DIMS):
+        for dtype in (torch.float32, torch.bfloat16):
+            for B, Sq, Sk, Hq, Hkv, causal, window, cap, off in EDGES:
+                case = (B, Sq, Sk, Hq, Hkv, D, str(dtype)[6:], causal,
+                        window, cap, off)
+                try:
+                    err = check_case(B, Sq, Sk, Hq, Hkv, D, dtype, causal,
+                                     window, cap, off)
+                except Exception as exc:       # noqa: BLE001
+                    print(f"check {case}: raised {exc!r}", flush=True)
+                    return 1
+                ok = err <= TOL[dtype]
+                failed += not ok
+                print(f"check {case}: scaled error {err!r} "
+                      f"{'ok' if ok else 'FAILED'}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "parent"))
+        os.makedirs(os.path.join(tmp, "variants"))
+        parent_fn, scratch = (
+            parent_entry(args.parent, os.path.join(tmp, "parent"))
+            if args.parent else (None, False))
+        if args.errors:
+            for shape in (PATH_A, (1, 2304, 16, 1, 256, 2048), PATH_B):
+                errors(shape, parent_fn, scratch)
+        if args.variants:
+            time_variants(os.path.join(tmp, "variants"))
+        return _timing(parent_fn, scratch, failed)
+
+
+def _timing(parent_fn, scratch, failed) -> int:
+    for label, shape in (("A", PATH_A), ("B", PATH_B)):
+        print(f"profile path {label} float32: "
+              f"{profile_split(shape, torch.float32)}", flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            res = timed(shape, dtype, parent_fn, scratch)
+            print(f"time path {label} {shape} {str(dtype)[6:]}: "
+                  f"{ {k: v for k, v in res.items()} }", flush=True)
+            torch.cuda.empty_cache()
+    return int(failed > 0)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
