@@ -100,10 +100,14 @@ Phases, each reported on its own line(s):
    [...]}` with all four kernels (flash attention's bound on the tensor
    cores, and on the CUDA cores as `bound_cuda_core_ms`), and the three
    backward kernels (flash attention's at path A's layer shape and, as
-   `ms_path_b` beside its `bound_path_b_ms`, at path B's, with the 1.5 ms
-   aim at path A stated as met or missed; RWKV6's at path C's layer
-   shape, with the forward beside it with and without its checkpoint
-   write): seven entries;
+   `ms_path_b` beside its `bound_path_b_ms` and SDPA's backward
+   `library_path_b_ms`, at path B's, with the 1.5 ms
+   aim at path A stated as met or missed; RG-LRU's at path B's layer
+   shape, with the bound for the bytes its design moves beside the
+   function's (`bound_design_ms`) and its 0.25 ms aim; RWKV6's at path
+   C's layer shape, with the forward beside it with and without its
+   checkpoint write, its scratch bytes and its 1.25 ms aim): seven
+   entries;
 12. backward kernels: flash attention's (`csrc/flash_attention_bwd.cu`)
    on `FA_CASES`, on every head dim in float32 and bfloat16 over
    `FA_BWD_EDGES` (GQA groups of 1, 2, 3 and 16, lengths that are not a
@@ -113,11 +117,14 @@ Phases, each reported on its own line(s):
    window 2048), float32 and bfloat16, against the plain version's
    autograd in float64 on the card (5e-5 and 2e-2 of max(1, max|g|)),
    two calls bit-identical and the forward's output unchanged by its
-   log-sum-exp write; RG-LRU's (`csrc/rglru_bwd.cu`) at (1, 3,072,
-   4,096) with and without h0 alike, and at S = 1 on every float a in
-   [0, 1] (and outside it) equal to the float32 autograd, NaN and
-   infinities included;
-12b. RWKV6 backward (`csrc/rwkv6_bwd.cu`): through `rwkv6_scan`'s
+   log-sum-exp write; RG-LRU's (`csrc/rglru_bwd.cu`, time-parallel over
+   chunks of 16 steps) at (1, 3,072, 4,096) with and without
+   h0 alike, at S one short of a chunk, one past it, three chunks and 5
+   and 3,071 (a ragged last chunk, S shorter than a chunk), and at S = 1
+   on every float a in [0, 1] (and outside it) equal to the float32
+   autograd, NaN and infinities included;
+12b. RWKV6 backward (`csrc/rwkv6_bwd.cu`, thread-block clusters over
+   time chunks of a head): through `rwkv6_scan`'s
    autograd Function against the plain version's autograd in float64
    (5e-5 and 2e-2 of max(1, max|g|)) on the shapes of the JAX package's
    kernel test and on layouts with Dk of 8, 40 and 64 and Dv != Dk (33
@@ -246,6 +253,10 @@ FA_BWD_A = (TRAIN_A_B // TRAIN_A_MICRO, TRAIN_A_S, TRAIN_A_S, 15, 5, 64,
 FA_BWD_B = (TRAIN_B_B, TRAIN_B_S, TRAIN_B_S, 16, 1, 256, True, 2048, None,
             "float32")
 RG_BWD = (TRAIN_B_B, TRAIN_B_S, 4096)
+# the RG-LRU backward's aim at path B's layer shape, and the RWKV6
+# backward's at path C's (ms, H100)
+RG_BWD_AIM_MS = 0.25
+RWKV_BWD_AIM_MS = 1.25
 BWD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 # the flash-attention backward on every head dim, both dtypes: (B, Sq, Sk,
 # Hq, Hkv, causal, window, softcap, q_offset), as
@@ -274,10 +285,12 @@ TRAIN_C_LR = 1e-5
 TRAIN_C_CHECK_LAYERS, TRAIN_C_CHECK_PARAMS = 2, 974_221_312
 # the RWKV6 backward kernel: (B, S, H, Dk, Dv) of one path-C layer and
 # microbatch; layouts with Dk != Dv that stress its tiles (Dk of 8, 40
-# and 64 rows, Dv short of a 16-column group, 33 steps: a ragged last
-# checkpoint interval); the decay edges' shape
+# and 64 rows, Dv short of a 32-column group, 33 steps: a ragged last
+# checkpoint interval; Dv of ten groups, some ranks walking two; 300
+# steps, three time chunks); the decay edges' shape
 RWKV_BWD = (TRAIN_C_B // TRAIN_C_MICRO, TRAIN_C_S, 64, 64, 64)
-RWKV_BWD_STRESS = [(1, 33, 2, 8, 20), (1, 33, 2, 40, 24), (1, 33, 2, 64, 20)]
+RWKV_BWD_STRESS = [(1, 33, 2, 8, 20), (1, 33, 2, 40, 24), (1, 33, 2, 64, 20),
+                   (1, 37, 2, 64, 300), (2, 300, 2, 64, 40)]
 RWKV_BWD_EDGES = (1, 512, 8, 64, 64)
 
 GRAPH_N, GRAPH_ALPHA, GRAPH_SEED = 3_000_000, 2.2, 0
@@ -1404,6 +1417,16 @@ def phase_backward_kernels_vs_plain() -> dict:
             log(f"kernel rglru_bwd B={RG_BWD[0]} S={RG_BWD[1]} "
                 f"D={RG_BWD[2]} {dtype} h0={with_h0}: scaled max error "
                 f"{err!r}; two calls bit-identical")
+    # S off the chunks: one short of a chunk, one past it, three chunks
+    # and 5, and path B's length less one (a ragged last chunk)
+    C = rglru.chunk_steps()
+    for S in (C - 1, C + 1, 3 * C + 5, RG_BWD[1] - 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_h0 in (False, True):
+                err = _rg_bwd_check(RG_BWD[0], S, RG_BWD[2], dtype, with_h0)
+        log(f"kernel rglru_bwd S={S} (chunks of {C}) D={RG_BWD[2]}: "
+            f"float32 and bfloat16, h0 or none, within {BWD_TOL}; two "
+            f"calls bit-identical")
     # the gate's gradient on every float a in [0, 1] (and outside it):
     # S = 1, x = 1, h0 = 0, dh = 1, equal to the plain version's float32
     # autograd, the infinite square-root gradient at a = 1 included
@@ -2101,7 +2124,18 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
                                            win_b, None, scale_b, 0),
                     reps=10)
     bound_b_ms = _fa_bwd_bound(FA_BWD_B)[0]
-    del q, k, v, dout, out, lse
+    # the yardstick at path B: SDPA's backward, causal window as a mask
+    pos = torch.arange(Sb, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] >
+                                             pos[:, None] - win_b)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                        scale=scale_b, enable_gqa=True)
+    dt_ = dout.transpose(1, 2).contiguous()
+    library_b_ms = _cuda_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dt_, retain_graph=True), reps=10)
+    del q, k, v, dout, out, lse, qt, kt, vt, ot, dt_, mask
     torch.cuda.empty_cache()
     aim = (f"{'met' if ms <= FA_BWD_AIM_MS else 'missed'}: {ms!r} ms "
            f"against {FA_BWD_AIM_MS} ms at path A's shape")
@@ -2119,6 +2153,7 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
         "library_ms": library_ms,
         "ms_forward_with_lse": ms_fwd,
         "ms_path_b": ms_b, "bound_path_b_ms": bound_b_ms,
+        "library_path_b_ms": library_b_ms,
         "shape_path_b": f"q, dout [{Bb},{Sb},{Hqb},{Db}] k/v "
                         f"[{Bb},{Sb},{Hkvb},{Db}] float32, causal, window "
                         f"{win_b} (one recurrentgemma-9b attention layer)",
@@ -2133,8 +2168,8 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
         "max_abs_err_note": "scaled: max|err| / max(1, max|g|) against "
                             "float64"}
     log(f"timing flash_attention_bwd at path B's shape: kernel {ms_b!r} ms,"
-        f" bound {bound_b_ms!r} ms; the {FA_BWD_AIM_MS} ms aim at path A "
-        f"{aim}")
+        f" bound {bound_b_ms!r} ms, library {library_b_ms!r} ms; the "
+        f"{FA_BWD_AIM_MS} ms aim at path A {aim}")
 
     B, S, D = RG_BWD
     x, a, _ = _rg_inputs(B, S, D)
@@ -2147,6 +2182,12 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
     n = B * S * D
     t_bytes = 4 * (6 * n + B * D) / PEAK_BYTES_PER_S * 1e3
     t_ops = 15 * n / PEAK_F32_OPS_PER_S * 1e3
+    # what this design moves: a and dh read twice, and per chunk and
+    # channel alpha and beta written, read, the carry written and read
+    n_chunks = -(-S // rglru.chunk_steps())
+    design_bytes = 4 * (8 * n + 5 * B * n_chunks * D + B * D)
+    rg_aim = (f"{'met' if ms <= RG_BWD_AIM_MS else 'missed'}: {ms!r} ms "
+              f"against {RG_BWD_AIM_MS} ms")
     rg_entry = {
         "name": "rglru_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_bwd.cu",
@@ -2158,6 +2199,11 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
         "max_abs_err": errs["rglru_bwd"], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_design_ms": design_bytes / PEAK_BYTES_PER_S * 1e3,
+        "bound_design_note": "the bytes this design moves: 8 arrays (a "
+                             "and dh read twice) and 5 floats a chunk "
+                             "and channel",
+        "aim": rg_aim,
         "library_ms": None,
         "library": "none: no single PyTorch call computes the recurrence "
                    "or its gradient",
@@ -2170,6 +2216,9 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
                             "float64"}
     del x, a, h, dh, dlast
     torch.cuda.empty_cache()
+    log(f"timing rglru_bwd: the {RG_BWD_AIM_MS} ms aim at path B's layer "
+        f"{rg_aim}; bound for this design's bytes "
+        f"{rg_entry['bound_design_ms']!r} ms")
     for e in (fa_entry, rg_entry):
         log(f"timing {e['name']} at {e['shape']}: kernel {e['ms']!r} ms, "
             f"plain {e['plain_ms']!r} ms, bound {e['bound_ms']!r} ms "
@@ -2180,6 +2229,7 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
 def phase_rwkv_bwd_timing(train_c: dict, err: float) -> dict:
     """The RWKV6 backward kernel at path C's layer shape; the forward
     with and without its checkpoint write beside it."""
+    from repro_torch.core.cuda import _build
     from repro_torch.kernels import rwkv6
     B, S, H, Dk, Dv = RWKV_BWD
     r, k, v, w, u, _ = _rwkv_inputs(*RWKV_BWD)
@@ -2196,6 +2246,10 @@ def phase_rwkv_bwd_timing(train_c: dict, err: float) -> dict:
     # dk, dw, dv and du written once (the checkpoints are this design's
     # choice, not the function's, and stand beside it as ckpt_bytes);
     # 13*Dk*Dv float32 operations per (b, t, h)
+    scratch_bytes = 4 * _build.load_library().rwkv6_bwd_scratch_len(
+        B, S, H, Dk, Dv)
+    aim = (f"{'met' if ms <= RWKV_BWD_AIM_MS else 'missed'}: {ms!r} ms "
+           f"against {RWKV_BWD_AIM_MS} ms")
     bths = B * S * H
     nbytes = 4 * (bths * (3 * Dk + 2 * Dv) + H * Dk
                   + bths * (3 * Dk + Dv) + H * Dk)
@@ -2226,13 +2280,16 @@ def phase_rwkv_bwd_timing(train_c: dict, err: float) -> dict:
         "bound_note": "inputs and gradients only; the checkpoints the "
                       "kernel also reads are ckpt_bytes",
         "ckpt_bytes": 4 * ckpt.numel(),
+        "scratch_bytes": scratch_bytes,
+        "aim": aim,
         "max_abs_err_note": "scaled: max|err| / max(1, max|g|) against "
                             "float64"}
     log(f"timing {entry['name']} at {entry['shape']}: kernel {ms!r} ms, "
         f"plain {plain_ms!r} ms, bound {entry['bound_ms']!r} ms "
         f"({entry['bound_by']}), library none; checkpoints "
         f"{entry['ckpt_bytes']} bytes; forward {ms_fwd!r} ms, with the "
-        f"checkpoint write {ms_fwd_ckpt!r} ms")
+        f"checkpoint write {ms_fwd_ckpt!r} ms; scratch {scratch_bytes} "
+        f"bytes; the {RWKV_BWD_AIM_MS} ms aim {aim}")
     del r, k, v, w, dout, ckpt
     torch.cuda.empty_cache()
     return entry

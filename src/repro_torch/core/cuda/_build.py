@@ -141,10 +141,10 @@ def load_library() -> ctypes.CDLL:
             # x, a, h0 (may be null), h, h_last, B, S, D, stream
             ("rglru_f32", "rglru_bf16"):
                 [vp, vp, vp, vp, vp, i64, i64, i64, vp],
-            # x, a, h0, h, dh, dh_last, dx, da, dh0 (h0, dh_last and dh0
-            # may be null), B, S, D, stream
+            # x, a, h0, h, dh, dh_last, scratch, dx, da, dh0 (h0, dh_last
+            # and dh0 may be null), B, S, D, stream
             ("rglru_bwd_f32", "rglru_bwd_bf16"):
-                [vp] * 9 + [i64, i64, i64, vp],
+                [vp] * 10 + [i64, i64, i64, vp],
             # r, k, v, w, u, s0, out, s_last, ckpt (s0 and ckpt may be
             # null), B, S, H, Dk, Dv, stream
             ("rwkv6_f32", "rwkv6_bf16"):
@@ -169,5 +169,11 @@ def load_library() -> ctypes.CDLL:
         lib.rwkv6_ckpt_steps.argtypes = []
         lib.rwkv6_bwd_scratch_len.restype = i64
         lib.rwkv6_bwd_scratch_len.argtypes = [i64] * 5
+        # the RG-LRU backward's steps a chunk; B, S, D -> float32 elements
+        # of its scratch
+        lib.rglru_bwd_chunk_steps.restype = i32
+        lib.rglru_bwd_chunk_steps.argtypes = []
+        lib.rglru_bwd_scratch_len.restype = i64
+        lib.rglru_bwd_scratch_len.argtypes = [i64] * 3
         _lib = lib
     return _lib

@@ -5,12 +5,12 @@ CPU tensor takes, and what `chip_smoke.py` compares each CUDA kernel
 with on the card.  Each mirrors the JAX package's `repro.kernels.ref`
 (`attention_ref`, `rglru_ref`, `rwkv6_ref`, `rwkv6_chunked`): float32
 inside, the `-1e30` mask, and the result in the input's dtype (the RWKV6
-state in float32).  Two exceptions: `rwkv6_ref` and `attention_ref`
-given float64 inputs compute in float64 (and return float64), so that
-their autograd is a float64 reference for the RWKV6 and flash-attention
-backward kernels; no kernel takes float64, so only those checks and CPU
-callers who pass float64 see it.  `rglru_ref` computes in float32
-whatever it is given.
+state in float32).  One exception: `rwkv6_ref`, `attention_ref` and
+`rglru_ref` given float64 inputs compute in float64 (and return
+float64), so that their autograd is a float64 reference for the RWKV6,
+flash-attention and RG-LRU backward kernels; no kernel takes float64,
+so only those checks and CPU callers who pass float64 see it.  Float32
+and bfloat16 inputs are computed as the JAX package computes them.
 """
 from __future__ import annotations
 
@@ -75,14 +75,16 @@ def rglru_ref(x: torch.Tensor, a: torch.Tensor,
 
     Shapes: x, a [B, S, D] (a in (0,1), already gated), h0 [B, D];
     returns (h [B, S, D], h_last [B, D]), both in x.dtype.  float32
-    inside; the steps run one after another, as the kernel runs them.
+    inside (float64 for float64 x: the reference that the backward
+    kernel is held to); the steps run one after another, as the kernel
+    runs them.
     """
-    xf = x.float()
-    af = a.float()
+    ft = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ft)
+    af = a.to(ft)
     gated = torch.sqrt(torch.clamp(1.0 - af * af, 0.0, 1.0)) * xf
-    h = (torch.zeros(x.shape[:1] + x.shape[2:], dtype=torch.float32,
-                     device=x.device)
-         if h0 is None else h0.float())
+    h = (torch.zeros(x.shape[:1] + x.shape[2:], dtype=ft, device=x.device)
+         if h0 is None else h0.to(ft))
     hs = torch.empty_like(xf)
     for t in range(x.shape[1]):
         h = af[:, t] * h + gated[:, t]

@@ -12,8 +12,9 @@ cannot take raises.
 
 It is differentiable on the card too: when autograd records and an input
 requires grad, the call goes through a `torch.autograd.Function` whose
-backward launches the hand-written kernel `csrc/rglru_bwd.cu` (the Pallas
-kernel has none; the JAX package differentiates `rglru_ref` instead, and
+backward launches the hand-written kernels of `csrc/rglru_bwd.cu`, a
+time-parallel walk over chunks of `chunk_steps()` steps (the Pallas kernel
+has none; the JAX package differentiates `rglru_ref` instead, and
 `rglru_bwd_plain` is that gradient, the autograd of the plain forward).
 
 What the kernel takes: x and a of one dtype, float32 or bfloat16,
@@ -24,10 +25,12 @@ launch picks the path); h and h_last equal the plain version's bit for
 bit in float32.
 
 `launches` counts the forward kernel's launches and `launches_bwd` the
-backward's; a run sets them to 0 and reads them back to show that a path
-went through the kernels.
+backward's (one a backward call); a run sets them to 0 and reads them
+back to show that a path went through the kernels.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -61,6 +64,13 @@ def rglru_bwd_plain(x, a, h0, dh, dh_last):
         h, h_last = rglru_plain(*ins)
         grads = torch.autograd.grad((h, h_last), ins, (dh, dh_last))
     return tuple(grads) + ((None,) if h0 is None else ())
+
+
+@functools.cache
+def chunk_steps() -> int:
+    """The steps of the backward's chunks (the library's constant, read
+    once)."""
+    return int(_build.load_library().rglru_bwd_chunk_steps())
 
 
 def _launch(x, a, h0):
@@ -97,8 +107,8 @@ def _launch(x, a, h0):
 
 
 def _launch_bwd(x, a, h0, h, dh, dh_last):
-    """The backward kernel: (dx, da, dh0), dh0 in h0's dtype (None without
-    h0)."""
+    """The backward kernels (one call, three launches): (dx, da, dh0), dh0
+    in h0's dtype (None without h0)."""
     global launches_bwd
     dh = dh.to(x.dtype).contiguous()
     dh_last = dh_last.to(x.dtype).contiguous()
@@ -107,13 +117,16 @@ def _launch_bwd(x, a, h0, h, dh, dh_last):
     dh0 = (torch.empty((B, D), dtype=torch.float32, device=x.device)
            if h0 is not None else None)
     h0f = h0.to(torch.float32).contiguous() if h0 is not None else None
-    fn = getattr(_build.load_library(), _BWD_ENTRIES[x.dtype])
+    lib = _build.load_library()
+    scratch = torch.empty((lib.rglru_bwd_scratch_len(B, S, D),),
+                          dtype=torch.float32, device=x.device)
+    fn = getattr(lib, _BWD_ENTRIES[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), a.data_ptr(),
                 h0f.data_ptr() if h0f is not None else None,
                 h.data_ptr(), dh.data_ptr(), dh_last.data_ptr(),
-                dx.data_ptr(), da.data_ptr(),
+                scratch.data_ptr(), dx.data_ptr(), da.data_ptr(),
                 dh0.data_ptr() if dh0 is not None else None, B, S, D,
                 stream)
     if rc != 0:

@@ -385,6 +385,188 @@ def test_rglru_ref_matches_jax_ref(jx):
     assert np.abs(_np(last) - _np(want_last)).max() < 1e-6
 
 
+def _rglru_np(x, a, h0):
+    """The recurrence evaluated in float64 with numpy."""
+    h = np.zeros((x.shape[0], x.shape[2])) if h0 is None else h0
+    hs = np.empty(x.shape)
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + np.sqrt(np.clip(1.0 - a[:, t] ** 2, 0.0, 1.0)) * x[
+            :, t]
+        hs[:, t] = h
+    return hs, h
+
+
+def _rglru_ref_float32(x, a, h0=None):
+    """`rglru_ref` as it computed before float64 inputs were computed in
+    float64: float32 inside whatever the input."""
+    xf, af = x.float(), a.float()
+    gated = torch.sqrt(torch.clamp(1.0 - af * af, 0.0, 1.0)) * xf
+    h = (torch.zeros(x.shape[:1] + x.shape[2:], dtype=torch.float32)
+         if h0 is None else h0.float())
+    hs = torch.empty_like(xf)
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + gated[:, t]
+        hs[:, t] = h
+    return hs.to(x.dtype), h.to(x.dtype)
+
+
+@pytest.mark.parametrize("B,S,D,with_h0", [(2, 33, 16, False),
+                                           (1, 40, 24, True)])
+def test_rglru_ref_computes_float64_inputs_in_float64(B, S, D, with_h0, jx):
+    """Float64 inputs are computed in float64 (the RG-LRU backward
+    checks' float64 reference); float32 and bfloat16 inputs give the bits
+    they gave before, within a float32 rounding (1e-6) or one bfloat16
+    step of the JAX package's `rglru_ref`, and miss the float64 result by
+    far more than float64 rounding."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((B, S, D))
+    a = rng.uniform(0.05, 0.99, (B, S, D))
+    h0 = rng.standard_normal((B, D)) if with_h0 else None
+    want_h, want_last = _rglru_np(x, a, h0)
+    got_h, got_last = rglru_ref(torch.from_numpy(x), torch.from_numpy(a),
+                                None if h0 is None else torch.from_numpy(h0))
+    assert got_h.dtype == got_last.dtype == torch.float64
+    assert np.abs(got_h.numpy() - want_h).max() < 1e-12
+    assert np.abs(got_last.numpy() - want_last).max() < 1e-12
+    for dt in ("float32", "bfloat16"):
+        xt, at = _t(x, dt), _t(a, dt)
+        h0t = None if h0 is None else _t(h0)
+        got = rglru_ref(xt, at, h0t)
+        assert all(g.dtype == getattr(torch, dt) for g in got)
+        for g, old in zip(got, _rglru_ref_float32(xt, at, h0t)):
+            assert torch.equal(g, old), dt
+        want = jx.ref.rglru_ref(jx.a(x, dt), jx.a(a, dt),
+                                h0=None if h0 is None else jx.a(h0))
+        for g, wt in zip(got, want):     # XLA rounds a step differently
+            g, wt = _np(g), _np(wt)
+            ulp = 1e-6 if dt == "float32" else 2.0 ** -7 * np.maximum(
+                1.0, np.abs(wt))
+            assert (np.abs(g - wt) <= ulp).all(), dt
+    got32 = rglru_ref(_t(x), _t(a), None if h0 is None else _t(h0))[0]
+    assert np.abs(got32.double().numpy() - want_h).max() > 1e-10
+
+
+# ---------------------------------------------------------------------- #
+# RG-LRU backward, CPU: the backward kernel's time-parallel algorithm
+# ---------------------------------------------------------------------- #
+def _rglru_bwd_kernel_algorithm(x, a, h0, dh, dh_last, chunk):
+    """`csrc/rglru_bwd.cu`'s three launches in float32 on the CPU, with
+    chunks of `chunk` steps.  A step's walk: g = dh_t + carry, the gate's
+    gradient one autograd rule at a time, carry = g * a_t.  Launch 1
+    walks every chunk but the first from a zero carry: alpha the carry
+    leaving it, beta the product of its a (last step first); launch 2
+    walks the chunks from the last, carry_in = dh_last (or 0) there and
+    carry_in_{j-1} = fmaf(beta_j, carry_in_j, alpha_j); launch 3 walks
+    each chunk again from its carry_in, and the first chunk's last carry
+    is dh0.  h_{t-1} is the forward's h (`rglru_ref`'s bits)."""
+    B, S, D = x.shape
+    xf, af, gf = x.float(), a.float(), dh.float()
+    hf = rglru_ref(x, a, h0)[0].float()
+    first = (h0.float() if h0 is not None else torch.zeros((B, D)))
+    hprev = torch.cat([first[:, None], hf[:, :-1]], dim=1)
+    n = -(-S // chunk)
+    span = lambda j: range(j * chunk, min(S, (j + 1) * chunk))
+    alpha, beta = torch.zeros((B, n, D)), torch.zeros((B, n, D))
+    for j in range(1, n):
+        carry, prod = torch.zeros((B, D)), torch.ones((B, D))
+        for t in reversed(span(j)):
+            carry = (gf[:, t] + carry) * af[:, t]
+            prod = prod * af[:, t]
+        alpha[:, j], beta[:, j] = carry, prod
+    c = (dh_last.float() if dh_last is not None else torch.zeros((B, D)))
+    carry_in = torch.zeros((B, n, D))
+    for j in reversed(range(n)):
+        carry_in[:, j] = c
+        if j >= 1:
+            c = _fmaf(beta[:, j], c, alpha[:, j])
+    dx, da = torch.empty_like(xf), torch.empty_like(xf)
+    dh0 = c
+    for j in range(n):
+        carry = carry_in[:, j]
+        for t in reversed(span(j)):
+            ai = af[:, t]
+            g = gf[:, t] + carry
+            v = 1.0 - ai * ai
+            c = torch.sqrt(torch.clamp(v, 0.0, 1.0))
+            gc = torch.where((v >= 0.0) & (v <= 1.0),
+                             (g * xf[:, t]) / (2.0 * c), torch.zeros(()))
+            gaa = -gc
+            dx[:, t] = g * c
+            da[:, t] = g * hprev[:, t] + (gaa * ai + gaa * ai)
+            carry = g * ai
+        if j == 0:
+            dh0 = carry
+    return dx, da, dh0 if h0 is not None else None
+
+
+def _finite_err(got, want) -> float:
+    """The scaled error over the finite entries of `want`, after checking
+    that the others (the gate's infinite gradient at a = 1) are the same
+    infinities and NaNs in `got`."""
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(got[~fin].double().nan_to_num(),
+                       want[~fin].nan_to_num())
+    got, want = got[fin].double(), want[fin]
+    if want.numel() == 0:
+        return 0.0
+    return float((got - want).abs().max()) / max(1.0, float(
+        want.abs().max()))
+
+
+@pytest.mark.parametrize("B,S,D,chunk,a_case,with_h0,with_dl", [
+    (2, 37, 8, 16, "uniform", True, True),      # a ragged last chunk
+    (1, 5, 8, 16, "uniform", False, True),      # S < chunk
+    (2, 30, 6, 7, "edges", True, False),        # a = 0, 1, 1 - 2^-24
+    (1, 24, 4, 1, "uniform", True, True),       # chunks of one step
+    (1, 48, 8, 16, "near_one", False, False),   # every a near 1
+    (1, 1, 16, 7, "edges", True, True),         # one step
+])
+def test_rglru_backward_kernel_algorithm_meets_the_tolerance(
+        B, S, D, chunk, a_case, with_h0, with_dl):
+    """The time-parallel backward's algorithm stays within
+    1e-5·max(1, max|g|) of the plain version's autograd in float64, and
+    gives its infinities and NaNs where the gate's gradient is infinite
+    (a = 1)."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    a = rng.uniform(0.05, 0.99, (B, S, D)).astype(np.float32)
+    near = np.float32(1 - 2.0 ** -24)
+    if a_case == "edges":
+        a.reshape(-1)[::3] = 0.0
+        a.reshape(-1)[1::5] = 1.0
+        a.reshape(-1)[2::7] = near
+    elif a_case == "near_one":
+        a[:] = near
+    x, a = _t(x), _t(a)
+    h0 = _t(rng.standard_normal((B, D)).astype(np.float32)) if with_h0 \
+        else None
+    dh = _t(rng.standard_normal((B, S, D)).astype(np.float32))
+    dl = _t(rng.standard_normal((B, D)).astype(np.float32)) if with_dl \
+        else None
+    got = _rglru_bwd_kernel_algorithm(x, a, h0, dh, dl, chunk)
+    want = rglru.rglru_bwd_plain(
+        x.double(), a.double(), None if h0 is None else h0.double(),
+        dh.double(), torch.zeros((B, D), dtype=torch.float64)
+        if dl is None else dl.double())
+    for g, wt in zip(got, want):
+        assert (g is None) == (wt is None)
+        if wt is not None:
+            assert g.shape == wt.shape
+            assert _finite_err(g, wt) < 1e-5, (a_case, chunk)
+
+
+def test_rglru_backward_kernel_algorithm_at_s_zero():
+    """S = 0: no chunk; dh0 is dh_last, as the plain version's h_last =
+    h0 gives it."""
+    x = torch.zeros((2, 0, 5))
+    dl = torch.randn((2, 5))
+    dx, da, dh0 = _rglru_bwd_kernel_algorithm(x, x, torch.randn((2, 5)),
+                                              x, dl, 16)
+    assert dx.shape == da.shape == (2, 0, 5)
+    assert torch.equal(dh0, dl)
+
+
 # ---------------------------------------------------------------------- #
 # RWKV6, CPU: the port against the Pallas kernel and the jnp oracles
 # ---------------------------------------------------------------------- #
@@ -696,33 +878,65 @@ def test_rwkv6_bwd_plain_without_s0_or_an_output_gradient():
 
 def _halving(x):
     """Sum over the last dim as (x[:n/2] + x[n/2:]) halved again, in
-    float32: the order of the backward kernel's dv shuffle tree over a
-    warp's 16 rows (lane bits 4, 3, 2, 1 pair rows 8, 4, 2, 1 apart)."""
+    float32: the order of the backward kernels' shuffle trees (a
+    butterfly over lane bits from the highest, or the reduce-scatter of
+    k G over a warp's 8 rows, lane bits 4, 3, 2 pairing rows 4, 2, 1
+    apart)."""
     while x.shape[-1] > 1:
         n = x.shape[-1] // 2
         x = x[..., :n] + x[..., n:]
     return x[..., 0]
 
 
+def _in_order(x):
+    """Sum over the last dim one term after another, in float32."""
+    total = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        total = total + x[..., i]
+    return total
+
+
 def _rwkv6_bwd_kernel_algorithm(r, k, v, w, u, s0, dout, dS_last,
-                                chunk=16, cols=8):
-    """`csrc/rwkv6_bwd.cu`'s algorithm in float32 on the CPU: the state
-    recomputed from the forward's checkpoints (every `chunk` steps) one
-    interval at a time, G walked backwards, each thread's `cols` columns
-    summed by fmaf in column order and added to its row partner's, k G
-    over the rows by the shuffle tree's order (16 rows a warp, the 4 warps
-    in order), the column groups' row sums added in group order, and the
-    u terms and du as the reduce kernels form them."""
+                                chunk=16, intervals=16):
+    """`csrc/rwkv6_bwd.cu`'s algorithm in float32 on the CPU.
+
+    Time is cut into chunks of `intervals` checkpoint intervals.  G
+    entering each chunk comes first: for each chunk but the first the G
+    its steps produce from a zero G, sum_t c_t dout_t^T with c_t = r_t D
+    and D the running product of w (D = 1 at the chunk's first step,
+    then D = D w_t), added over t in ascending order by fmaf; then those
+    summaries walked from the last chunk (dS_last there) by
+    fmaf(D at the chunk's end, G, walk).  Each chunk then runs on its own
+    from its G.  A head's columns fall into groups of 32, walked by the R ranks of a
+    cluster (R the power of two covering the groups, at most 8; a rank
+    walks n_my groups in turn), a thread holding two rows and four
+    columns, eight threads a row pair.  The state is recomputed from the
+    forward's checkpoints (every `chunk` steps) one interval at a time and
+    G walked backwards; a thread sums its 4 columns by fmaf in column
+    order, a row's 8 threads add pairwise ((t0 + t1) + (t2 + t3)) + ...,
+    a rank adds its groups in order and the epilogue adds the ranks in
+    rank order; v·dout is a product a column halved over a group's 32
+    columns, then groups and ranks in order; k G over a row pair by
+    fmaf(k1, G1, k0 * G0), over a warp's 4 row pairs by the shuffle
+    tree's order, then the 8 warps in order; sum r u k over rows l and
+    l + 32 by fmaf,
+    halved over the 32 lanes; du a (step slot, row) over a chunk's
+    intervals by fmaf, then the 16 slots, then the batch and the chunks
+    (b first) in order."""
     B, S, H, Dk = r.shape
     Dv = v.shape[-1]
-    grp = 2 * cols
-    ncg = -(-Dv // grp)
+    groups = -(-Dv // 32)
+    R = 1
+    while R < groups and R < 8:
+        R *= 2
+    n_my = -(-groups // R)
+    ncol = R * n_my * 32
     pad_r = lambda x: torch.nn.functional.pad(x.float(), (0, 64 - Dk))
-    pad_c = lambda x: torch.nn.functional.pad(x.float(), (0, ncg * grp - Dv))
-    rp, kp, wp = (pad_r(x) for x in (r, k, w))
+    pad_c = lambda x: torch.nn.functional.pad(x.float(), (0, ncol - Dv))
+    rp, kp, wp, up = (pad_r(x) for x in (r, k, w, u))
     vp = pad_c(v)
     dp = pad_c(dout) if dout is not None else torch.zeros_like(vp)
-    P = torch.zeros((B, H, 64, ncg * grp))
+    P = torch.zeros((B, H, 64, ncol))
     if s0 is not None:
         P[:, :, :Dk, :Dv] = s0.float()
     ckpts = []
@@ -734,10 +948,29 @@ def _rwkv6_bwd_kernel_algorithm(r, k, v, w, u, s0, dout, dS_last,
     G = torch.zeros_like(P)
     if dS_last is not None:
         G[:, :, :Dk, :Dv] = dS_last.float()
-    part = torch.zeros((3, ncg, B, S, H, 64))
-    dv_state = torch.zeros((B, S, H, ncg * grp))
-    split = lambda x: x.reshape(x.shape[:-1] + (ncg, 2, cols))
+    # G entering each time chunk
+    n_tc = -(-len(ckpts) // intervals)
+    steps = lambda c: range(c * intervals * chunk,
+                            min(S, (c + 1) * intervals * chunk))
+    walk, decay = {}, {}
+    for c in range(1, n_tc):
+        g0, a = torch.zeros_like(P), torch.ones((B, H, 64))
+        for t in steps(c):
+            g0 = _fmaf((rp[:, t] * a)[..., None], dp[:, t, :, None], g0)
+            a = a * wp[:, t]
+        walk[c], decay[c] = g0, a
+    g_in = {n_tc - 1: G}
+    for c in range(n_tc - 1, 0, -1):
+        g_in[c - 1] = _fmaf(decay[c][..., None], g_in[c], walk[c])
+    dr, dk, dw = (torch.zeros((B, S, H, 64)) for _ in range(3))
+    dv = torch.zeros((B, S, H, ncol))
+    du_parts = torch.zeros((B, n_tc, H, 64))
+    # [..., ncol] -> [..., rank, group of the rank, thread, column]
+    split = lambda x: x.reshape(x.shape[:-1] + (R, n_my, 8, 4))
     for n in reversed(range(len(ckpts))):
+        if n % intervals == intervals - 1 or n == len(ckpts) - 1:
+            G = g_in[n // intervals]
+            du_slots = torch.zeros((B, H, 64, chunk))
         P, states = ckpts[n], []
         for t in range(n * chunk, min(S, (n + 1) * chunk)):
             states.append(P)
@@ -748,42 +981,49 @@ def _rwkv6_bwd_kernel_algorithm(r, k, v, w, u, s0, dout, dS_last,
             Pt, Gt = split(states[s]), split(G)
             vv, dd = split(vp[:, t, :, None]), split(dp[:, t, :, None])
             acc = torch.zeros((3,) + Pt.shape[:-1])
-            for c in range(cols):
+            for c in range(4):
                 acc[0] = _fmaf(Pt[..., c], dd[..., c], acc[0])
                 acc[1] = _fmaf(Gt[..., c], vv[..., c], acc[1])
                 acc[2] = _fmaf(Gt[..., c], Pt[..., c], acc[2])
-            rows = acc[..., 0] + acc[..., 1]               # [3, B, H, 64, ncg]
-            part[:, :, :, t] = rows.permute(0, 4, 1, 2, 3)
-            kg = kp[:, t, :, :, None] * G                   # [B, H, 64, cols]
-            warps = _halving(kg.reshape(B, H, 4, 16, -1).transpose(-1, -2))
-            dv_state[:, t] = ((warps[:, :, 0] + warps[:, :, 1])
-                              + warps[:, :, 2]) + warps[:, :, 3]
+            rows = _in_order(_in_order(_pairwise(acc)))    # [3, B, H, 64]
+            vd_g = _halving((vv * dd)[:, :, 0].flatten(-2))  # [B,H,R,n_my]
+            vd = _in_order(_in_order(vd_g))[..., None]     # [B, H, 1]
+            ru = rp[:, t] * up
+            ruk = _halving(_fmaf(ru[..., 32:], kp[:, t, :, 32:],
+                                 ru[..., :32] * kp[:, t, :, :32]))
+            dr[:, t] = _fmaf(up * kp[:, t], vd, rows[0])
+            dk[:, t] = _fmaf(ru, vd, rows[1])
+            dw[:, t] = rows[2]
+            du_slots[..., s] = _fmaf(rp[:, t] * kp[:, t], vd,
+                                     du_slots[..., s])
+            kg = (kp[:, t, :, :, None] * G).reshape(B, H, 8, 4, 2, -1)
+            kG = G.reshape(B, H, 8, 4, 2, -1)
+            kk = kp[:, t].reshape(B, H, 8, 4, 2, 1)
+            pairs = _fmaf(kk[..., 1, :], kG[..., 1, :], kg[..., 0, :])
+            warps = _halving(pairs.transpose(-1, -2))     # [B, H, 8, ncol]
+            dv[:, t] = _fmaf(ruk[..., None], dp[:, t],
+                             _in_order(warps.transpose(-1, -2)))
             G = _fmaf(wp[:, t, :, :, None], G,
                       rp[:, t, :, :, None] * dp[:, t, :, None])
-    sums = part[:, 0]
-    for g in range(1, ncg):
-        sums = sums + part[:, g]
-    sums = sums[..., :Dk]
-    rf, kf, uf = r.float(), k.float(), u.float()[None, None]
-    vd = (vp * dp).sum(-1, keepdim=True)
-    ruk = (rf * uf * kf).sum(-1, keepdim=True)
-    dr = _fmaf(uf * kf, vd, sums[0])
-    dk = _fmaf(rf * uf, vd, sums[1])
-    dv = _fmaf(ruk, dp, dv_state)[..., :Dv]
-    du = (rf * kf * vd).sum((0, 1))
+        if n % intervals == 0:
+            du_parts[:, n // intervals] = _in_order(du_slots)
+    du = _in_order(du_parts.permute(2, 3, 0, 1).flatten(-2))[:, :Dk]
     ds0 = G[:, :, :Dk, :Dv] if s0 is not None else None
-    return dr, dk, dv, sums[2], du, ds0
+    return (dr[..., :Dk], dk[..., :Dk], dv[..., :Dv], dw[..., :Dk], du,
+            ds0)
 
 
-@pytest.mark.parametrize("B,S,H,Dk,Dv,w_case,with_s0,with_dsl", [
-    (2, 37, 2, 16, 24, "uniform", True, True),     # a ragged last interval
-    (1, 33, 1, 40, 20, "zero", True, False),
-    (1, 20, 2, 8, 40, "tiny", False, True),        # three column groups
-    (1, 48, 1, 64, 64, "one", True, True),
-    (1, 16, 2, 64, 16, "uniform", False, False),   # one interval
+@pytest.mark.parametrize("B,S,H,Dk,Dv,w_case,with_s0,with_dsl,intervals", [
+    (2, 37, 2, 16, 24, "uniform", True, True, 16),  # a ragged last interval
+    (1, 33, 1, 40, 20, "zero", True, False, 16),
+    (1, 20, 2, 8, 72, "tiny", False, True, 16),     # three groups on 4 ranks
+    (1, 48, 1, 64, 64, "one", True, True, 16),
+    (1, 16, 2, 64, 16, "uniform", False, False, 16),  # one interval, one rank
+    (1, 18, 1, 16, 272, "uniform", True, True, 16),   # two groups a rank
+    (2, 100, 2, 16, 24, "uniform", True, True, 2),   # four time chunks
 ])
 def test_rwkv6_backward_kernel_algorithm_meets_the_tolerance(
-        B, S, H, Dk, Dv, w_case, with_s0, with_dsl):
+        B, S, H, Dk, Dv, w_case, with_s0, with_dsl, intervals):
     """The backward kernel's algorithm (no division by w anywhere: states
     from checkpoints, not run backwards) stays within 1e-5·max(1, max|g|)
     of the gradient in float64, w = 0, w = 1 and w down to e^-69
@@ -797,12 +1037,14 @@ def test_rwkv6_backward_kernel_algorithm_meets_the_tolerance(
              np.float32))}[w_case]
     s0 = s0 if with_s0 else None
     dsl = dsl if with_dsl else None
-    got = _rwkv6_bwd_kernel_algorithm(r, k, v, w, u, s0, dout, dsl)
+    got = _rwkv6_bwd_kernel_algorithm(r, k, v, w, u, s0, dout, dsl,
+                                      intervals=intervals)
     want = rwkv6.rwkv6_bwd_plain(*(x.double() if x is not None else None
                                    for x in (r, k, v, w, u, s0, dout, dsl)))
     for g, wt in zip(got, want):
         assert (g is None) == (wt is None)
         if wt is not None:
+            assert g.shape == wt.shape
             err = float((g.double() - wt).abs().max()) / max(
                 1.0, float(wt.abs().max()))
             assert err < 1e-5, (w_case, err)
@@ -1275,6 +1517,49 @@ def test_rglru_backward_kernel_at_the_gate_edges(cuda_device):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0,with_dl", [(True, True), (False, False),
+                                             (True, False)])
+@pytest.mark.parametrize("steps", ["one", "short", "chunk", "ragged",
+                                   "chunks_and_3", "zero"])
+def test_rglru_backward_kernel_on_every_chunk_edge(steps, with_h0, with_dl,
+                                                   dt, cuda_device):
+    """The time-parallel backward at S of one step, one short of a chunk,
+    one chunk, one past it, two chunks and 3, and S = 0 (dh0 = dh_last):
+    within BWD_TOL of the plain version's autograd in float64, two calls
+    bit-identical, one backward call."""
+    C = rglru.chunk_steps()
+    S = {"one": 1, "short": C - 1, "chunk": C, "ragged": C + 1,
+         "chunks_and_3": 2 * C + 3, "zero": 0}[steps]
+    B, D = 2, 200
+    x, a = (_t(t, dt, cuda_device) for t in _xa(B, S, D, seed=S))
+    h0 = torch.randn((B, D), device=cuda_device) if with_h0 else None
+    dh = torch.randn((B, S, D), device=cuda_device).to(x.dtype)
+    dl = torch.randn((B, D), device=cuda_device).to(x.dtype)
+    if not with_dl:
+        dl = torch.zeros_like(dl)
+    before = rglru.launches_bwd
+    got = _rglru_grads(x, a, h0, dh, dl)
+    torch.cuda.synchronize()
+    assert rglru.launches_bwd == before + 1
+    again = _rglru_grads(x, a, h0, dh, dl)
+    for g, w in zip(got, again):
+        assert g is None or torch.equal(g, w)
+    if S == 0:
+        assert got[0].shape == got[1].shape == (B, 0, D)
+        if with_h0:
+            assert torch.equal(got[2], dl.float())
+        return
+    want = rglru.rglru_bwd_plain(
+        x.double(), a.double(), h0.double() if h0 is not None else None,
+        dh.double(), dl.double())
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert _grad_err(g, w) < BWD_TOL[dt], (S, dt)
+
+
 # ---------------------------------------------------------------------- #
 # on the card: the RWKV6 backward kernel against the plain gradient
 # ---------------------------------------------------------------------- #
@@ -1383,3 +1668,23 @@ def test_rwkv6_backward_is_deterministic_and_keeps_out(dt, cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dv", [40, 144, 300])
+def test_rwkv6_backward_kernel_on_wide_heads(Dv, cuda_device):
+    """Dv of two column groups of 32 (a cluster of 2 ranks), of five (8
+    ranks, three of them without columns) and of 10 (8 ranks, some
+    walking two groups in turn, their G kept in the scratch): within
+    BWD_TOL of the plain version's autograd in float64, two calls
+    bit-identical."""
+    r, k, v, w, u, s0, dout, dsl = _rwkv_bwd_on_card((1, 37, 2, 64, Dv),
+                                                     "float32", cuda_device)
+    got = _rwkv_grads(r, k, v, w, u, s0, dout, dsl)
+    again = _rwkv_grads(r, k, v, w, u, s0, dout, dsl)
+    torch.cuda.synchronize()
+    want = rwkv6.rwkv6_bwd_plain(*(t.double() for t in
+                                   (r, k, v, w, u, s0, dout, dsl)))
+    for g, g2, wt in zip(got, again, want):
+        assert torch.equal(g, g2)
+        assert _grad_err(g, wt) < BWD_TOL["float32"], Dv
