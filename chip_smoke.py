@@ -58,9 +58,21 @@ Phases, each reported on its own line(s):
    p=16), hit rate at least 0.9 with evictions, `metrics()` agreeing
    with the request history; `python -m repro_torch.serve plan` in a
    subprocess, whose summary must be the cold plan's;
+4e. expert placement on the card (PR 22): `expert_placement` at its
+   default `backend="cuda"` on the JAX package's benchmark inputs
+   (`synth_routing`, copied here: deepseek-v3's 256 experts, top-8, 16
+   devices; dbrx's 16, top-4, 8), equal to `backend="fast"` field for
+   field, bit for bit, with exactly 2 segment-sum launches each (the
+   cut's finalize: loads and edge counts; `fast` makes none); its and
+   `naive_expert_placement`'s load imbalance, all-to-all fraction and
+   replication logged; `mesh_device_order` of a 16-shard comm matrix
+   over a 4 x 4 mesh equal to the fast engine's;
 5. model kernels: flash attention on the shapes of the JAX package's
-   `FA_CASES` and at the serving shape (B=2, S=3072, 16 heads, 1 kv head,
-   head_dim 256, causal, window 2048) against its plain version (float32
+   `FA_CASES` and a GQA group of 6 at head_dim 128 (B=2, S=77, 12 heads
+   on 2), at the serving shape (B=2, S=3072, 16 heads, 1 kv head,
+   head_dim 256, causal, window 2048) and at dbrx-132b's prefill shape
+   (B=2, S=2048, 48 heads on 8, head_dim 128, causal; float32 and
+   bfloat16) against its plain version (float32
    2e-5, bfloat16 2e-2); the RG-LRU scan at the serving shape (B=2,
    S=3072, D=4096) and on layouts that stress its ring (D of 33, 96 and
    4,096 by S of 1, 33 and 3,071; a view that is not 16-byte aligned; in
@@ -90,15 +102,33 @@ Phases, each reported on its own line(s):
 10. rwkv6-7b serving path: the launcher at its defaults, exactly
    (32 + 32) x 32 = 2,048 RWKV6 launches (one per layer and decode step,
    with the cached state as s0), prefill vs prompt replay (1e-3);
+10b. dbrx-132b prefill path (PR 22), after the earlier models are freed:
+   full width cut to 4 layers (14,269,470,720 float32 parameters from a
+   seeded generator), `make_prefill_step` on 2 prompts of 2,048 tokens at
+   the config's capacity factor 1.25 (the MoE layer's expert products on
+   cuBLAS), exactly 4 flash-attention launches and no other kernel,
+   finite logits, a second run with the same bits (every prefill path is
+   held to that), and a third under `torch.profiler` (device time by
+   kernel, the flash-attention and GEMM shares, the idle share);
+10c. dbrx-132b serving path: the launcher at its defaults on the same
+   4-layer cut, dropless (capacity factor 16, as the JAX package's
+   decode-vs-forward test for MoE); no launch in the launcher (decode
+   computes attention inline), 4 in the comparison prefill; the replay
+   within 1e-3 of the prefill, with the router's top-k margins and any
+   token the two route differently logged;
 11. timing: each kernel and, where one exists, one PyTorch call
    computing the same function (timed only, as a yardstick) on the
    card's clock (CUDA events after a sleep that lets the host queue
    every call first), and its plain version on the host's clock, at the
    main paths' largest shapes, with RG-LRU also timed with h0 (`ms_h0`)
    and RWKV6 also at its decode shape with s0 (`ms_decode`, the launch
-   the launcher makes 2,048 times); then one JSON line `{"kernels":
-   [...]}` with all four kernels (flash attention's bound on the tensor
-   cores, and on the CUDA cores as `bound_cuda_core_ms`), and the three
+   the launcher makes 2,048 times; flash attention also at dbrx-132b's
+   shape as `ms_dbrx`, beside its bound and SDPA's time); then one JSON
+   line `{"kernels": [...]}` with all four kernels (flash attention's
+   bound on the tensor cores, and on the CUDA cores as
+   `bound_cuda_core_ms`; the dbrx prefill's and the expert placements'
+   launches as `launches_dbrx_prefill` and
+   `launches_expert_placement`), and the three
    backward kernels (flash attention's at path A's layer shape and, as
    `ms_path_b` beside its `bound_path_b_ms` and SDPA's backward
    `library_path_b_ms`, at path B's, with the 1.5 ms
@@ -164,6 +194,7 @@ checkout of the repository, it fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -210,7 +241,8 @@ PREFILL_B, PREFILL_S = 2, 3072
 FA_MAIN = (PREFILL_B, PREFILL_S, PREFILL_S, 16, 1, 256, True, 2048, None,
            "float32")
 RG_MAIN = (PREFILL_B, PREFILL_S, 4096)
-# tests/test_kernels.py::FA_CASES:
+# tests/test_kernels.py::FA_CASES, then dbrx-132b's GQA group of 6 at
+# head_dim 128 on a short, ragged length:
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype)
 FA_CASES = [
     (2, 128, 128, 4, 2, 64, True, None, None, "float32"),
@@ -220,6 +252,7 @@ FA_CASES = [
     (1, 192, 320, 4, 2, 64, True, None, None, "float32"),
     (2, 128, 128, 4, 2, 64, True, None, None, "bfloat16"),
     (1, 128, 128, 6, 3, 32, True, 32, 30.0, "float32"),
+    (2, 77, 77, 12, 2, 128, True, None, None, "float32"),
 ]
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # RG-LRU: float32 is held bit for bit; bfloat16 to this
@@ -233,6 +266,24 @@ RG_CASES = [RG_MAIN + ("float32",)] + [
     (1, 33, 33, "bfloat16"), (2, 3071, 96, "bfloat16"),
     (2, 3072, 4096, "bfloat16")]
 SERVE_TOL = 1e-3
+
+# dbrx-132b (PR 22): full width (d 6,144, 48 heads of 128 on 8 kv heads,
+# 16 experts of d_ff 10,752, top 4, vocab 100,352) cut to 4 layers: the
+# 40 layers take 528 GB in float32, and 4 (57.08 GB) leave room for the
+# prefill's activations on one 80 GB card.  The prefill runs at the
+# config's capacity factor 1.25; the launcher dropless (capacity factor
+# = the expert count), since the prompt replay routes each token as its
+# own group and agrees with the prefill only when nothing is dropped.
+DBRX_ARCH, DBRX_LAYERS, DBRX_PARAMS = "dbrx-132b", 4, 14_269_470_720
+DBRX_PREFILL_B, DBRX_PREFILL_S = 2, 2048
+FA_DBRX = (DBRX_PREFILL_B, DBRX_PREFILL_S, DBRX_PREFILL_S, 48, 8, 128, True,
+           None, None, "float32")
+# expert placement: benchmarks/expert_placement.py's two inputs,
+# (label, experts, top k, devices)
+EP_ROUTING = (("deepseek-v3", 256, 8, 16), ("dbrx", 16, 4, 8))
+# the segment sums of one `vertex_cut(backend="cuda")` finalize: the
+# per-cluster loads and edge counts (`keyed_sum` each)
+EP_SEGSUM_LAUNCHES = 2
 
 # training (PR 18).  Path A: smollm-360m whole (32 layers, d 960, 15
 # heads of 64 on 5 kv heads, float32, tied embeddings), 8 sequences of
@@ -974,6 +1025,82 @@ def phase_plan_service(tmp: str, trace: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# 4e. expert placement on the card
+# ---------------------------------------------------------------------- #
+def synth_routing(n_experts: int, zipf_a: float = 1.2, seed: int = 0,
+                  k: int = 8, n_tokens: int = 100_000):
+    """Zipf expert popularity + correlated co-activation counts: a copy
+    of `benchmarks/expert_placement.py::synth_routing` (this script
+    imports neither `benchmarks` nor the JAX package), held equal to it
+    by tests/test_torch_moe.py."""
+    rng = np.random.default_rng(seed)
+    pop = (np.arange(1, n_experts + 1, dtype=np.float64) ** -zipf_a)
+    pop = pop[rng.permutation(n_experts)]
+    pop /= pop.sum()
+    load = pop * n_tokens * k
+    co = np.zeros((n_experts, n_experts))
+    draws = rng.choice(n_experts, size=(n_tokens // 50, k), p=pop)
+    for row in draws:
+        for i in range(k):
+            for j in range(i + 1, k):
+                co[row[i], row[j]] += 1
+                co[row[j], row[i]] += 1
+    return load, co
+
+
+def _placement_fields(ep) -> tuple:
+    return (ep.n_experts, ep.n_devices, ep.device_experts,
+            ep.expert_devices, ep.device_load.dtype,
+            ep.device_load.tobytes(), ep.replication_factor,
+            ep.all_to_all_fraction)
+
+
+def phase_expert_placement() -> dict:
+    """`expert_placement` at its default `backend="cuda"` (its cut's
+    finalize on the card) on the JAX package's benchmark inputs, equal to
+    `backend="fast"` field for field, bit for bit, with the segment sum's
+    launches counted around each; `mesh_device_order` of a 16-shard comm
+    matrix over a 4 x 4 mesh equal to the fast engine's."""
+    from repro_torch.core.planner import (expert_placement,
+                                          mesh_device_order,
+                                          naive_expert_placement)
+    launches = {}
+    for label, E, k, n_dev in EP_ROUTING:
+        load, co = synth_routing(E, k=k)
+        zero_launches()
+        want = expert_placement(load, co, n_devices=n_dev, backend="fast")
+        check(read_launches() == _expect(),
+              f"expert placement {label}: the fast backend launched")
+        zero_launches()
+        t0 = time.perf_counter()
+        got = expert_placement(load, co, n_devices=n_dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[label] = read_launches()
+        check(launches[label] == _expect(segment_sum=EP_SEGSUM_LAUNCHES),
+              f"expert placement {label}: launches {launches[label]}, "
+              f"expected {EP_SEGSUM_LAUNCHES} segment sums")
+        check(_placement_fields(got) == _placement_fields(want),
+              f"expert placement {label}: the card's differs from fast's")
+        naive = naive_expert_placement(load, n_dev)
+        log(f"expert placement {label} (E={E}, top-{k}, {n_dev} devices) "
+            f"on the card in {secs:.6f} s, equal to fast bit for bit, "
+            f"{EP_SEGSUM_LAUNCHES} segment-sum launches: vertex cut "
+            f"{json.dumps(got.summary())}; contiguous "
+            f"{json.dumps(naive.summary())}")
+    rng = np.random.default_rng(0)
+    comm = rng.random((16, 16))
+    comm = comm + comm.T
+    got = mesh_device_order(comm, 4, 4, backend="cuda")
+    want = mesh_device_order(comm, 4, 4, backend="fast")
+    check(got.dtype == want.dtype and np.array_equal(got, want),
+          "mesh_device_order: cuda differs from fast")
+    log(f"mesh_device_order, 16 shards on a 4 x 4 mesh: {got.tolist()} "
+        f"(equal to fast)")
+    return {label: n["segment_sum"] for label, n in launches.items()}
+
+
+# ---------------------------------------------------------------------- #
 # 5. the model kernels against their plain versions
 # ---------------------------------------------------------------------- #
 def _fa_inputs(case, seed: int = 0):
@@ -1020,7 +1147,7 @@ def _rg_check(x, a, h0, what: str) -> float:
 def phase_model_kernels_vs_plain() -> dict:
     from repro_torch.kernels import flash_attention as fa
     worst = {}
-    for case in FA_CASES + [FA_MAIN]:
+    for case in FA_CASES + [FA_MAIN, FA_DBRX, FA_DBRX[:9] + ("bfloat16",)]:
         causal, window, cap, dt = case[6:]
         q, k, v = _fa_inputs(case)
         got = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -1034,6 +1161,8 @@ def phase_model_kernels_vs_plain() -> dict:
         check(err <= FA_TOL[dt], f"flash attention {case}: error {err!r}")
         if case is FA_MAIN:
             worst["flash_attention"] = err
+        if case is FA_DBRX:
+            worst["flash_attention_dbrx"] = err
         log(f"kernel flash_attention {case}: max abs error {err!r} "
             f"(tolerance {FA_TOL[dt]})")
         del q, k, v, got, want
@@ -1096,10 +1225,8 @@ def _expect(**counts) -> dict:
     return {name: counts.get(name, 0) for name in _counted()}
 
 
-def _build_model(arch: str, n_params: int, seed: int = 0):
+def _build_model(cfg, n_params: int, seed: int = 0):
     from repro_torch import models
-    from repro_torch.configs import get_config
-    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = models.Model(cfg, device="cuda",
                          generator=torch.Generator(device="cuda")
@@ -1114,12 +1241,15 @@ def _build_model(arch: str, n_params: int, seed: int = 0):
     return model
 
 
-def phase_prefill(arch: str, n_params: int, B: int, S: int,
-                  expect: dict) -> dict:
+def phase_prefill(cfg, n_params: int, B: int, S: int,
+                  expect: dict, profile: bool = False) -> dict:
     """`make_prefill_step` on B random prompts of S tokens, with every
-    kernel's launches counted around the first run."""
+    kernel's launches counted around the first run; a second run gives
+    the same bits.  With `profile`, a third run under `torch.profiler`
+    (`_profile`: device time by kernel, idle share)."""
     from repro_torch.launch.steps import make_prefill_step
-    model = _build_model(arch, n_params)
+    arch = cfg.name
+    model = _build_model(cfg, n_params)
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(
         0, model.cfg.vocab_size, (B, S))).cuda()
@@ -1142,6 +1272,8 @@ def phase_prefill(arch: str, n_params: int, B: int, S: int,
     torch.cuda.synchronize()
     second_s = time.perf_counter() - t0
     rerun_diff = float((again - logits).abs().max())
+    check(torch.equal(again, logits),
+          f"{arch} prefill: a second run differs by {rerun_diff!r}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"prefill path {arch} B={B} S={S}: launches "
         f"{json.dumps(launches)}, logits finite, |logits| max "
@@ -1151,10 +1283,16 @@ def phase_prefill(arch: str, n_params: int, B: int, S: int,
         f"{first_s:.6f} s, second {second_s:.6f} s "
         f"({B * S / second_s:.1f} prompt tokens/s); peak "
         f"device memory {peak:.3f} GB")
-    del model, logits, again
+    del again
+    if profile:
+        prof = _profile(f"prefill profile {arch}",
+                        lambda: step(model, {"tokens": tokens}))
+        check(prof["fa_fwd_ms"] > 0, f"{arch} prefill profile finds no "
+              f"flash-attention kernel by name, though it launched")
+    del model, logits
     torch.cuda.empty_cache()
     return {"launches": launches, "first_s": first_s, "second_s": second_s,
-            "peak_gb": peak}
+            "peak_gb": peak, "tokens_per_s": B * S / second_s}
 
 
 # ---------------------------------------------------------------------- #
@@ -1173,7 +1311,61 @@ def rwkv_logits_f64(model, tokens: torch.Tensor) -> torch.Tensor:
     return f64_logits(model, h[:, -1])
 
 
-def phase_serve(arch: str, expect_serve: dict, expect_prefill: dict,
+class _RoutingRecorder:
+    """Records the router probabilities of every `MoE.apply` and
+    `MoE.aux_loss` call while it is entered, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.module, self.calls = moe, []
+        self.inner = moe._router_probs
+
+        def record(p, x):
+            probs = self.inner(p, x)
+            self.calls.append(probs.detach().cpu())
+            return probs
+
+        moe._router_probs = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module._router_probs = self.inner
+
+
+def _routing_report(cfg, replay_calls: list, prefill_calls: list,
+                    prompt_len: int) -> str:
+    """Where the prompt replay and the prefill route a prompt token to
+    different experts, and the smallest top-k margin (the k-th minus the
+    (k+1)-th router probability, from the prefill) over all tokens and
+    layers and over the ones that differ: a margin at float32 rounding
+    is a routing near-tie, a wide one a fault."""
+    L, k = cfg.n_layers, cfg.experts_per_token
+    # the replay: one apply a layer and step; the prefill: apply, then
+    # aux_loss, a layer
+    replay = [torch.cat([replay_calls[t * L + layer]
+                         for t in range(prompt_len)], dim=1)
+              for layer in range(L)]
+    prefill = prefill_calls[0::2]
+    worst, differ = None, []
+    for layer in range(L):
+        srt = torch.sort(prefill[layer], dim=-1, descending=True,
+                         stable=True)
+        margin = srt.values[..., k - 1] - srt.values[..., k]      # [B, S]
+        want = srt.indices[..., :k].sort(-1).values
+        got = torch.sort(replay[layer], dim=-1, descending=True,
+                         stable=True).indices[..., :k].sort(-1).values
+        m = float(margin.min())
+        worst = m if worst is None else min(worst, m)
+        for b, t in (want != got).any(-1).nonzero().tolist():
+            differ.append((layer, b, t, float(margin[b, t])))
+    where = "; ".join(f"layer {layer} sequence {b} token {t} margin {m!r}"
+                      for layer, b, t, m in differ[:8])
+    return (f"smallest top-{k} margin over the prompts' tokens and layers "
+            f"{worst!r}; routing differs at {len(differ)} (token, layer)"
+            f"{': ' + where if differ else ''}")
+
+
+def phase_serve(cfg, expect_serve: dict, expect_prefill: dict,
                 note: str = "", reference=None) -> dict:
     """The launcher at the JAX launcher's defaults (batch 4, prompt 32,
     generate 32), with every kernel's launches counted around it; its
@@ -1184,15 +1376,20 @@ def phase_serve(arch: str, expect_serve: dict, expect_prefill: dict,
     than max(SERVE_TOL, twice the prefill's own distance), i.e. the
     decode path through the kernel must be as accurate as the prefill.
     A float32 model whose rounding grows through its depth can put the
-    two float32 paths more than SERVE_TOL apart while both are right."""
-    from repro_torch.configs import get_config
+    two float32 paths more than SERVE_TOL apart while both are right.
+
+    For an MoE config the router's probabilities are recorded in both
+    runs, and where the two route a prompt token differently is logged
+    with the top-k margins (`_routing_report`)."""
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_prefill_step
+    arch = cfg.name
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls must stay off: the checks are float32")
-    zero_launches()
-    out = serve(get_config(arch), device="cuda")
-    serve_launches = read_launches()
+    with _RoutingRecorder() as replay_routing:
+        zero_launches()
+        out = serve(cfg, device="cuda")
+        serve_launches = read_launches()
     check(serve_launches == expect_serve,
           f"{arch} launcher launches {serve_launches}, expected "
           f"{expect_serve}")
@@ -1201,14 +1398,21 @@ def phase_serve(arch: str, expect_serve: dict, expect_prefill: dict,
           "generated ids shape or dtype")
     check(bool(((gen >= 0) & (gen < out["model"].cfg.vocab_size)).all()),
           "generated ids outside the vocabulary")
-    zero_launches()
-    last = make_prefill_step(out["model"].cfg)(
-        out["model"], {"tokens": out["prompts"]})
-    torch.cuda.synchronize()
-    check(read_launches() == expect_prefill,
-          "the comparison prefill did not run the kernels")
+    with _RoutingRecorder() as prefill_routing:
+        zero_launches()
+        last = make_prefill_step(out["model"].cfg)(
+            out["model"], {"tokens": out["prompts"]})
+        torch.cuda.synchronize()
+        prefill_launches = read_launches()
+    check(prefill_launches == expect_prefill,
+          f"the comparison prefill's launches {prefill_launches}, "
+          f"expected {expect_prefill}")
     err = float((last - out["last_logits"]).abs().max())
     ref_note = ""
+    if cfg.is_moe:
+        log(f"routing {arch}, prompt replay vs prefill: " + _routing_report(
+            cfg, replay_routing.calls, prefill_routing.calls,
+            out["prompts"].shape[1]))
     if reference is None:
         check(err <= SERVE_TOL,
               f"prefill vs prompt replay: max abs difference {err!r}")
@@ -1595,19 +1799,20 @@ def _run_steps(cfg, model, batches, n_micro: int, steps: int,
     return metrics, seconds
 
 
-def _profile_step(cfg, model, batch, n_micro: int, top: int = 10,
-                  groups: dict | None = None) -> dict:
-    """One more train step under `torch.profiler`: the device time by
-    kernel (the `top` largest logged), the share of the flash-attention
-    kernels, of each of `groups` (label -> kernel name parts) and the
-    device's idle share of the step's wall."""
+def _profile(label: str, run, top: int = 10,
+             groups: dict | None = None) -> dict:
+    """`run()` (one train step or prefill) under `torch.profiler`: the
+    device time by kernel (the `top` largest logged), the share of the
+    flash-attention kernels, of each of `groups` (label -> kernel name
+    parts) and the device's idle share of the run's wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _run_steps(cfg, model, [batch], n_micro, 1)
+        run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []      # the kernels' own events (an operator's device time
     for ev in prof.key_averages():      # repeats its kernels')
@@ -1624,22 +1829,26 @@ def _profile_step(cfg, model, batch, n_micro: int, top: int = 10,
     fa_fwd = sum(r[2] for r in rows if ours + "fa_kernel" in r[0])
     fa_bwd = sum(r[2] for r in rows if any(
         ours + k in r[0] for k in ("bwd_kernel<", "delta_kernel<")))
-    log(f"train step profile {cfg.name}: wall {wall_ms:.3f} ms, device "
+    # cuBLAS's and CUTLASS's matrix products name themselves *gemm*
+    gemm = sum(r[2] for r in rows if "gemm" in r[0].lower())
+    log(f"{label}: wall {wall_ms:.3f} ms, device "
         f"busy {busy:.3f} ms (idle {max(0.0, 1 - busy / wall_ms):.4f} of "
-        f"the wall); flash attention forward {fa_fwd:.3f} ms, backward "
-        f"{fa_bwd:.3f} ms ({fa_bwd / busy:.4f} of the device time)")
+        f"the wall); flash attention forward {fa_fwd:.3f} ms "
+        f"({fa_fwd / busy:.4f} of the device time), backward "
+        f"{fa_bwd:.3f} ms ({fa_bwd / busy:.4f}); GEMM kernels "
+        f"{gemm:.3f} ms ({gemm / busy:.4f})")
     shares = {label: sum(r[2] for r in rows
                          if any(ours + k in r[0] for k in parts))
               for label, parts in (groups or {}).items()}
     if shares:
-        log(f"train step profile {cfg.name}: " + "; ".join(
+        log(f"{label}: " + "; ".join(
             f"{label} {ms:.3f} ms ({ms / busy:.4f} of the device time)"
             for label, ms in shares.items()))
     for name, count, ms in rows[:top]:
-        log(f"train step profile {cfg.name}: {ms:.3f} ms ({ms / busy:.4f})"
+        log(f"{label}: {ms:.3f} ms ({ms / busy:.4f})"
             f" x{count} {name[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "fa_fwd_ms": fa_fwd,
-            "fa_bwd_ms": fa_bwd, **shares}
+            "fa_bwd_ms": fa_bwd, "gemm_ms": gemm, **shares}
 
 
 def phase_train_a() -> dict:
@@ -1693,7 +1902,8 @@ def phase_train_a() -> dict:
     losses = [m["loss"] for m in metrics]
     check(all(np.isfinite(losses)), f"path A losses not finite: {losses}")
     check(losses[-1] < losses[0], f"path A loss did not fall: {losses}")
-    prof = _profile_step(cfg, model, batches[0], TRAIN_A_MICRO)
+    prof = _profile(f"train step profile {cfg.name}", lambda: _run_steps(
+        cfg, model, batches[:1], TRAIN_A_MICRO, 1))
     check(prof["fa_bwd_ms"] > 0, "path A's profile finds no flash-attention "
           "backward kernel by name, though the backward launched")
     steady = float(np.mean(seconds[1:]))
@@ -1736,7 +1946,8 @@ def phase_train_b() -> dict:
           f"{expect}")
     losses = [m["loss"] for m in metrics]
     check(all(np.isfinite(losses)), f"path B losses not finite: {losses}")
-    prof = _profile_step(cfg, model, batches[0], 1)
+    prof = _profile(f"train step profile {cfg.name}", lambda: _run_steps(
+        cfg, model, batches[:1], 1, 1))
     check(prof["fa_bwd_ms"] > 0, "path B's profile finds no flash-attention "
           "backward kernel by name, though the backward launched")
     steady = float(np.mean(seconds[1:]))
@@ -1833,7 +2044,8 @@ def phase_train_c() -> dict:
           f"{expect}")
     losses = [m["loss"] for m in metrics]
     check(all(np.isfinite(losses)), f"path C losses not finite: {losses}")
-    prof = _profile_step(cfg, model, batches[0], TRAIN_C_MICRO, groups={
+    prof = _profile(f"train step profile {cfg.name}", lambda: _run_steps(
+        cfg, model, batches[:1], TRAIN_C_MICRO, 1), groups={
         "RWKV6 forward": ("rwkv6_kernel",),
         "RWKV6 backward": ("rwkv6_bwd_",)})
     steady = float(np.mean(seconds[1:]))
@@ -2026,6 +2238,25 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
                    "enable_gqa",
         "plain_on": "the card (attention_ref: einsum, mask, softmax)"}
     del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    # dbrx-132b's prefill shape (PR 22): 48 heads on 8, head_dim 128
+    q, k, v = _fa_inputs(FA_DBRX)
+    ms_dbrx = _cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                       reps=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_dbrx = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+    bound_dbrx, by_dbrx, _ = _fa_bound(FA_DBRX)
+    fa_entry.update({
+        "ms_dbrx": ms_dbrx, "bound_dbrx_ms": bound_dbrx,
+        "bound_dbrx_by": by_dbrx, "library_dbrx_ms": library_dbrx,
+        "max_abs_err_dbrx": errs["flash_attention_dbrx"],
+        "shape_dbrx": "q [2,2048,48,128] k/v [2,2048,8,128] float32, "
+                      "causal (library: is_causal, enable_gqa)"})
+    log(f"timing flash_attention at {fa_entry['shape_dbrx']}: kernel "
+        f"{ms_dbrx!r} ms, bound {bound_dbrx!r} ms ({by_dbrx}), library "
+        f"{library_dbrx!r} ms")
+    del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
     B, S, D = RG_MAIN
@@ -2366,21 +2597,44 @@ def main() -> int:
         serve = phase_plan_service(tmp, trace)
         log(f"phase seconds: 4b {t1 - t0:.1f}, 4c {t2 - t1:.1f}, 4d "
             f"{time.perf_counter() - t2:.1f}")
+    t0 = time.perf_counter()
+    ep_launches = phase_expert_placement()
+    t1 = time.perf_counter()
     errs = phase_model_kernels_vs_plain()
-    prefill = phase_prefill(ARCH, N_PARAMS, PREFILL_B, PREFILL_S,
-                            _expect(flash_attention=12, rglru=26))
-    phase_serve(ARCH, _expect(), _expect(flash_attention=12, rglru=26),
+    log(f"phase seconds: 4e {t1 - t0:.1f}, 5 {time.perf_counter() - t1:.1f}")
+    from repro_torch.configs import get_config
+    prefill = phase_prefill(get_config(ARCH), N_PARAMS, PREFILL_B,
+                            PREFILL_S, _expect(flash_attention=12, rglru=26))
+    phase_serve(get_config(ARCH), _expect(),
+                _expect(flash_attention=12, rglru=26),
                 note=" (its decode computes attention and the recurrence "
                      "inline, as the JAX launcher's does)")
     rwkv_err = phase_rwkv_kernel_vs_plain()
     n_rwkv = RWKV_LAYERS
-    rwkv_prefill = phase_prefill(RWKV_ARCH, RWKV_N_PARAMS, RWKV_PREFILL_B,
-                                 RWKV_PREFILL_S, _expect(rwkv6=n_rwkv))
-    rwkv_serve = phase_serve(RWKV_ARCH, _expect(rwkv6=(32 + 32) * n_rwkv),
+    rwkv_prefill = phase_prefill(get_config(RWKV_ARCH), RWKV_N_PARAMS,
+                                 RWKV_PREFILL_B, RWKV_PREFILL_S,
+                                 _expect(rwkv6=n_rwkv))
+    rwkv_serve = phase_serve(get_config(RWKV_ARCH),
+                             _expect(rwkv6=(32 + 32) * n_rwkv),
                              _expect(rwkv6=n_rwkv),
                              note=" (one per layer and decode step, with "
                                   "the cached state as s0)",
                              reference=rwkv_logits_f64)
+    t0 = time.perf_counter()
+    dbrx = dataclasses.replace(get_config(DBRX_ARCH), n_layers=DBRX_LAYERS)
+    dbrx_prefill = phase_prefill(dbrx, DBRX_PARAMS, DBRX_PREFILL_B,
+                                 DBRX_PREFILL_S,
+                                 _expect(flash_attention=DBRX_LAYERS),
+                                 profile=True)
+    t1 = time.perf_counter()
+    phase_serve(dataclasses.replace(dbrx, capacity_factor=float(
+                    dbrx.n_experts)),
+                _expect(), _expect(flash_attention=DBRX_LAYERS),
+                note=f" ({DBRX_LAYERS} layers, dropless: capacity factor "
+                     f"{dbrx.n_experts}; its decode computes attention "
+                     f"inline and reads every expert's weights)")
+    log(f"phase seconds: 10b {t1 - t0:.1f}, 10c "
+        f"{time.perf_counter() - t1:.1f}")
     t0 = time.perf_counter()
     bwd_errs = phase_backward_kernels_vs_plain()
     t1 = time.perf_counter()
@@ -2402,7 +2656,10 @@ def main() -> int:
     kernels["kernels"][0]["launches_serve"] = serve["launches_serve"]
     kernels["kernels"][0]["launches_incremental"] = \
         serve["launches_incremental"]
+    kernels["kernels"][0]["launches_expert_placement"] = ep_launches
     kernels["kernels"] += phase_model_timing(prefill, errs)
+    kernels["kernels"][1]["launches_dbrx_prefill"] = \
+        dbrx_prefill["launches"]["flash_attention"]
     kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
                                                 rwkv_err))
     kernels["kernels"] += phase_train_timing(train_a, train_b, bwd_errs)

@@ -1,4 +1,4 @@
-"""The model stack: GQA, RG-LRU and RWKV6 blocks, the model as an
+"""The model stack: GQA, RG-LRU, RWKV6 and MoE blocks, the model as an
 `nn.Module` with its loss, and weights (and any params-shaped tree)
 carried across from the JAX package."""
 from .convert import (from_jax_params, from_jax_tree, to_jax_params,

@@ -133,8 +133,8 @@ class GQA:
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1, item 4 (MoE, MLA, "
-        f"the encoder and the vision frontend)")
+        f"{what} is not ported yet: ROADMAP.md queue 1, item 4 (MLA, the "
+        f"encoder and the vision frontend)")
 
 
 class MLA:

@@ -1,5 +1,6 @@
 """The model: a stack of pattern-typed blocks (attn / local / global /
-rec / rwkv) between an embedding and an unembedding.
+rec / rwkv; each attention block with an MLP or, for an MoE config, an
+MoE layer) between an embedding and an unembedding.
 
 The port of `repro.models.model`.  The JAX package stacks
 the layers of each repeat of `cfg.layer_pattern` along a leading axis and
@@ -35,6 +36,7 @@ from ..core.cuda import resolve_device
 from .attention import GQA
 from .layers import (Params, embed, init_embedding, init_mlp,
                      init_rms_norm, mlp, rms_norm, unembed)
+from .moe import MoE
 from .recurrent import RGLRUBlock
 from .rwkv import RWKV6Block
 
@@ -46,12 +48,13 @@ __all__ = ["Model", "init_params", "layer_kinds", "forward", "loss_fn",
 # what this slice runs
 # ---------------------------------------------------------------------- #
 def _check_supported(cfg: ModelConfig) -> None:
-    for present, what in ((cfg.is_moe, "MoE"), (cfg.use_mla, "MLA"),
+    for present, what in ((cfg.use_mla, "MLA"),
                           (cfg.n_encoder_layers, "the encoder"),
                           (cfg.mtp_depth, "the MTP head")):
         if present:
             raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP.md queue 1, item 4")
+                f"{what} is not ported yet, so {cfg.name} does not run: "
+                f"ROADMAP.md queue 1, item 4")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -83,22 +86,30 @@ def _block_init(gen, cfg: ModelConfig, kind: str, dtype) -> dict:
         p["rec"] = RGLRUBlock.init(gen, cfg, dtype)
     else:
         p["attn"] = GQA.init(gen, cfg, dtype)
-    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    if cfg.is_moe:
+        p["moe"] = MoE.init(gen, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
 def _block_apply(p, cfg: ModelConfig, kind: str, h, positions,
                  impl: str = "auto"):
+    """One block, full-sequence.  Returns (h, the MoE aux loss: a float32
+    scalar, None without MoE)."""
     if kind == "rwkv":      # the block carries its own residuals
         return RWKV6Block.apply(p["rwkv"], cfg, rms_norm(p["ln"], h),
-                                impl=impl)
+                                impl=impl), None
     if kind == "rec":
         h = h + RGLRUBlock.apply(p["rec"], cfg, rms_norm(p["ln1"], h),
                                  impl=impl)
     else:
         h = h + GQA.apply(p["attn"], cfg, rms_norm(p["ln1"], h), positions,
                           window=_window_for(cfg, kind), impl=impl)
-    return h + mlp(p["mlp"], rms_norm(p["ln2"], h), cfg.hidden_act)
+    x = rms_norm(p["ln2"], h)
+    if cfg.is_moe:
+        return h + MoE.apply(p["moe"], cfg, x), MoE.aux_loss(p["moe"], cfg, x)
+    return h + mlp(p["mlp"], x, cfg.hidden_act), None
 
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -123,7 +134,10 @@ def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int):
                                     cache, pos,
                                     window=_window_for(cfg, kind))
     h = h + y
-    return h + mlp(p["mlp"], rms_norm(p["ln2"], h), cfg.hidden_act), cache
+    x = rms_norm(p["ln2"], h)
+    if cfg.is_moe:        # each token its own group; no aux in decode
+        return h + MoE.apply(p["moe"], cfg, x), cache
+    return h + mlp(p["mlp"], x, cfg.hidden_act), cache
 
 
 # ---------------------------------------------------------------------- #
@@ -183,7 +197,8 @@ class Model(nn.Module):
 
     def forward(self, batch: dict, impl: str = "auto", remat: bool = False):
         """batch: {"tokens": [B, S]}.  Returns (logits [B, S, V], aux),
-        aux being the MoE auxiliary loss of the JAX package (0 here).
+        aux being the sum of the layers' MoE auxiliary losses (a float32
+        scalar, 0 without MoE).
         With `remat`, each layer is checkpointed: the backward recomputes
         its internals instead of keeping them (the JAX package checkpoints
         each stage of its layer scan)."""
@@ -199,15 +214,18 @@ class Model(nn.Module):
         if cfg.mrope_sections is not None:
             positions = batch.get("mrope_pos",
                                   torch.stack([positions] * 3))
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for kind, p in zip(self.kinds, self.layers):
             if remat and torch.is_grad_enabled():
-                h = checkpoint(_block_apply, p, cfg, kind, h, positions,
-                               impl, use_reentrant=False)
+                h, a = checkpoint(_block_apply, p, cfg, kind, h, positions,
+                                  impl, use_reentrant=False)
             else:
-                h = _block_apply(p, cfg, kind, h, positions, impl=impl)
+                h, a = _block_apply(p, cfg, kind, h, positions, impl=impl)
+            if a is not None:
+                aux = aux + a
         h = rms_norm(self.final_ln, h)
         logits = unembed(self.embed, cfg, h)
-        return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+        return logits, aux
 
 
 # ---------------------------------------------------------------------- #
@@ -223,16 +241,19 @@ def loss_fn(model: Model, batch: dict, impl: str = "auto",
             aux_weight: float = 0.01, mtp_weight: float = 0.3,
             remat: bool = False) -> torch.Tensor:
     """Next-token cross entropy in float32, the mean over the batch's
-    positions 1..S-1.  The JAX package adds the MoE auxiliary loss
-    (`aux_weight`) and the MTP head's loss (`mtp_weight`) for the configs
-    that have them; neither block is ported yet (ROADMAP.md queue 1,
+    positions 1..S-1, plus `aux_weight` times the MoE auxiliary loss for
+    an MoE config.  The JAX package also adds the MTP head's loss
+    (`mtp_weight`); that head is not ported yet (ROADMAP.md queue 1,
     item 4), so such a config raises."""
     _check_supported(model.cfg)
     tokens = batch["tokens"]
-    logits, _ = forward(model, batch, impl=impl, remat=remat)
+    logits, aux = forward(model, batch, impl=impl, remat=remat)
     lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -torch.gather(lp, -1, tokens[:, 1:, None].long())[..., 0]
-    return nll.mean()
+    loss = nll.mean()
+    if model.cfg.is_moe:
+        loss = loss + aux_weight * aux
+    return loss
 
 
 def param_tree(model: Model) -> dict:

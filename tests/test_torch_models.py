@@ -1,12 +1,15 @@
 """The port's serving path against the JAX package's model stack.
 
-Reduced recurrentgemma-9b, gemma2-27b (local/global windows, softcap)
-and rwkv6-7b are built by the JAX package, their weights carried across with
-`repro_torch.models.convert`, and the two packages' `forward` and
-`decode_step` compared on the same tokens: the JAX side with
-`impl="pallas"` (its kernels in interpret mode), the port with
-`impl="cuda"` (its kernel wrappers, which run their plain versions on a
-CPU tensor).  The tests marked `cuda` run the port on the card.
+Reduced recurrentgemma-9b, gemma2-27b (local/global windows, softcap),
+rwkv6-7b and dbrx-132b (MoE: 4 experts, top-2, tokens dropped by
+capacity), and the text models qwen2-vl-2b (M-RoPE, explicit
+`mrope_pos`), gemma-2b and granite-3-2b, are built by the JAX package,
+their weights carried across with `repro_torch.models.convert`, and the
+two packages' `forward` (logits and the MoE aux loss) and `decode_step`
+compared on the same tokens: the JAX side with `impl="pallas"` (its
+kernels in interpret mode), the port with `impl="cuda"` (its kernel
+wrappers, which run their plain versions on a CPU tensor).  The tests
+marked `cuda` run the port on the card.
 """
 import dataclasses
 import types
@@ -28,12 +31,26 @@ from repro_torch.models.attention import GQA  # noqa: E402
 from repro_torch.models.recurrent import RGLRUBlock  # noqa: E402
 from repro_torch.models.rwkv import RWKV6Block  # noqa: E402
 
-SLICE_ARCHS = ["recurrentgemma-9b", "gemma2-27b", "rwkv6-7b"]
+SLICE_ARCHS = ["recurrentgemma-9b", "gemma2-27b", "rwkv6-7b", "dbrx-132b"]
+TEXT_ARCHS = ["qwen2-vl-2b", "gemma-2b", "granite-3-2b"]
 S_FWD = 12
 
 
 def _tokens(vocab, B=2, S=S_FWD, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (B, S))
+
+
+def _inputs(cfg, toks) -> dict:
+    """The forward's batch as numpy arrays: the tokens and, for an M-RoPE
+    config, explicit positions of the three streams [3, B, S] (text
+    positions for t, a 4-wide patch grid for h and w)."""
+    batch = {"tokens": toks}
+    if cfg.mrope_sections is not None:
+        B, S = toks.shape
+        t = np.arange(S)
+        batch["mrope_pos"] = np.broadcast_to(
+            np.stack([t, t // 4, t % 4])[:, None], (3, B, S)).copy()
+    return batch
 
 
 @pytest.fixture(scope="module")
@@ -52,7 +69,8 @@ def jx():
 
 @pytest.fixture(scope="module")
 def setups(jx):
-    """name -> (port model, JAX cfg, JAX params, JAX pallas logits)."""
+    """name -> (port model, JAX cfg, JAX params, JAX pallas logits, JAX
+    aux)."""
     jax, jnp, jmodels = jx.jax, jx.jnp, jx.models
     cache = {}
 
@@ -63,11 +81,12 @@ def setups(jx):
             tree = jax.tree.map(np.asarray, params)
             model = models.from_jax_params(reduced_config(ARCHS[name]),
                                            tree, device="cpu")
-            toks = _tokens(jcfg.vocab_size)
-            logits, _ = jmodels.forward(
-                jcfg, params, {"tokens": jnp.asarray(toks, jnp.int32)},
-                impl="pallas")
-            cache[name] = (model, jcfg, params, np.asarray(logits))
+            batch = _inputs(jcfg, _tokens(jcfg.vocab_size))
+            logits, aux = jmodels.forward(
+                jcfg, params, {k: jnp.asarray(v, jnp.int32)
+                               for k, v in batch.items()}, impl="pallas")
+            cache[name] = (model, jcfg, params, np.asarray(logits),
+                           float(aux))
         return cache[name]
 
     return get
@@ -82,7 +101,17 @@ def cuda_device():
 
 
 def _batch(model, toks, device="cpu"):
-    return {"tokens": torch.as_tensor(toks, device=device)}
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in _inputs(model.cfg, toks).items()}
+
+
+def _dropless(model):
+    """The same weights with a capacity factor of the expert count: a
+    forward that drops no token, which per-token decode matches."""
+    cfg = dataclasses.replace(model.cfg,
+                              capacity_factor=float(model.cfg.n_experts))
+    return models.Model(cfg, device=model.device,
+                        params=models.param_tree(model))
 
 
 def _launches():
@@ -117,7 +146,7 @@ def test_config_registry_is_a_faithful_copy(name, jx):
 @pytest.mark.parametrize("name", SLICE_ARCHS)
 def test_conversion_round_trips_exactly(setups, name, jx):
     jax = jx.jax
-    model, _, params, _ = setups(name)
+    model, _, params, _, _ = setups(name)
     back = models.to_jax_params(model)
     want = jax.tree.map(np.asarray, params)
     assert (jax.tree.structure(back) == jax.tree.structure(want))
@@ -147,22 +176,27 @@ def test_initialiser_builds_the_jax_shapes(name, jx):
 # ---------------------------------------------------------------------- #
 # forward and decode against the JAX package
 # ---------------------------------------------------------------------- #
-@pytest.mark.parametrize("name", SLICE_ARCHS)
+@pytest.mark.parametrize("name", SLICE_ARCHS + TEXT_ARCHS)
 @pytest.mark.parametrize("impl", ["cuda", "auto", "chunked"])
 def test_forward_matches_jax(setups, name, impl):
-    model, jcfg, _, want = setups(name)
+    """Logits to 1e-4 and the MoE aux loss (0 without MoE) to 1e-6
+    relative."""
+    model, jcfg, _, want, want_aux = setups(name)
     before = _launches()
     logits, aux = models.forward(
         model, _batch(model, _tokens(jcfg.vocab_size)), impl=impl)
     assert _launches() == before    # CPU: plain versions
-    assert logits.shape == want.shape and float(aux) == 0.0
+    assert logits.shape == want.shape
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert (want_aux == 0.0) == (not model.cfg.is_moe)
+    assert abs(float(aux) - want_aux) <= 1e-6 * abs(want_aux)
     assert np.abs(logits.numpy() - want).max() < 1e-4
 
 
-@pytest.mark.parametrize("name", SLICE_ARCHS)
+@pytest.mark.parametrize("name", SLICE_ARCHS + TEXT_ARCHS)
 def test_decode_steps_match_jax(setups, name, jx):
     jax, jnp, jmodels = jx.jax, jx.jnp, jx.models
-    model, jcfg, params, _ = setups(name)
+    model, jcfg, params, _, _ = setups(name)
     B, S = 2, 10
     toks = _tokens(jcfg.vocab_size, B=B, S=S, seed=1)
     jstep = jax.jit(lambda c, t, p: jmodels.decode_step(jcfg, params, c, t, p))
@@ -182,14 +216,19 @@ def test_decode_steps_match_jax(setups, name, jx):
                                     ("gemma2-27b", 10),
                                     ("gemma2-27b", 40),
                                     ("rwkv6-7b", 10),
-                                    ("rwkv6-7b", 64)])
+                                    ("rwkv6-7b", 64),
+                                    ("dbrx-132b", 10)])
 def test_decode_matches_forward(setups, name, S):
     """The port's own decode-vs-forward equivalence; gemma2 at S=40
     decodes past its reduced window of 32 through the ring buffer, and
     rwkv6 at S=64 holds decode against a forward that runs the chunked
     form in 8 sub-blocks (auto on the CPU: chunked for the forward, ref
-    for each step)."""
+    for each step).  dbrx runs dropless (capacity factor = E, as the JAX
+    package's own MoE test): decode routes each token as its own group,
+    and matches the forward only where the forward drops nothing."""
     model = setups(name)[0]
+    if model.cfg.is_moe:
+        model = _dropless(model)
     if name == "gemma2-27b" and S > 32:
         assert model.cfg.local_window == 32
     toks = _tokens(model.cfg.vocab_size, B=1, S=S, seed=2)
@@ -253,6 +292,19 @@ def test_launcher_replay_matches_prefill():
     assert float((out["last_logits"] - last).abs().max()) < 1e-4
 
 
+def test_launcher_serves_a_depth_cut_moe_config():
+    """`serve` and `make_prefill_step` take an MoE config cut in depth as
+    chip_smoke.py cuts dbrx-132b (fewer layers, dropless), unchanged."""
+    cfg = reduced_config(get_config("dbrx-132b"))
+    cfg = dataclasses.replace(cfg, n_layers=1,
+                              capacity_factor=float(cfg.n_experts))
+    out = serve_mod.serve(cfg, batch=2, prompt_len=8, gen=4, device="cpu")
+    assert out["generated"].shape == (2, 4)
+    assert out["model"].kinds == ["attn"]
+    last = make_prefill_step(cfg)(out["model"], {"tokens": out["prompts"]})
+    assert float((out["last_logits"] - last).abs().max()) < 1e-4
+
+
 def test_launcher_main_runs_on_the_cpu(capsys):
     serve_mod.main(["--arch", "gemma-2b", "--reduced", "--batch", "2",
                     "--prompt-len", "4", "--gen", "3", "--device", "cpu"])
@@ -280,21 +332,30 @@ def test_rope_and_mrope_match_jax(jx):
         assert np.abs(got.numpy() - np.asarray(want)).max() < 2e-5
 
 
-def test_text_models_outside_the_slice_run_too():
-    """qwen2-vl (M-RoPE, text only) and gemma-2b need no new block."""
-    for name in ("qwen2-vl-2b", "gemma-2b"):
-        cfg = reduced_config(get_config(name))
-        model = models.Model(cfg, device="cpu")
-        toks = torch.as_tensor(_tokens(cfg.vocab_size, S=5))
-        logits, _ = models.forward(model, {"tokens": toks})
-        assert logits.shape == (2, 5, cfg.vocab_size)
-        assert bool(torch.isfinite(logits).all())
+def test_text_models_outside_the_slice_run_too(setups, jx):
+    """qwen2-vl (M-RoPE) with no `mrope_pos`, where both packages give
+    every stream the text positions, against the JAX package; the text
+    models' forward with explicit positions and decode are held by
+    test_forward_matches_jax and test_decode_steps_match_jax."""
+    jnp = jx.jnp
+    model, jcfg, params, _, _ = setups("qwen2-vl-2b")
+    toks = _tokens(jcfg.vocab_size, S=5)
+    want, _ = jx.models.forward(jcfg, params,
+                                {"tokens": jnp.asarray(toks, jnp.int32)},
+                                impl="pallas")
+    logits, _ = models.forward(model, {"tokens": torch.as_tensor(toks)})
+    assert logits.shape == (2, 5, jcfg.vocab_size)
+    assert np.abs(logits.numpy() - np.asarray(want)).max() < 1e-4
 
 
-@pytest.mark.parametrize("name", ["dbrx-132b", "deepseek-v3-671b",
-                                  "seamless-m4t-large-v2"])
-def test_blocks_outside_the_slice_raise(name):
+@pytest.mark.parametrize("name,unset", [
+    ("deepseek-v3-671b", ()), ("seamless-m4t-large-v2", ()),
+    ("deepseek-v3-671b", ("use_mla",))])
+def test_blocks_outside_the_slice_raise(name, unset):
+    """MLA, the encoder, and the MTP head (deepseek-v3 with MLA turned
+    off) raise; MoE runs."""
     cfg = reduced_config(get_config(name))
+    cfg = dataclasses.replace(cfg, **{field: False for field in unset})
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
         models.Model(cfg, device="cpu")
 

@@ -19,7 +19,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.core as T  # noqa: E402
+from repro_torch import models  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.core.cuda import _build, segsum  # noqa: E402
+from repro_torch.core.planner import expert_placement  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -50,6 +53,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.core.cuda.metrics, repro_torch.configs, "
             "repro_torch.kernels, repro_torch.kernels.ops, "
             "repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.models.moe, repro_torch.core.planner, "
             "repro_torch.launch, repro_torch.launch.steps, "
             "repro_torch.launch.serve, repro_torch.optim, "
             "repro_torch.optim.compress, repro_torch.data, "
@@ -101,6 +105,8 @@ def test_no_source_line_imports_repro_or_jax():
         T.vertex_cut(g, 4, device="cpu"), 4),
     lambda g: T.simulate(g, T.vertex_cut(g, 4, device="cpu"),
                          T.round_robin_mapping(4)),
+    lambda g: expert_placement(np.arange(1.0, 9.0), n_devices=4),
+    lambda g: models.Model(reduced_config(get_config("dbrx-132b"))),
 ])
 def test_asking_for_the_card_without_one_raises(call, no_gpu):
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -159,10 +165,10 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_unported_paths_raise_and_name_their_roadmap_item(tmp_path):
-    from repro_torch import models
-    from repro_torch.configs import get_config, reduced_config
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
-        models.Model(reduced_config(get_config("dbrx-132b")), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="MLA .*deepseek-v3-671b.*ROADMAP.md.*item 4"):
+        models.Model(reduced_config(get_config("deepseek-v3-671b")),
+                     device="cpu")
     from repro_torch.trace.__main__ import main as trace_cli
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 5"):
         trace_cli(["record", os.path.join(tmp_path, "r.ndjson")])
@@ -198,12 +204,11 @@ def test_cuda_marker_is_registered():
 
 
 def test_model_stack_asks_for_the_card_and_raises_without_one(no_gpu):
-    from repro_torch import models
-    from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch import serve
     cfg = reduced_config(get_config("recurrentgemma-9b"))
-    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
-        models.Model(cfg)
+    for name in ("recurrentgemma-9b", "dbrx-132b"):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            models.Model(reduced_config(get_config(name)))
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         models.prefill(models.Model(cfg, device="cuda"),
                        {"tokens": torch.zeros((1, 4), dtype=torch.int64)},

@@ -29,10 +29,12 @@ Tolerances:
   step is a sign where the gradient is noise); the two packages' m
   1e-4·max(1, max|m|) of each other.
 """
+import contextlib
 import io
 import sys
 import types
 from contextlib import redirect_stdout
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -58,7 +60,8 @@ from repro_torch.runtime import (ElasticMesh, StragglerDetector,  # noqa: E402
                                  TrainSupervisor)
 
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-LOSS_ARCHS = ["smollm-360m", "recurrentgemma-9b", "gemma2-27b", "rwkv6-7b"]
+LOSS_ARCHS = ["smollm-360m", "recurrentgemma-9b", "gemma2-27b", "rwkv6-7b",
+              "dbrx-132b"]
 
 
 @pytest.fixture(scope="module")
@@ -563,9 +566,29 @@ def test_make_train_step_matches_jax_for_rwkv6(n_micro, accum, carried, jx):
     _train_step_matches_jax("rwkv6-7b", n_micro, accum, carried, jx)
 
 
+def test_make_train_step_matches_jax_for_dbrx(carried, jx):
+    """dbrx-132b reduced: the MoE layer's gradients (the router's through
+    the renormalised top-k probabilities and the aux loss, tokens dropped
+    by capacity) inside the step."""
+    _train_step_matches_jax("dbrx-132b", 2, "float32", carried, jx)
+
+
 def _f64(tree, jx):
     return jx.jax.tree.map(
         lambda p: jx.jnp.asarray(np.asarray(p, np.float64)), tree)
+
+
+def _float32_aux(jx, jcfg):
+    """Under x64 the JAX package's MoE aux loss comes out float64 (its
+    `one_hot` takes the default float type), which its layer scan's
+    float32 carry refuses; cast it to the float32 it has in the package's
+    own runs.  Its router softmax is float32 in either mode."""
+    if not jcfg.is_moe:
+        return contextlib.nullcontext()
+    moe = jx.models.moe.MoE
+    aux_loss = moe.aux_loss
+    return mock.patch.object(moe, "aux_loss", staticmethod(
+        lambda p, cfg, x: aux_loss(p, cfg, x).astype(jx.jnp.float32)))
 
 
 def _exact_step(jx, jcfg, jopt_cfg, jpar, accum, params, opt, toks):
@@ -575,7 +598,7 @@ def _exact_step(jx, jcfg, jopt_cfg, jpar, accum, params, opt, toks):
     The JAX package's step, un-jitted under x64, the accumulator float64
     (bfloat16 for a bfloat16 accumulator, whose rounding is part of the
     step)."""
-    with jx.jax.enable_x64(True):
+    with jx.jax.enable_x64(True), _float32_aux(jx, jcfg):
         acc = jx.jnp.bfloat16 if accum == "bfloat16" else jx.jnp.float64
         step = jx.steps.make_train_step(jcfg, jopt_cfg, jpar,
                                         accum_dtype=acc)
