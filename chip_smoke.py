@@ -72,6 +72,10 @@ Phases, each reported on its own line(s):
    on 2), at the serving shape (B=2, S=3072, 16 heads, 1 kv head,
    head_dim 256, causal, window 2048) and at dbrx-132b's prefill shape
    (B=2, S=2048, 48 heads on 8, head_dim 128, causal; float32 and
+   bfloat16), and at MLA's head dims, q/k 192 and v 128, with
+   independent q, k and v (B=2, S=77, 8 heads on 8 kv heads causal and
+   not causal, with a window of 32, and on 2 kv heads; deepseek-v3's
+   prefill shape, B=2, S=2048, 128 heads, causal; each in float32 and
    bfloat16) against its plain version (float32
    2e-5, bfloat16 2e-2); the RG-LRU scan at the serving shape (B=2,
    S=3072, D=4096) and on layouts that stress its ring (D of 33, 96 and
@@ -116,6 +120,20 @@ Phases, each reported on its own line(s):
    computes attention inline), 4 in the comparison prefill; the replay
    within 1e-3 of the prefill, with the router's top-k margins and any
    token the two route differently logged;
+10d. deepseek-v3-671b prefill path, after dbrx is freed: full
+   width cut to 1 of its 61 layers and without the MTP head
+   (13,360,651,264 float32 parameters from a seeded generator; MLA with
+   q/k head dim 192 and v 128), `make_prefill_step` on 2 prompts of
+   2,048 tokens at the config's capacity factor 1.25, exactly 1
+   flash-attention launch (the kernel's (192, 128) instantiation) and no
+   other kernel, finite logits, a second run with the same bits, a third
+   under `torch.profiler`;
+10e. deepseek-v3-671b serving path: the launcher at its defaults on the
+   same cut, dropless (capacity factor n_experts / experts_per_token =
+   32, the smallest that drops nothing); no launch in the launcher (the
+   absorbed MLA decode computes attention inline), 1 in the comparison
+   prefill; the replay within 1e-3 of the prefill, with the router's
+   smallest top-k margin logged;
 11. timing: each kernel and, where one exists, one PyTorch call
    computing the same function (timed only, as a yardstick) on the
    card's clock (CUDA events after a sleep that lets the host queue
@@ -123,12 +141,14 @@ Phases, each reported on its own line(s):
    main paths' largest shapes, with RG-LRU also timed with h0 (`ms_h0`)
    and RWKV6 also at its decode shape with s0 (`ms_decode`, the launch
    the launcher makes 2,048 times; flash attention also at dbrx-132b's
-   shape as `ms_dbrx`, beside its bound and SDPA's time); then one JSON
+   shape as `ms_dbrx`, and at deepseek-v3's MLA prefill shape as
+   `ms_mla`, each beside its bound and SDPA's time); then one JSON
    line `{"kernels": [...]}` with all four kernels (flash attention's
    bound on the tensor cores, and on the CUDA cores as
-   `bound_cuda_core_ms`; the dbrx prefill's and the expert placements'
-   launches as `launches_dbrx_prefill` and
-   `launches_expert_placement`), and the three
+   `bound_cuda_core_ms`; the dbrx and deepseek-v3 prefills' and the
+   expert placements' launches as `launches_dbrx_prefill`,
+   `launches_deepseek_prefill` and `launches_expert_placement`), and the
+   three
    backward kernels (flash attention's at path A's layer shape and, as
    `ms_path_b` beside its `bound_path_b_ms` and SDPA's backward
    `library_path_b_ms`, at path B's, with the 1.5 ms
@@ -278,6 +298,32 @@ DBRX_ARCH, DBRX_LAYERS, DBRX_PARAMS = "dbrx-132b", 4, 14_269_470_720
 DBRX_PREFILL_B, DBRX_PREFILL_S = 2, 2048
 FA_DBRX = (DBRX_PREFILL_B, DBRX_PREFILL_S, DBRX_PREFILL_S, 48, 8, 128, True,
            None, None, "float32")
+# deepseek-v3-671b: full width (d 7,168, 128 heads; MLA with a q
+# LoRA of rank 1,536, a kv latent of 512, q/k head dim 128 + 64 and v
+# 128; 256 routed experts of d_ff 2,048, top 8, one shared; vocab
+# 129,280) cut to 1 of its 61 layers and without the MTP head (which
+# `forward`, `prefill` and `decode_step` never read): one MoE layer is
+# 11.5 B parameters, 11.27 B of them the routed experts, so 1 layer with
+# the embeddings is 53.44 GB and the head's block would add 46 GB.  The
+# prefill runs at the config's capacity factor 1.25, the launcher
+# dropless at n_experts / experts_per_token = 32: then C = S, and no
+# expert can receive more than S tokens of a group (a token's k experts
+# are distinct); `n_experts` would allocate 8x the buffers.
+DSV3_ARCH, DSV3_LAYERS, DSV3_PARAMS = "deepseek-v3-671b", 1, 13_360_651_264
+DSV3_PREFILL_B, DSV3_PREFILL_S = 2, 2048
+# MLA's attention: q and k of head dim dn + dr = 192, v of 128.  A case's
+# D is then the pair (Dqk, Dv).  Small cases (a GQA group of 4 catches a
+# stride that mixes q's and k's heads with v's), then deepseek-v3's
+# prefill shape
+MLA_D = (192, 128)
+FA_MLA = (DSV3_PREFILL_B, DSV3_PREFILL_S, DSV3_PREFILL_S, 128, 128, MLA_D,
+          True, None, None, "float32")
+FA_MLA_CASES = [
+    (2, 77, 77, 8, Hkv, MLA_D, causal, window, None, dt)
+    for dt in ("float32", "bfloat16")
+    for Hkv, causal, window in ((8, True, None), (8, False, None),
+                                (8, True, 32), (2, True, None))
+] + [FA_MLA, FA_MLA[:9] + ("bfloat16",)]
 # expert placement: benchmarks/expert_placement.py's two inputs,
 # (label, experts, top k, devices)
 EP_ROUTING = (("deepseek-v3", 256, 8, 16), ("dbrx", 16, 4, 8))
@@ -1103,13 +1149,20 @@ def phase_expert_placement() -> dict:
 # ---------------------------------------------------------------------- #
 # 5. the model kernels against their plain versions
 # ---------------------------------------------------------------------- #
+def _head_dims(D) -> tuple[int, int]:
+    """(Dqk, Dv) of a case's D: an int, or MLA's pair."""
+    return D if isinstance(D, tuple) else (D, D)
+
+
 def _fa_inputs(case, seed: int = 0):
+    """Independent normal q, k and v of a case."""
     B, Sq, Sk, Hq, Hkv, D, _, _, _, dt = case
+    Dqk, Dv = _head_dims(D)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dtype = getattr(torch, dt)
     return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
-                 for shape in ((B, Sq, Hq, D), (B, Sk, Hkv, D),
-                               (B, Sk, Hkv, D)))
+                 for shape in ((B, Sq, Hq, Dqk), (B, Sk, Hkv, Dqk),
+                               (B, Sk, Hkv, Dv)))
 
 
 def _rg_inputs(B: int, S: int, D: int, seed: int = 0,
@@ -1147,25 +1200,32 @@ def _rg_check(x, a, h0, what: str) -> float:
 def phase_model_kernels_vs_plain() -> dict:
     from repro_torch.kernels import flash_attention as fa
     worst = {}
-    for case in FA_CASES + [FA_MAIN, FA_DBRX, FA_DBRX[:9] + ("bfloat16",)]:
+    for case in FA_CASES + [FA_MAIN, FA_DBRX, FA_DBRX[:9] + ("bfloat16",)] \
+            + FA_MLA_CASES:
+        if case is FA_MLA_CASES[0]:
+            t_mla = time.perf_counter()
         causal, window, cap, dt = case[6:]
         q, k, v = _fa_inputs(case)
+        # the default scale, Dqk ** -0.5, is MLA's (dn + dr) ** -0.5
         got = fa.flash_attention(q, k, v, causal=causal, window=window,
                                  softcap=cap)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, softcap=cap)
-        check(got.dtype == q.dtype and got.shape == q.shape,
-              f"flash attention {case}: dtype or shape")
+        check(got.dtype == q.dtype and got.shape == q.shape[:3]
+              + v.shape[3:], f"flash attention {case}: dtype or shape")
         err = float((got.float() - want.float()).abs().max())
         check(err <= FA_TOL[dt], f"flash attention {case}: error {err!r}")
         if case is FA_MAIN:
             worst["flash_attention"] = err
         if case is FA_DBRX:
             worst["flash_attention_dbrx"] = err
+        if case is FA_MLA:
+            worst["flash_attention_mla"] = err
         log(f"kernel flash_attention {case}: max abs error {err!r} "
             f"(tolerance {FA_TOL[dt]})")
         del q, k, v, got, want
+    log(f"phase seconds: 5's MLA cases {time.perf_counter() - t_mla:.1f}")
     for B, S, D, dt in RG_CASES:
         for offset in ((0, 1) if (B, S, D) == RG_MAIN else (0,)):
             x, a, h0 = _rg_inputs(B, S, D, dtype=getattr(torch, dt),
@@ -2179,12 +2239,14 @@ def phase_timing(runs: dict, max_abs_err: float) -> dict:
 # ---------------------------------------------------------------------- #
 def _fa_bound(case) -> tuple[float, str, float]:
     """Least time for one flash attention call: its unmasked (query, key)
-    pairs at 4*D operations each on the tensor cores (float32 as three
-    TF32 products, the split that meets the float32 tolerance; bf16 at the
-    bf16 rate), against q, k, v read once and the output written once over
-    the memory rate.  Also the operations' time on the CUDA cores' float32
-    peak, the bound of the kernel's first, CUDA-core design."""
+    pairs at 2*(Dqk + Dv) operations each (4*D at equal head dims) on the
+    tensor cores (float32 as three TF32 products, the split that meets the
+    float32 tolerance; bf16 at the bf16 rate), against q, k, v read once
+    and the output written once over the memory rate.  Also the
+    operations' time on the CUDA cores' float32 peak, the bound of the
+    kernel's first, CUDA-core design."""
     B, Sq, Sk, Hq, Hkv, D, causal, window, _, dt = case
+    Dqk, Dv = _head_dims(D)
     pos = np.arange(Sq)[:, None]
     kp = np.arange(Sk)[None, :]
     ok = np.ones((Sq, Sk), bool)
@@ -2194,8 +2256,8 @@ def _fa_bound(case) -> tuple[float, str, float]:
         ok &= kp > pos - window
     pairs = int(ok.sum()) * B * Hq
     size = torch.tensor([], dtype=getattr(torch, dt)).element_size()
-    nbytes = size * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
-    ops = 4 * D * pairs
+    nbytes = size * (B * Sq * Hq + B * Sk * Hkv) * (Dqk + Dv)
+    ops = 2 * (Dqk + Dv) * pairs
     t_ops = (3 * ops / PEAK_TF32_OPS_PER_S if dt == "float32"
              else ops / PEAK_BF16_OPS_PER_S) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -2256,6 +2318,26 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
     log(f"timing flash_attention at {fa_entry['shape_dbrx']}: kernel "
         f"{ms_dbrx!r} ms, bound {bound_dbrx!r} ms ({by_dbrx}), library "
         f"{library_dbrx!r} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    # deepseek-v3's MLA prefill shape: q/k head dim 192, v 128
+    q, k, v = _fa_inputs(FA_MLA)
+    ms_mla = _cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                      reps=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_mla = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=10)
+    bound_mla, by_mla, cuda_core_mla = _fa_bound(FA_MLA)
+    fa_entry.update({
+        "ms_mla": ms_mla, "bound_mla_ms": bound_mla,
+        "bound_mla_by": by_mla, "bound_mla_cuda_core_ms": cuda_core_mla,
+        "library_mla_ms": library_mla,
+        "max_abs_err_mla": errs["flash_attention_mla"],
+        "shape_mla": "q/k [2,2048,128,192] v [2,2048,128,128] float32, "
+                     "causal (library: is_causal)"})
+    log(f"timing flash_attention at {fa_entry['shape_mla']}: kernel "
+        f"{ms_mla!r} ms, bound {bound_mla!r} ms ({by_mla}; on the CUDA "
+        f"cores {cuda_core_mla!r}), library {library_mla!r} ms")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
@@ -2636,6 +2718,23 @@ def main() -> int:
     log(f"phase seconds: 10b {t1 - t0:.1f}, 10c "
         f"{time.perf_counter() - t1:.1f}")
     t0 = time.perf_counter()
+    dsv3 = dataclasses.replace(get_config(DSV3_ARCH), n_layers=DSV3_LAYERS,
+                               mtp_depth=0)
+    dsv3_prefill = phase_prefill(dsv3, DSV3_PARAMS, DSV3_PREFILL_B,
+                                 DSV3_PREFILL_S,
+                                 _expect(flash_attention=DSV3_LAYERS),
+                                 profile=True)
+    t1 = time.perf_counter()
+    dropless = dsv3.n_experts / dsv3.experts_per_token
+    phase_serve(dataclasses.replace(dsv3, capacity_factor=dropless),
+                _expect(), _expect(flash_attention=DSV3_LAYERS),
+                note=f" ({DSV3_LAYERS} layer, no MTP head, dropless: "
+                     f"capacity factor {dropless}; its absorbed MLA decode "
+                     f"computes attention inline in the latent space and "
+                     f"reads every expert's weights)")
+    log(f"phase seconds: 10d {t1 - t0:.1f}, 10e "
+        f"{time.perf_counter() - t1:.1f}")
+    t0 = time.perf_counter()
     bwd_errs = phase_backward_kernels_vs_plain()
     t1 = time.perf_counter()
     rwkv_bwd_err = phase_rwkv_backward_vs_plain()
@@ -2660,6 +2759,8 @@ def main() -> int:
     kernels["kernels"] += phase_model_timing(prefill, errs)
     kernels["kernels"][1]["launches_dbrx_prefill"] = \
         dbrx_prefill["launches"]["flash_attention"]
+    kernels["kernels"][1]["launches_deepseek_prefill"] = \
+        dsv3_prefill["launches"]["flash_attention"]
     kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
                                                 rwkv_err))
     kernels["kernels"] += phase_train_timing(train_a, train_b, bwd_errs)

@@ -126,12 +126,12 @@ def load_library() -> ctypes.CDLL:
         signatures = {
             # data, ids, m, out, num_segments, scratch, stream
             ("segsum_f64", "segsum_i64"): [vp, vp, i64, vp, i64, vp, vp],
-            # q, k, v, out, lse (may be null), B, Sq, Sk, Hq, Hkv, D,
+            # q, k, v, out, lse (may be null), B, Sq, Sk, Hq, Hkv, Dqk, Dv,
             # causal, has_window, window, has_softcap, softcap, scale,
             # q_offset, stream
             ("flash_attention_f32", "flash_attention_bf16"):
-                [vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i32, i32,
-                 i64, i32, f32, f32, i64, vp],
+                [vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i64, i32,
+                 i32, i64, i32, f32, f32, i64, vp],
             # q, k, v, out, dout, lse, delta (scratch), dq, dk, dv, B, Sq,
             # Sk, Hq, Hkv, D, causal, has_window, window, has_softcap,
             # softcap, scale, q_offset, stream

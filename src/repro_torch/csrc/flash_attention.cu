@@ -4,9 +4,10 @@
 // Replaces the TPU kernel `_fa_kernel` of the JAX package
 // (src/repro/kernels/flash_attention.py:29, launched at :120).
 //
-// What it computes: for q [B, Sq, Hq, D] and k, v [B, Sk, Hkv, D] (the JAX
-// package's layout, read in place with row strides Hq*D and Hkv*D; nothing
-// is repeated or transposed in device memory),
+// What it computes: for q [B, Sq, Hq, Dqk], k [B, Sk, Hkv, Dqk] and
+// v [B, Sk, Hkv, Dv] (the JAX package's layout, read in place with row
+// strides Hq*Dqk, Hkv*Dqk and Hkv*Dv; nothing is repeated or transposed in
+// device memory), out [B, Sq, Hq, Dv] with
 // out[b, i, h] = softmax_j(s_ij) . v[b, j, h']
 // with h' = h / (Hq / Hkv) (GQA), s_ij = (q_i . k_j) * scale, then the
 // optional tanh softcap s = tanh(s / cap) * cap, then the mask: j < Sk,
@@ -21,8 +22,9 @@
 // zeros (0 * garbage would be NaN).  float32 or bfloat16 in, float32
 // inside, out in the input's type.
 //
-// Bound.  Every unmasked (query, key) pair costs 4*D operations (two
-// products of length D).  On the tensor cores that is, at the serving
+// Bound.  Every unmasked (query, key) pair costs 2*(Dqk + Dv) operations
+// (4*D when the two are equal: a product of length Dqk and one of length
+// Dv).  On the tensor cores that is, at the serving
 // shape (B=2, S=3072, 16 heads, 1 kv head, head_dim 256, window 2048),
 // 1.4e11 operations; float32 needs three TF32 products for each (below),
 // so 4.1e11 over 495 TFLOP/s = 0.83 ms.  On the CUDA cores (the previous
@@ -79,6 +81,15 @@
 //   with 32-key tiles (one per scheduler), which in turn beat 2 warps.
 //   The loop over head_dim that forms S is unrolled 8 times: faster than
 //   2 or 4 in the same sweep, level with 32 at fewer registers.
+// - Two head dims.  Everything the block reads of q and k (their tiles,
+//   row pitch and strides, the loop that forms S) is sized by Dqk, and
+//   everything of v and the output (the V tile, the accumulator, the
+//   store) by Dv.  The instantiations are (D, D) for D in 16, 32, 64,
+//   128 and 256, and (192, 128), MLA's (DeepSeek-V3: a 128-wide latent
+//   part and a 64-wide rotary part in q and k, 128 in v).  At (192, 128)
+//   a block takes 144,896 bytes of shared memory in float32 (Q 102,400,
+//   two K/V stages of 12,800 + 8,448) and 75,264 in bfloat16, so one
+//   block of 8 warps an SM, as at 256; the accumulator is 64 registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -Xcompiler -fPIC -c, then linked -shared (see
@@ -92,10 +103,10 @@ constexpr int kBlockQ = 16 * kWarps;    // q rows per block
 constexpr int kThreads = 32 * kWarps;
 
 // Shared-memory layout of one block (elements of T).
-template <typename T, int D>
+template <typename T, int Dqk, int Dv>
 struct Tiles {
-    static constexpr int kLdQK = D + 32 / static_cast<int>(sizeof(T));
-    static constexpr int kLdV = D + 16 / static_cast<int>(sizeof(T));
+    static constexpr int kLdQK = Dqk + 32 / static_cast<int>(sizeof(T));
+    static constexpr int kLdV = Dv + 16 / static_cast<int>(sizeof(T));
     static constexpr int kQ = kBlockQ * kLdQK;
     static constexpr int kK = kBlockK * kLdQK;
     static constexpr int kStage = kK + kBlockK * kLdV;   // one K and one V
@@ -104,7 +115,7 @@ struct Tiles {
 };
 
 
-template <typename T, int D>
+template <typename T, int Dqk, int Dv>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
@@ -112,7 +123,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
           int64_t Sk, int Hq, int Hkv, int causal, int has_window,
           int64_t window, int has_softcap, float softcap, float scale,
           int64_t q_offset) {
-    using L = Tiles<T, D>;
+    using L = Tiles<T, Dqk, Dv>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* qs = reinterpret_cast<T*>(smem_raw);
     T* stages = qs + L::kQ;
@@ -127,12 +138,15 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = blockIdx.y;
     const int64_t b = blockIdx.z;
     const int hk = h / (Hq / Hkv);
-    const int64_t q_stride = static_cast<int64_t>(Hq) * D;   // per position
-    const int64_t kv_stride = static_cast<int64_t>(Hkv) * D;
-    const T* qb = q + (b * Sq * Hq + h) * D;
-    const T* kb = k + (b * Sk * Hkv + hk) * D;
-    const T* vb = v + (b * Sk * Hkv + hk) * D;
-    T* ob = out + (b * Sq * Hq + h) * D;
+    // per position: q and k rows are Dqk wide, v and out rows Dv
+    const int64_t q_stride = static_cast<int64_t>(Hq) * Dqk;
+    const int64_t k_stride = static_cast<int64_t>(Hkv) * Dqk;
+    const int64_t v_stride = static_cast<int64_t>(Hkv) * Dv;
+    const int64_t o_stride = static_cast<int64_t>(Hq) * Dv;
+    const T* qb = q + (b * Sq * Hq + h) * Dqk;
+    const T* kb = k + (b * Sk * Hkv + hk) * Dqk;
+    const T* vb = v + (b * Sk * Hkv + hk) * Dv;
+    T* ob = out + (b * Sq * Hq + h) * Dv;
 
     // the k tiles this q tile can see
     const int64_t rows = (Sq - q0 < kBlockQ) ? (Sq - q0) : kBlockQ;
@@ -149,23 +163,23 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t t_begin = k_begin / kBlockK;
     const int64_t t_end = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
 
-    load_rows<T, D, kBlockQ, L::kLdQK, kThreads>(qs, qb, q_stride, q0,
-                                                 Sq);
+    load_rows<T, Dqk, kBlockQ, L::kLdQK, kThreads>(qs, qb, q_stride, q0,
+                                                   Sq);
     if (t_begin < t_end) {
         const int64_t k0 = t_begin * kBlockK;
-        load_rows<T, D, kBlockK, L::kLdQK, kThreads>(stages, kb, kv_stride,
-                                                     k0, Sk);
-        load_rows<T, D, kBlockK, L::kLdV, kThreads>(stages + L::kK, vb,
-                                                    kv_stride, k0, Sk);
+        load_rows<T, Dqk, kBlockK, L::kLdQK, kThreads>(stages, kb, k_stride,
+                                                       k0, Sk);
+        load_rows<T, Dv, kBlockK, L::kLdV, kThreads>(stages + L::kK, vb,
+                                                     v_stride, k0, Sk);
     }
     cp_async_commit();
 
     // this thread's rows of the tile: r_lo = 16*warp + g and r_lo + 8
     const int64_t wpos_lo = pos_lo + 16 * warp;   // the warp's first row
     const int64_t my_pos[2] = {wpos_lo + g, wpos_lo + g + 8};
-    float o[D / 8][4];
+    float o[Dv / 8][4];
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < Dv / 8; ++c) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             o[c][e] = 0.f;
@@ -183,15 +197,15 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();   // tile kt is in; every warp is done with kt-1
         if (kt + 1 < t_end) {   // tile kt+1 loads while kt is computed
             T* nxt = stages + ((kt + 1 - t_begin) & 1) * L::kStage;
-            load_rows<T, D, kBlockK, L::kLdQK, kThreads>(
-                nxt, kb, kv_stride, k0 + kBlockK, Sk);
-            load_rows<T, D, kBlockK, L::kLdV, kThreads>(
-                nxt + L::kK, vb, kv_stride, k0 + kBlockK, Sk);
+            load_rows<T, Dqk, kBlockK, L::kLdQK, kThreads>(
+                nxt, kb, k_stride, k0 + kBlockK, Sk);
+            load_rows<T, Dv, kBlockK, L::kLdV, kThreads>(
+                nxt + L::kK, vb, v_stride, k0 + kBlockK, Sk);
             cp_async_commit();
         }
 
         float s[kBlockK / 8][4];
-        Mma<T>::template scores<D, L::kLdQK>(qw, ks, g, t, s);
+        Mma<T>::template scores<Dqk, L::kLdQK>(qw, ks, g, t, s);
 
         // scale, softcap and mask; a tile inside the band for every row
         // of the warp needs no position tests
@@ -248,13 +262,13 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
             l[r] = alpha * l[r] + sum;
             m[r] = m_new;
 #pragma unroll
-            for (int c = 0; c < D / 8; ++c) {
+            for (int c = 0; c < Dv / 8; ++c) {
                 o[c][2 * r] *= alpha;
                 o[c][2 * r + 1] *= alpha;
             }
         }
 
-        Mma<T>::template pv<D, L::kLdV>(s, vs, g, t, o);
+        Mma<T>::template pv<Dv, L::kLdV>(s, vs, g, t, o);
     }
     cp_async_wait_all();   // no copy outlives the block (no k tile: Q's)
 
@@ -270,9 +284,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         if (row < Sq) {
             const float denom = (l[r] == 0.f) ? 1.f : l[r];
-            T* dst = ob + row * q_stride + 4 * t;
+            T* dst = ob + row * o_stride + 4 * t;
 #pragma unroll
-            for (int c = 0; c < D / 16; ++c) {
+            for (int c = 0; c < Dv / 16; ++c) {
                 store4<T>(dst + 16 * c, o[2 * c][2 * r] / denom,
                           o[2 * c + 1][2 * r] / denom,
                           o[2 * c][2 * r + 1] / denom,
@@ -282,22 +296,24 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int D>
+template <typename T, int Dqk, int Dv>
 int launch(const T* q, const T* k, const T* v, T* out, float* lse, int64_t B,
            int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int causal,
            int has_window,
            int64_t window, int has_softcap, float softcap, float scale,
            int64_t q_offset, void* stream) {
-    const int smem = Tiles<T, D>::kBytes;
+    const int smem = Tiles<T, Dqk, Dv>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
-        fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fa_kernel<T, Dqk, Dv>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) {   // returned here, so cleared for later calls
         cudaGetLastError();
         return static_cast<int>(err);
     }
     const dim3 grid(static_cast<unsigned>((Sq + kBlockQ - 1) / kBlockQ),
                     static_cast<unsigned>(Hq), static_cast<unsigned>(B));
-    fa_kernel<T, D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    fa_kernel<T, Dqk, Dv><<<grid, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
         q, k, v, out, lse, Sq, Sk, static_cast<int>(Hq),
         static_cast<int>(Hkv), causal, has_window, window, has_softcap,
         softcap, scale, q_offset);
@@ -306,19 +322,28 @@ int launch(const T* q, const T* k, const T* v, T* out, float* lse, int64_t B,
 
 template <typename T>
 int dispatch(const T* q, const T* k, const T* v, T* out, float* lse, int64_t B,
-             int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int64_t D,
-             int causal, int has_window, int64_t window, int has_softcap,
-             float softcap, float scale, int64_t q_offset, void* stream) {
+             int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int64_t Dqk,
+             int64_t Dv, int causal, int has_window, int64_t window,
+             int has_softcap, float softcap, float scale, int64_t q_offset,
+             void* stream) {
     if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
         Hq > 65535 || B > 65535) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (Dqk == 192 && Dv == 128) {   // MLA
+        return launch<T, 192, 128>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
+                                   causal, has_window, window, has_softcap,
+                                   softcap, scale, q_offset, stream);
+    }
+    if (Dqk != Dv) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
 #define REPRO_FA_CASE(DIM)                                                    \
     case DIM:                                                                 \
-        return launch<T, DIM>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, \
-                              has_window, window, has_softcap, softcap,      \
-                              scale, q_offset, stream);
-    switch (D) {
+        return launch<T, DIM, DIM>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,    \
+                                   causal, has_window, window, has_softcap,  \
+                                   softcap, scale, q_offset, stream);
+    switch (Dqk) {
         REPRO_FA_CASE(16)
         REPRO_FA_CASE(32)
         REPRO_FA_CASE(64)
@@ -335,32 +360,35 @@ int dispatch(const T* q, const T* k, const T* v, T* out, float* lse, int64_t B,
 extern "C" {
 
 // Each entry launches on `stream` without synchronising and returns a CUDA
-// error code: 0 when the launch was accepted.  head_dim must be 16, 32,
-// 64, 128 or 256; q, k, v and out 16-byte aligned.  lse may be null; when
+// error code: 0 when the launch was accepted.  q and k have head dim Dqk,
+// v and out Dv; (Dqk, Dv) must be (D, D) with D 16, 32, 64, 128 or 256, or
+// (192, 128); q, k, v and out 16-byte aligned.  lse may be null; when
 // given, it receives each row's log-sum-exp [B, Hq, Sq] (float32) for the
 // backward (flash_attention_bwd.cu), and `out` is the same either way.
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* out, float* lse, int64_t B, int64_t Sq,
-                        int64_t Sk, int64_t Hq, int64_t Hkv, int64_t D,
-                        int causal,
+                        int64_t Sk, int64_t Hq, int64_t Hkv, int64_t Dqk,
+                        int64_t Dv, int causal,
                         int has_window, int64_t window, int has_softcap,
                         float softcap, float scale, int64_t q_offset,
                         void* stream) {
-    return dispatch<float>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal,
-                           has_window, window, has_softcap, softcap, scale,
-                           q_offset, stream);
+    return dispatch<float>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, Dqk, Dv,
+                           causal, has_window, window, has_softcap, softcap,
+                           scale, q_offset, stream);
 }
 
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                          const __nv_bfloat16* v, __nv_bfloat16* out,
                          float* lse, int64_t B, int64_t Sq, int64_t Sk,
-                         int64_t Hq, int64_t Hkv, int64_t D, int causal,
+                         int64_t Hq, int64_t Hkv, int64_t Dqk, int64_t Dv,
+                         int causal,
                          int has_window,
                          int64_t window, int has_softcap, float softcap,
                          float scale, int64_t q_offset, void* stream) {
-    return dispatch<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D,
-                                   causal, has_window, window, has_softcap,
-                                   softcap, scale, q_offset, stream);
+    return dispatch<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
+                                   Dqk, Dv, causal, has_window, window,
+                                   has_softcap, softcap, scale, q_offset,
+                                   stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """Flash attention: the CUDA kernels' wrapper and their plain versions.
 
-`flash_attention` takes the JAX package's layout, q [B, Sq, Hq, D] and
-k/v [B, Sk, Hkv, D], and returns [B, Sq, Hq, D] in q's dtype.  On a CUDA
+`flash_attention` takes the JAX package's layout, q [B, Sq, Hq, Dqk],
+k [B, Sk, Hkv, Dqk] and v [B, Sk, Hkv, Dv], and returns [B, Sq, Hq, Dv]
+in q's dtype (Dv is Dqk but for MLA, whose q and k have 192 columns and
+v 128).  On a CUDA
 tensor it launches the hand-written kernel `csrc/flash_attention.cu`,
 which replaces the Pallas kernel `_fa_kernel` of
 `repro.kernels.flash_attention`; on a CPU tensor it runs the plain
@@ -23,8 +25,11 @@ with bulk copies.  It needs no scratch beyond the [B, Hq, Sq] float32
 dO.O, uses no atomics, and two calls give the same bits.
 
 What the kernels take: float32 or bfloat16, q, k and v of one dtype, on
-one card, contiguous and 16-byte aligned, with D one of `HEAD_DIMS` and
-Hq a multiple of Hkv.  They support the causal mask, a sliding window
+one card, contiguous and 16-byte aligned, with (Dqk, Dv) one of
+`HEAD_DIM_PAIRS` and Hq a multiple of Hkv.  The backward takes only
+Dqk == Dv: a gradient request at (192, 128) on the card raises
+NotImplementedError when the forward is called (ROADMAP.md queue 2, row
+2c).  They support the causal mask, a sliding window
 (`k_pos > q_pos - window`), a tanh logit softcap, GQA (head h reads kv
 head h // (Hq // Hkv)) and a static `q_offset` (the absolute position of
 q[:, 0]).  The gradients come back in the inputs' dtype; a row that the
@@ -43,12 +48,14 @@ from ..core.cuda import _build
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_plain",
-           "flash_attention_bwd_plain", "HEAD_DIMS"]
+           "flash_attention_bwd_plain", "HEAD_DIMS", "HEAD_DIM_PAIRS"]
 
 launches = 0
 launches_bwd = 0
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' equal-D instantiations
+# the forward kernel's (Dqk, Dv) instantiations: (D, D), and MLA's
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
@@ -79,7 +86,8 @@ def _check(q, k, v, window, q_offset) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be 4-D [B, S, H, D]")
     B, _, Hq, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B
+            or k.shape[3] != D):
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if Hq % k.shape[2]:
@@ -107,15 +115,15 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset,
         raise TypeError(f"the kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, "
-                         f"not {D}")
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (D, Dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"the kernel takes (Dqk, Dv) in {HEAD_DIM_PAIRS}, "
+                         f"not {(D, Dv)}")
     for t in (q, k, v):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("q, k and v must be contiguous and 16-byte "
                              "aligned")
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, Hq, Dv))
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
@@ -127,7 +135,7 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if lse is not None else None,
-                B, Sq, Sk, Hq, Hkv, D, int(causal),
+                B, Sq, Sk, Hq, Hkv, D, Dv, int(causal),
                 int(window is not None), window or 0,
                 int(softcap is not None), float(softcap or 0.0), scale,
                 q_offset, stream)
@@ -193,11 +201,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float | None = None,
                     scale: float | None = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D].
+    """q [B, Sq, Hq, Dqk], k [B, Sk, Hkv, Dqk], v [B, Sk, Hkv, Dv] ->
+    [B, Sq, Hq, Dv].
 
-    Scale defaults to D ** -0.5.  The kernel's output on a CUDA tensor
-    (differentiable through the backward kernels), the plain version's on
-    a CPU tensor.
+    Scale defaults to Dqk ** -0.5.  The kernel's output on a CUDA tensor
+    (differentiable through the backward kernels where Dqk == Dv), the
+    plain version's on a CPU tensor.
     """
     _check(q, k, v, window, q_offset)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
@@ -206,6 +215,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      softcap=softcap, scale=scale,
                                      q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.shape[3] != v.shape[3]:
+            raise NotImplementedError(
+                f"the flash-attention backward kernel takes no value head "
+                f"dim apart from the query's (Dqk {q.shape[3]}, Dv "
+                f"{v.shape[3]}): ROADMAP.md queue 2, row 2c")
         return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
                                      q_offset)
     return _launch(q, k, v, causal, window, softcap, scale, q_offset)[0]

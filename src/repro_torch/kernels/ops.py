@@ -7,8 +7,10 @@ Implementations per op:
   * "ref"     — the plain PyTorch version (`ref.py`);
   * "chunked" — attention: flash semantics in plain PyTorch, a loop over
                 kv blocks with an online softmax.  It takes what the
-                kernel does not: a tensor `q_offset`, a `kv_len`, and
-                distinct qk and v head dims.  RWKV6: `rwkv6_chunked`,
+                kernel does not: a tensor `q_offset`, a `kv_len`, and any
+                pair of qk and v head dims (the kernel takes the pairs in
+                `flash_attention.HEAD_DIM_PAIRS`: (D, D) and MLA's
+                (192, 128)).  RWKV6: `rwkv6_chunked`,
                 the JAX package's chunk-parallel matmul form.  Both run
                 on any device.
 
@@ -90,9 +92,11 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               q_offset=0, kv_len=None, impl: str = "auto") -> torch.Tensor:
     """Unified attention entry point used by every model.
 
-    q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, Dv].  The kernel
-    path takes only a static int `q_offset` and no `kv_len`; otherwise
-    "cuda" goes to "chunked", as the JAX package's "pallas" does.
+    q [B, Sq, Hq, Dqk], k [B, Sk, Hkv, Dqk], v [B, Sk, Hkv, Dv] ->
+    [B, Sq, Hq, Dv].  The kernel path takes only a static int `q_offset`
+    and no `kv_len`; otherwise "cuda" goes to "chunked", as the JAX
+    package's "pallas" does.  A head-dim pair outside the kernel's
+    `HEAD_DIM_PAIRS` raises on a CUDA tensor.
     """
     if impl == "auto":
         if q.device.type != "cpu":

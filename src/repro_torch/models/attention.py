@@ -1,17 +1,19 @@
-"""Attention blocks: GQA/MQA (with local windows, softcap, RoPE/M-RoPE).
+"""Attention blocks: GQA/MQA (with local windows, softcap, RoPE/M-RoPE)
+and multi-head latent attention (MLA, DeepSeek-V3).
 
-The port of `repro.models.attention`.  `GQA` provides:
+The port of `repro.models.attention`.  `GQA` and `MLA` provide:
   init(gen, cfg, dtype)                              -> params
   apply(p, cfg, x, positions, window, impl)          -> y          (full seq)
   apply_bidirectional(p, cfg, x, positions, impl)    -> y          (encoder)
   init_cache(cfg, batch, max_len, window, dtype, *, device) -> cache  (decode)
   apply_decode(p, cfg, x, cache, pos, window)        -> y, cache   (one token)
 
-Caches for windowed layers are ring buffers of size min(window, max_len).
-Unlike the JAX package's immutable arrays, `apply_decode` writes the new
-key and value into the cache in place (one slot per step, no copy of the
-cache) and returns the same dict.  Multi-head latent attention and
-cross-attention are not ported yet.
+(`apply_bidirectional` is GQA's only.)  Caches for windowed GQA layers
+are ring buffers of size min(window, max_len).  Unlike the JAX package's
+immutable arrays, `apply_decode` writes the new key and value (MLA: the
+latent and the rotary key) into the cache in place (one slot per step,
+no copy of the cache) and returns the same dict.  Cross-attention is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
-from .layers import dense, init_dense, mrope, rope
+from .layers import dense, init_dense, init_rms_norm, mrope, rms_norm, rope
 
 __all__ = ["GQA", "MLA", "CrossAttention"]
 
@@ -133,18 +135,122 @@ class GQA:
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1, item 4 (MLA, the "
+        f"{what} is not ported yet: ROADMAP.md queue 1, item 4 (the "
         f"encoder and the vision frontend)")
 
 
 class MLA:
-    """Multi-head latent attention (DeepSeek-V3): not ported yet."""
+    """Multi-head latent attention (DeepSeek-V3).
+
+    The full sequence materialises per-head k and v from the compressed
+    latent and runs `ops.attention` with q and k of head dim dn + dr
+    (192 at full width) and v of dv (128): the flash-attention kernel's
+    (192, 128) instantiation on the card.  Decode uses the *absorbed*
+    form, as the JAX package does: scores and values are computed in the
+    kv_lora latent space (einsums, no kernel), so the cache holds only
+    kv_lora_rank + dr floats a token."""
 
     @staticmethod
-    def init(*args, **kw):
-        _not_ported("MLA")
+    def init(gen: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32) -> dict:
+        d, H = cfg.d_model, cfg.n_heads
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        p = {}
+        if cfg.q_lora_rank:
+            p["wq_a"] = init_dense(gen, d, cfg.q_lora_rank, dtype)
+            p["q_norm"] = init_rms_norm(cfg.q_lora_rank, gen, dtype)
+            p["wq_b"] = init_dense(gen, cfg.q_lora_rank, H * (dn + dr), dtype)
+        else:
+            p["wq"] = init_dense(gen, d, H * (dn + dr), dtype)
+        p["wkv_a"] = init_dense(gen, d, cfg.kv_lora_rank + dr, dtype)
+        p["kv_norm"] = init_rms_norm(cfg.kv_lora_rank, gen, dtype)
+        p["wk_b"] = init_dense(gen, cfg.kv_lora_rank, H * dn, dtype)
+        p["wv_b"] = init_dense(gen, cfg.kv_lora_rank, H * dv, dtype)
+        p["wo"] = init_dense(gen, H * dv, d, dtype)
+        return p
 
-    apply = init_cache = apply_decode = init
+    @staticmethod
+    def _q(p, cfg, x, positions):
+        """(q_nope [B, S, H, dn], q_rope [B, S, H, dr], rotated)."""
+        B, S, _ = x.shape
+        dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        if cfg.q_lora_rank:
+            q = dense(p["wq_b"], rms_norm(p["q_norm"], dense(p["wq_a"], x)))
+        else:
+            q = dense(p["wq"], x)
+        q = q.reshape(B, S, cfg.n_heads, dn + dr)
+        return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+
+    @staticmethod
+    def _latent(p, cfg, x, positions):
+        """(c_kv [B, S, kv_lora_rank] normed, k_rope [B, S, 1, dr]
+        rotated)."""
+        B, S, _ = x.shape
+        L, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        kv = dense(p["wkv_a"], x)
+        c_kv = rms_norm(p["kv_norm"], kv[..., :L])
+        k_rope = rope(kv[..., L:].reshape(B, S, 1, dr), positions,
+                      cfg.rope_theta)
+        return c_kv, k_rope
+
+    @staticmethod
+    def apply(p, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, window: int | None = None,
+              impl: str = "auto") -> torch.Tensor:
+        B, S, _ = x.shape
+        H = cfg.n_heads
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        q_nope, q_rope = MLA._q(p, cfg, x, positions)
+        c_kv, k_rope = MLA._latent(p, cfg, x, positions)
+        k_nope = dense(p["wk_b"], c_kv).reshape(B, S, H, dn)
+        v = dense(p["wv_b"], c_kv).reshape(B, S, H, dv)
+        q = torch.cat([q_nope, q_rope], -1)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+        o = ops.attention(q, k, v, causal=True, window=window,
+                          scale=(dn + dr) ** -0.5, impl=impl)
+        return dense(p["wo"], o.reshape(B, S, -1))
+
+    # -- decode ---------------------------------------------------------- #
+    @staticmethod
+    def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   window: int | None = None, dtype=torch.float32, *,
+                   device) -> dict:
+        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "krope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                     dtype=dtype, device=device)}
+
+    @staticmethod
+    def apply_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+                     pos: int, window: int | None = None
+                     ) -> tuple[torch.Tensor, dict]:
+        """x [B, 1, d]; pos: int absolute position.  The absorbed form:
+        q_nope is taken into the latent space through wk_b, and the
+        latent output out of it through wv_b."""
+        B = x.shape[0]
+        H, L = cfg.n_heads, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=x.device)
+        q_nope, q_rope = MLA._q(p, cfg, x, positions)       # [B, 1, H, *]
+        c_kv, k_rope = MLA._latent(p, cfg, x, positions)
+        ckv, krope = cache["ckv"], cache["krope"]
+        ckv[:, pos] = c_kv[:, 0].to(ckv.dtype)
+        krope[:, pos] = k_rope[:, 0, 0].to(krope.dtype)
+        wk = p["wk_b"]["w"].reshape(L, H, dn).float()
+        q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope.float(), wk)
+        s_nope = torch.einsum("bqhl,bkl->bhqk", q_lat, ckv.float())
+        s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                              krope.float())
+        s = (s_nope + s_rope) * ((dn + dr) ** -0.5)
+        valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+        probs = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhqk,bkl->bqhl", probs, ckv.float())
+        wv = p["wv_b"]["w"].reshape(L, H, dv).float()
+        o = torch.einsum("bqhl,lhd->bqhd", o_lat, wv)
+        y = dense(p["wo"], o.reshape(B, 1, -1).to(x.dtype))
+        return y, cache
 
 
 class CrossAttention:

@@ -4,9 +4,12 @@ The JAX package's parameter tree, as nested dicts of numpy arrays (what
 `jax.tree.map(np.asarray, params)` gives), stacks the layers of each
 repeat of the layer pattern along a leading `n_stages` axis under
 `params["stages"]` (keys `b{i}_{kind}`) and keeps the partial last repeat
-under `params["tail"]`.  The port keeps one flat list of layers in layer
-order.  Dense weights have the same [d_in, d_out] layout in both, so
-nothing is transposed: the conversion only unstacks and restacks.
+under `params["tail"]`; a config with `mtp_depth` adds the MTP head's
+blocks, unstacked, under `params["mtp"]` (keys `b{i}_attn`) and its norm
+under `params["mtp_ln"]`.  The port keeps one flat list of layers in
+layer order, and the head's blocks as a list under "mtp".  Dense weights
+have the same [d_in, d_out] layout in both, so nothing is transposed:
+the conversion only unstacks and restacks.
 
 `from_jax_tree` / `to_jax_tree` do this for any tree shaped like the
 params (gradients, AdamW's m and v); `from_jax_params` / `to_jax_params`
@@ -56,13 +59,19 @@ def from_jax_tree(cfg: ModelConfig, tree: dict, *, device="cuda") -> dict:
     for i, kind in enumerate(tail):
         layers.append(_map(tree["tail"][f"b{i}_{kind}"], tensor))
     for key in tree:
-        if key not in ("embed", "final_ln", "stages", "tail"):
+        if key not in ("embed", "final_ln", "stages", "tail", "mtp",
+                       "mtp_ln"):
             raise NotImplementedError(
                 f"parameters {key!r} belong to a block this slice does not "
                 f"run: ROADMAP.md queue 1, item 4")
-    return {"embed": _map(tree["embed"], tensor),
-            "final_ln": _map(tree["final_ln"], tensor),
-            "layers": layers}
+    out = {"embed": _map(tree["embed"], tensor),
+           "final_ln": _map(tree["final_ln"], tensor),
+           "layers": layers}
+    if "mtp" in tree:
+        out["mtp"] = [_map(tree["mtp"][f"b{i}_attn"], tensor)
+                      for i in range(len(tree["mtp"]))]
+        out["mtp_ln"] = _map(tree["mtp_ln"], tensor)
+    return out
 
 
 def to_jax_tree(cfg: ModelConfig, tree: dict) -> dict:
@@ -84,6 +93,10 @@ def to_jax_tree(cfg: ModelConfig, tree: dict) -> dict:
     if tail:
         out["tail"] = {f"b{i}_{kind}": _map(layers[n_stages * P + i], array)
                        for i, kind in enumerate(tail)}
+    if "mtp" in tree:
+        out["mtp"] = {f"b{i}_attn": _map(block, array)
+                      for i, block in enumerate(tree["mtp"])}
+        out["mtp_ln"] = _map(tree["mtp_ln"], array)
     return out
 
 

@@ -1,6 +1,8 @@
 """The model: a stack of pattern-typed blocks (attn / local / global /
-rec / rwkv; each attention block with an MLP or, for an MoE config, an
-MoE layer) between an embedding and an unembedding.
+rec / rwkv; each attention block GQA or, for an MLA config, multi-head
+latent attention, with an MLP or, for an MoE config, an MoE layer)
+between an embedding and an unembedding, and for a config with
+`mtp_depth` the multi-token-prediction head that `loss_fn` trains.
 
 The port of `repro.models.model`.  The JAX package stacks
 the layers of each repeat of `cfg.layer_pattern` along a leading axis and
@@ -33,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.cuda import resolve_device
-from .attention import GQA
+from .attention import GQA, MLA
 from .layers import (Params, embed, init_embedding, init_mlp,
                      init_rms_norm, mlp, rms_norm, unembed)
 from .moe import MoE
@@ -48,13 +50,10 @@ __all__ = ["Model", "init_params", "layer_kinds", "forward", "loss_fn",
 # what this slice runs
 # ---------------------------------------------------------------------- #
 def _check_supported(cfg: ModelConfig) -> None:
-    for present, what in ((cfg.use_mla, "MLA"),
-                          (cfg.n_encoder_layers, "the encoder"),
-                          (cfg.mtp_depth, "the MTP head")):
-        if present:
-            raise NotImplementedError(
-                f"{what} is not ported yet, so {cfg.name} does not run: "
-                f"ROADMAP.md queue 1, item 4")
+    if cfg.n_encoder_layers:
+        raise NotImplementedError(
+            f"the encoder is not ported yet, so {cfg.name} does not run: "
+            f"ROADMAP.md queue 1, item 4")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -73,6 +72,21 @@ def _window_for(cfg: ModelConfig, kind: str) -> int | None:
     return None
 
 
+def _attn_cls(cfg: ModelConfig):
+    return MLA if cfg.use_mla else GQA
+
+
+def _positions(cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """[B, S] token positions, or [3, B, S] for M-RoPE (the batch's
+    `mrope_pos`, else the text positions on every stream)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if cfg.mrope_sections is not None:
+        positions = batch.get("mrope_pos", torch.stack([positions] * 3))
+    return positions
+
+
 # ---------------------------------------------------------------------- #
 # block-level init / apply
 # ---------------------------------------------------------------------- #
@@ -85,7 +99,7 @@ def _block_init(gen, cfg: ModelConfig, kind: str, dtype) -> dict:
     if kind == "rec":
         p["rec"] = RGLRUBlock.init(gen, cfg, dtype)
     else:
-        p["attn"] = GQA.init(gen, cfg, dtype)
+        p["attn"] = _attn_cls(cfg).init(gen, cfg, dtype)
     if cfg.is_moe:
         p["moe"] = MoE.init(gen, cfg, dtype)
     else:
@@ -104,8 +118,10 @@ def _block_apply(p, cfg: ModelConfig, kind: str, h, positions,
         h = h + RGLRUBlock.apply(p["rec"], cfg, rms_norm(p["ln1"], h),
                                  impl=impl)
     else:
-        h = h + GQA.apply(p["attn"], cfg, rms_norm(p["ln1"], h), positions,
-                          window=_window_for(cfg, kind), impl=impl)
+        h = h + _attn_cls(cfg).apply(p["attn"], cfg, rms_norm(p["ln1"], h),
+                                     positions,
+                                     window=_window_for(cfg, kind),
+                                     impl=impl)
     x = rms_norm(p["ln2"], h)
     if cfg.is_moe:
         return h + MoE.apply(p["moe"], cfg, x), MoE.aux_loss(p["moe"], cfg, x)
@@ -118,8 +134,9 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return RWKV6Block.init_cache(cfg, batch, dtype, device=device)
     if kind == "rec":
         return RGLRUBlock.init_cache(cfg, batch, dtype, device=device)
-    return GQA.init_cache(cfg, batch, max_len, window=_window_for(cfg, kind),
-                          dtype=dtype, device=device)
+    return _attn_cls(cfg).init_cache(cfg, batch, max_len,
+                                     window=_window_for(cfg, kind),
+                                     dtype=dtype, device=device)
 
 
 def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int):
@@ -130,9 +147,9 @@ def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int):
         y, cache = RGLRUBlock.apply_decode(p["rec"], cfg,
                                            rms_norm(p["ln1"], h), cache, pos)
     else:
-        y, cache = GQA.apply_decode(p["attn"], cfg, rms_norm(p["ln1"], h),
-                                    cache, pos,
-                                    window=_window_for(cfg, kind))
+        y, cache = _attn_cls(cfg).apply_decode(
+            p["attn"], cfg, rms_norm(p["ln1"], h), cache, pos,
+            window=_window_for(cfg, kind))
     h = h + y
     x = rms_norm(p["ln2"], h)
     if cfg.is_moe:        # each token its own group; no aux in decode
@@ -146,14 +163,21 @@ def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int):
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype=torch.float32) -> dict:
     """Random weights on the generator's device, with the distributions of
-    the JAX package's `init_params`: {"embed", "final_ln", "layers"}."""
+    the JAX package's `init_params`: {"embed", "final_ln", "layers"}, and
+    with `cfg.mtp_depth` the MTP head's blocks ("mtp", a list of
+    `mtp_depth` attention blocks) and its norm ("mtp_ln")."""
     _check_supported(cfg)
-    return {
+    params = {
         "embed": init_embedding(gen, cfg, dtype),
         "final_ln": init_rms_norm(cfg.d_model, gen, dtype),
         "layers": [_block_init(gen, cfg, kind, dtype)
                    for kind in layer_kinds(cfg)],
     }
+    if cfg.mtp_depth:
+        params["mtp"] = [_block_init(gen, cfg, "attn", dtype)
+                         for _ in range(cfg.mtp_depth)]
+        params["mtp_ln"] = init_rms_norm(cfg.d_model, gen, dtype)
+    return params
 
 
 class Model(nn.Module):
@@ -186,6 +210,13 @@ class Model(nn.Module):
         self.embed = Params(params["embed"])
         self.final_ln = Params(params["final_ln"])
         self.layers = nn.ModuleList(Params(p) for p in params["layers"])
+        # the MTP head, which only `loss_fn` reads (as in the JAX package,
+        # a tree without it trains without its term)
+        if "mtp" in params:
+            self.mtp = nn.ModuleList(Params(p) for p in params["mtp"])
+            self.mtp_ln = Params(params["mtp_ln"])
+        else:
+            self.mtp = self.mtp_ln = None
 
     @property
     def device(self) -> torch.device:
@@ -207,13 +238,8 @@ class Model(nn.Module):
             raise NotImplementedError(
                 "the vision frontend is not ported yet: ROADMAP.md queue 1, "
                 "item 4")
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        h = embed(self.embed, cfg, tokens.long())
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        if cfg.mrope_sections is not None:
-            positions = batch.get("mrope_pos",
-                                  torch.stack([positions] * 3))
+        h = embed(self.embed, cfg, batch["tokens"].long())
+        positions = _positions(cfg, batch)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for kind, p in zip(self.kinds, self.layers):
             if remat and torch.is_grad_enabled():
@@ -242,26 +268,41 @@ def loss_fn(model: Model, batch: dict, impl: str = "auto",
             remat: bool = False) -> torch.Tensor:
     """Next-token cross entropy in float32, the mean over the batch's
     positions 1..S-1, plus `aux_weight` times the MoE auxiliary loss for
-    an MoE config.  The JAX package also adds the MTP head's loss
-    (`mtp_weight`); that head is not ported yet (ROADMAP.md queue 1,
-    item 4), so such a config raises."""
-    _check_supported(model.cfg)
-    tokens = batch["tokens"]
+    an MoE config, plus, for a config with `mtp_depth` whose model holds
+    the MTP head, `mtp_weight` times the head's cross entropy at t+2: the
+    head's blocks run on the re-embedded inputs (their MoE aux unused, as
+    in the JAX package), then its norm and the shared unembedding."""
+    cfg = model.cfg
+    tokens = batch["tokens"].long()
     logits, aux = forward(model, batch, impl=impl, remat=remat)
     lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    nll = -torch.gather(lp, -1, tokens[:, 1:, None].long())[..., 0]
+    nll = -torch.gather(lp, -1, tokens[:, 1:, None])[..., 0]
     loss = nll.mean()
-    if model.cfg.is_moe:
+    if cfg.is_moe:
         loss = loss + aux_weight * aux
+    if cfg.mtp_depth and model.mtp is not None:
+        h = embed(model.embed, cfg, tokens)
+        positions = _positions(cfg, batch)
+        for p in model.mtp:
+            h, _ = _block_apply(p, cfg, "attn", h, positions, impl=impl)
+        logits2 = unembed(model.embed, cfg, rms_norm(model.mtp_ln, h))
+        lp2 = torch.log_softmax(logits2[:, :-2].float(), dim=-1)
+        nll2 = -torch.gather(lp2, -1, tokens[:, 2:, None])[..., 0]
+        loss = loss + mtp_weight * nll2.mean()
     return loss
 
 
 def param_tree(model: Model) -> dict:
     """The model's parameters (the tensors themselves) as `init_params`
-    shapes them: {"embed", "final_ln", "layers": [...]}.  Gradients and
-    optimizer moments are trees of the same shape."""
-    return {"embed": model.embed.tree(), "final_ln": model.final_ln.tree(),
+    shapes them: {"embed", "final_ln", "layers": [...]}, and "mtp" and
+    "mtp_ln" where the model holds the MTP head.  Gradients and optimizer
+    moments are trees of the same shape."""
+    tree = {"embed": model.embed.tree(), "final_ln": model.final_ln.tree(),
             "layers": [p.tree() for p in model.layers]}
+    if model.mtp is not None:
+        tree["mtp"] = [p.tree() for p in model.mtp]
+        tree["mtp_ln"] = model.mtp_ln.tree()
+    return tree
 
 
 def init_cache(model: Model, batch: int, max_len: int) -> list[dict]:

@@ -352,12 +352,22 @@ def test_text_models_outside_the_slice_run_too(setups, jx):
     ("deepseek-v3-671b", ()), ("seamless-m4t-large-v2", ()),
     ("deepseek-v3-671b", ("use_mla",))])
 def test_blocks_outside_the_slice_raise(name, unset):
-    """MLA, the encoder, and the MTP head (deepseek-v3 with MLA turned
-    off) raise; MoE runs."""
+    """The encoder (seamless-m4t-large-v2) raises item 4; deepseek-v3
+    builds, with MLA and with MLA turned off (GQA), its MoE layers
+    and its MTP head alike."""
     cfg = reduced_config(get_config(name))
     cfg = dataclasses.replace(cfg, **{field: False for field in unset})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
-        models.Model(cfg, device="cpu")
+    if cfg.n_encoder_layers:
+        with pytest.raises(NotImplementedError,
+                           match="encoder.*ROADMAP.md.*item 4"):
+            models.Model(cfg, device="cpu")
+        return
+    model = models.Model(cfg, device="cpu")
+    assert ("wkv_a" in model.layers[0]["attn"].tree()) == cfg.use_mla
+    assert len(model.mtp) == cfg.mtp_depth == 1
+    logits, _ = models.forward(model, {"tokens": torch.zeros(
+        (1, 4), dtype=torch.int64)})
+    assert logits.shape == (1, 4, cfg.vocab_size)
 
 
 def test_vision_frontend_and_training_raise():

@@ -165,9 +165,9 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_unported_paths_raise_and_name_their_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="MLA .*deepseek-v3-671b.*ROADMAP.md.*item 4"):
-        models.Model(reduced_config(get_config("deepseek-v3-671b")),
+    with pytest.raises(NotImplementedError, match="encoder .*seamless-m4t-"
+                       "large-v2.*ROADMAP.md.*item 4"):
+        models.Model(reduced_config(get_config("seamless-m4t-large-v2")),
                      device="cpu")
     from repro_torch.trace.__main__ import main as trace_cli
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 5"):

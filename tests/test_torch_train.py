@@ -548,8 +548,11 @@ def test_loss_fn_and_its_gradients_match_jax(name, carried, jx):
 
 
 def test_loss_fn_raises_for_blocks_outside_the_slice():
+    """The encoder (seamless-m4t-large-v2) raises item 4 before `loss_fn`
+    can run; deepseek-v3's MLA and MTP head train (tests/test_torch_mla.py
+    holds them to the JAX package)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
-        models.Model(reduced_config(get_config("deepseek-v3-671b")),
+        models.Model(reduced_config(get_config("seamless-m4t-large-v2")),
                      device="cpu")
 
 

@@ -1,6 +1,6 @@
 """Time warp layouts of the flash-attention kernel on one NVIDIA GPU.
 
-    python3 tools/fa_sweep.py
+    python3 tools/fa_sweep.py [--parent DIR]
 
 Builds copies of `src/repro_torch/csrc/flash_attention.cu` (with
 `fa_common.cuh` inlined) with other block constants — warps per block (kWarps, 16 q rows each) and keys per
@@ -16,9 +16,19 @@ against the plain version at the serving shape of recurrentgemma-9b
 launches), every variant twice in turn. A variant whose shared memory
 does not fit on the card is reported as such. The first variant is the
 source's own layout.
+
+With `--parent DIR`, a checkout of an earlier commit (its
+`src/repro_torch/csrc/flash_attention.cu` with its headers inlined) is
+built beside it, and the two are run on the same inputs at the serving
+shape and at dbrx-132b's prefill shape (q [2,2048,48,128], k/v
+[2,2048,8,128], float32, causal): both checked against the plain
+version, whether their outputs are the same bits printed, and each
+timed in turns (parent, this, this, parent).  The parent's C entry may
+take one head dim (before the (Dqk, Dv) entries) or two.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
 import os
@@ -44,6 +54,8 @@ SOURCE = {"kWarps": 8, "kBlockK": 16}
 SCORES_LOOP = "#pragma unroll {}\n        for (int d0 = 0; d0 < D; d0 += 8)"
 SOURCE_UNROLL = 8
 MAIN = dict(B=2, S=3072, Hq=16, Hkv=1, D=256, window=2048)
+# dbrx-132b's prefill shape, for the comparison with a parent
+DBRX = dict(B=2, S=2048, Hq=48, Hkv=8, D=128, window=None)
 TOL = 2e-5
 # the float32, head_dim-256 instantiation's mangled name
 ENTRY = "fa_kernelIfLi256E"
@@ -97,13 +109,28 @@ def sass_counts(lib_path: str) -> None:
               flush=True)
 
 
-def build(tmp: str) -> dict:
-    csrc = os.path.join(HERE, "..", "src", "repro_torch", "csrc")
+def source(csrc: str) -> str:
+    """`flash_attention.cu` of a source directory with `fa_common.cuh`
+    inlined, so the block constants it holds can be swapped too and a
+    copy builds anywhere."""
     with open(os.path.join(csrc, "flash_attention.cu")) as f:
         text = f.read()
     with open(os.path.join(csrc, "fa_common.cuh")) as f:
-        # inlined, so the block constants it holds can be swapped too
-        text = text.replace('#include "fa_common.cuh"', f.read())
+        return text.replace('#include "fa_common.cuh"', f.read())
+
+
+def argtypes(two_dims: bool) -> list:
+    """The C entry's arguments: q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
+    the head dim (Dqk, Dv with `two_dims`), causal, has_window, window,
+    has_softcap, softcap, scale, q_offset, stream."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    f32 = ctypes.c_float
+    return ([vp] * 5 + [i64] * (7 if two_dims else 6)
+            + [i32, i32, i64, i32, f32, f32, i64, vp])
+
+
+def build(tmp: str) -> dict:
+    text = source(os.path.join(HERE, "..", "src", "repro_torch", "csrc"))
     procs = {}
     for shape in VARIANTS:
         name = "w{}k{}u{}".format(*shape)
@@ -122,10 +149,7 @@ def build(tmp: str) -> dict:
         lib = ctypes.CDLL(os.path.join(tmp, "w{}k{}u{}.so".format(*shape)))
         fn = lib.flash_attention_f32
         fn.restype = ctypes.c_int
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i32,
-                       i32, i64, i32, ctypes.c_float, ctypes.c_float, i64,
-                       vp]
+        fn.argtypes = argtypes(True)
         print(f"variant kWarps={shape[0]} kBlockK={shape[1]} "
               f"unroll={shape[2]}: {ptxas_report(out)}", flush=True)
         if shape == VARIANTS[0]:
@@ -147,7 +171,77 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def main() -> int:
+def parent_entry(parent: str, tmp: str):
+    """The parent checkout's float32 forward, built alone: (its C
+    function, whether it takes Dqk and Dv)."""
+    text = source(os.path.join(parent, "src", "repro_torch", "csrc"))
+    path = os.path.join(tmp, "parent.cu")
+    with open(path, "w") as f:
+        f.write(text)
+    so = path[:-3] + ".so"
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                          "-o", so, path], capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the parent:\n{out.stdout}"
+                           f"{out.stderr}")
+    two_dims = "int64_t Dv" in text
+    fn = ctypes.CDLL(so).flash_attention_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes(two_dims)
+    print(f"parent {parent}: {ptxas_report(out.stdout + out.stderr)}",
+          flush=True)
+    return fn, two_dims
+
+
+def compare(this_fn, parent_fn, parent_two_dims: bool) -> None:
+    """This source's kernel and the parent's on the same inputs at MAIN
+    and DBRX: both against the plain version, the same bits or not, and
+    the times in turns (parent, this, this, parent)."""
+    for shape in (MAIN, DBRX):
+        B, S, Hq, Hkv, D, window = (shape[k] for k in
+                                    ("B", "S", "Hq", "Hkv", "D", "window"))
+        g = torch.Generator(device="cuda").manual_seed(1)
+        q = torch.randn((B, S, Hq, D), generator=g, device="cuda")
+        k = torch.randn((B, S, Hkv, D), generator=g, device="cuda")
+        v = torch.randn((B, S, Hkv, D), generator=g, device="cuda")
+        want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        outs = {"this": torch.empty_like(q), "parent": torch.empty_like(q)}
+
+        def call(who):
+            fn, dims = ((this_fn, (D, D)) if who == "this" else
+                        (parent_fn, (D, D) if parent_two_dims else (D,)))
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    outs[who].data_ptr(), None, B, S, S, Hq, Hkv, *dims, 1,
+                    int(window is not None), window or 0, 0, 0.0,
+                    D ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{who} launch failed: CUDA error {rc}")
+
+        for who in outs:
+            call(who)
+        torch.cuda.synchronize()
+        errs = {who: float((out - want).abs().max())
+                for who, out in outs.items()}
+        if not max(errs.values()) <= TOL:
+            raise AssertionError(f"parent comparison error {errs!r}")
+        ms = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            ms[who].append(cuda_ms(lambda: call(who), 10))
+        print(f"compare q [{B},{S},{Hq},{D}] k/v [{B},{S},{Hkv},{D}] "
+              f"float32, causal, window {window}: parent {ms['parent']!r} "
+              f"ms, this {ms['this']!r} ms; max abs error {errs!r}; same "
+              f"bits {torch.equal(outs['this'], outs['parent'])}",
+              flush=True)
+        del q, k, v, want, outs
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of an earlier commit to compare with")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fa_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -174,7 +268,7 @@ def main() -> int:
                 def call(fn=fn):
                     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               out.data_ptr(), None, B, S, S, Hq, Hkv, D,
-                              1, 1,
+                              D, 1, 1,
                               window, 0, 0.0, D ** -0.5, 0,
                               torch.cuda.current_stream().cuda_stream)
                 if fits.get(shape, True):
@@ -193,6 +287,10 @@ def main() -> int:
                 print(f"  kWarps={shape[0]} kBlockK={shape[1]} "
                       f"unroll={shape[2]}: {ms!r} ms (max abs error "
                       f"{err!r})", flush=True)
+        del q, k, v, want, out
+        torch.cuda.empty_cache()
+        if args.parent:
+            compare(libs[VARIANTS[0]], *parent_entry(args.parent, tmp))
     return 0
 
 
