@@ -76,9 +76,17 @@ Phases, each reported on its own line(s):
    independent q, k and v (B=2, S=77, 8 heads on 8 kv heads causal and
    not causal, with a window of 32, and on 2 kv heads; deepseek-v3's
    prefill shape, B=2, S=2048, 128 heads, causal; each in float32 and
-   bfloat16) against its plain version (float32
-   2e-5, bfloat16 2e-2); the RG-LRU scan at the serving shape (B=2,
-   S=3072, D=4096) and on layouts that stress its ring (D of 33, 96 and
+   bfloat16), and at every shape phases 10f-10h launch it at
+   (seamless's encoder and cross attention B=2, S=2048, 16 heads of 64,
+   no mask, and its decoder's self-attention there, causal; at B=4 the
+   launcher's prompt of 32, causal, the encoder over 1,000 frames, the
+   cross attention at Sq=32 and, in decode, Sq=1 by Sk=1000, no mask;
+   qwen2-vl-2b's B=2, S=2048, 12 heads on 2 of 128, causal), then
+   without a mask at Sq=2048 by Sk=1000 and ragged (Sq, Sk) of (24, 8),
+   (1, 1), (100, 77) and (77, 300) with GQA groups of 1 and 2, each in
+   float32 and bfloat16, against its plain version (float32 2e-5,
+   bfloat16 2e-2); the RG-LRU scan at the
+   serving shape (B=2, S=3072, D=4096) and on layouts that stress its ring (D of 33, 96 and
    4,096 by S of 1, 33 and 3,071; a view that is not 16-byte aligned; in
    bfloat16), with and without h0, h and h_last equal to the plain
    version's bit for bit in float32 and within 3e-2 in bfloat16, and at
@@ -134,6 +142,31 @@ Phases, each reported on its own line(s):
    absorbed MLA decode computes attention inline), 1 in the comparison
    prefill; the replay within 1e-3 of the prefill, with the router's
    smallest top-k margin logged;
+10f. seamless-m4t-large-v2 prefill path (PR 24), whole (24 encoder and
+   24 decoder layers, 2,034,784,256 float32 parameters from a seeded
+   generator): `make_prefill_step` on 2 prompts of 2,048 tokens with 2 x
+   2,048 frame embeddings, exactly 72 flash-attention launches (24 in
+   the encoder, 24 causal self-attentions, 24 cross attentions) and no
+   other kernel, finite logits, a second run with the same bits, a
+   third under `torch.profiler`; then without frames (the decoder
+   alone): exactly 24;
+10g. seamless-m4t-large-v2 serving path: the launcher at its defaults,
+   decoder-only as the JAX launcher runs it (no launch in the launcher,
+   24 in the comparison prefill; the replay within 1e-3); then the
+   encoder-decoder decode: `prefill` on 4 prompts of 32 tokens with 1,000
+   frames each (72 launches; the cache's `enc` the encoder's output),
+   the prompts replayed and 32 greedy tokens through `decode_step`
+   reading the cache's `enc`, exactly (32 + 32) x 24 = 1,536 launches
+   (the cross attention at Sq = 1), the replay within 1e-3 of the
+   prefill; the step's device time beside its bounds (the decoder's and
+   the unembedding's weights read once, and the operations of the cross
+   attentions' keys and values that every step recomputes from `enc`),
+   and the recompute's own device time;
+10h. qwen2-vl-2b prefill path with the vision frontend (PR 24), whole
+   (1,543,656,960 float32 parameters): 2 prompts of 2,048 tokens whose
+   first 256 embeddings are patch embeddings, with M-RoPE positions of a
+   16 x 16 grid, exactly 28 flash-attention launches, finite logits, the
+   same bits twice;
 11. timing: each kernel and, where one exists, one PyTorch call
    computing the same function (timed only, as a yardstick) on the
    card's clock (CUDA events after a sleep that lets the host queue
@@ -141,13 +174,18 @@ Phases, each reported on its own line(s):
    main paths' largest shapes, with RG-LRU also timed with h0 (`ms_h0`)
    and RWKV6 also at its decode shape with s0 (`ms_decode`, the launch
    the launcher makes 2,048 times; flash attention also at dbrx-132b's
-   shape as `ms_dbrx`, and at deepseek-v3's MLA prefill shape as
-   `ms_mla`, each beside its bound and SDPA's time); then one JSON
+   shape as `ms_dbrx`, at deepseek-v3's MLA prefill shape as `ms_mla`,
+   and at seamless's encoder shape as `ms_seamless`, each beside its
+   bound and SDPA's time); then one JSON
    line `{"kernels": [...]}` with all four kernels (flash attention's
    bound on the tensor cores, and on the CUDA cores as
    `bound_cuda_core_ms`; the dbrx and deepseek-v3 prefills' and the
    expert placements' launches as `launches_dbrx_prefill`,
-   `launches_deepseek_prefill` and `launches_expert_placement`), and the
+   `launches_deepseek_prefill` and `launches_expert_placement`; the
+   seamless prefill's with and without frames, its encoder-decoder
+   decode's and the qwen2-vl-2b prefill's as
+   `launches_seamless_prefill`, `launches_seamless_prefill_no_frames`,
+   `launches_seamless_decode` and `launches_qwen2_vl_prefill`), and the
    three
    backward kernels (flash attention's at path A's layer shape and, as
    `ms_path_b` beside its `bound_path_b_ms` and SDPA's backward
@@ -324,6 +362,50 @@ FA_MLA_CASES = [
     for Hkv, causal, window in ((8, True, None), (8, False, None),
                                 (8, True, 32), (2, True, None))
 ] + [FA_MLA, FA_MLA[:9] + ("bfloat16",)]
+# seamless-m4t-large-v2 (PR 24): whole, 24 encoder and 24 decoder layers
+# (d 1,024, 16 heads of 64 on 16 kv heads, gated gelu MLP of d_ff 8,192,
+# vocab 256,206, untied), 2,034,784,256 float32 parameters.  The prefill
+# takes 2 prompts of 2,048 tokens with 2 x 2,048 frame embeddings (Se =
+# S, the JAX package's convention, src/repro/launch/cells.py:112-114);
+# the encoder-decoder decode 4 prompts of 32 tokens (the launcher's
+# defaults) with 1,000 frames each, and 32 greedy tokens
+SEAMLESS_ARCH, SEAMLESS_PARAMS = "seamless-m4t-large-v2", 2_034_784_256
+SEAMLESS_B, SEAMLESS_S = 2, 2048
+SEAMLESS_DEC_B, SEAMLESS_SE, SEAMLESS_PROMPT, SEAMLESS_GEN = 4, 1000, 32, 32
+# qwen2-vl-2b whole with its vision frontend: 28 layers (d 1,536,
+# 12 heads of 128 on 2 kv heads, M-RoPE), 1,543,656,960 float32
+# parameters; 2 prompts of 2,048 tokens whose first 256 are patch
+# embeddings (src/repro/launch/cells.py:107-111), on a 16 x 16 grid
+QWEN_ARCH, QWEN_PARAMS = "qwen2-vl-2b", 1_543_656_960
+QWEN_B, QWEN_S, QWEN_PATCHES = 2, 2048, 256
+# the flash-attention kernel at every shape phases 10f-10h launch it at,
+# each in float32 and bfloat16: (B, Sq, Sk, Hq, Hkv, D, causal)
+FA_SEAMLESS = (SEAMLESS_B, SEAMLESS_S, SEAMLESS_S, 16, 16, 64, False, None,
+               None, "float32")
+FA_PATH_SHAPES = (
+    # 10f: the encoder and the cross attention (Se = S), the decoder's
+    # self-attention (with and without frames)
+    FA_SEAMLESS[:7], (SEAMLESS_B, SEAMLESS_S, SEAMLESS_S, 16, 16, 64, True),
+    # 10g: the launcher's comparison prefill and the encoder-decoder
+    # prefill (encoder over Se frames, self-attention, cross attention)
+    (SEAMLESS_DEC_B, SEAMLESS_PROMPT, SEAMLESS_PROMPT, 16, 16, 64, True),
+    (SEAMLESS_DEC_B, SEAMLESS_SE, SEAMLESS_SE, 16, 16, 64, False),
+    (SEAMLESS_DEC_B, SEAMLESS_PROMPT, SEAMLESS_SE, 16, 16, 64, False),
+    # 10g: the cross attention of a decode step (Sq = 1)
+    (SEAMLESS_DEC_B, 1, SEAMLESS_SE, 16, 16, 64, False),
+    # 10h: qwen2-vl-2b's prefill
+    (QWEN_B, QWEN_S, QWEN_S, 12, 2, 128, True),
+)
+# then a cross attention at Sq = 2,048 by Se = 1,000 and ragged Sq != Sk
+# without a mask, GQA groups of 1 and 2
+FA_PATH_CASES = [
+    shape + (None, None, dt)
+    for shape in FA_PATH_SHAPES
+    + ((SEAMLESS_B, SEAMLESS_S, SEAMLESS_SE, 16, 16, 64, False),)
+    + tuple((1, Sq, Sk, 4, Hkv, 64, False)
+            for Sq, Sk in ((24, 8), (1, 1), (100, 77), (77, 300))
+            for Hkv in (4, 2))
+    for dt in ("float32", "bfloat16")]
 # expert placement: benchmarks/expert_placement.py's two inputs,
 # (label, experts, top k, devices)
 EP_ROUTING = (("deepseek-v3", 256, 8, 16), ("dbrx", 16, 4, 8))
@@ -1201,9 +1283,11 @@ def phase_model_kernels_vs_plain() -> dict:
     from repro_torch.kernels import flash_attention as fa
     worst = {}
     for case in FA_CASES + [FA_MAIN, FA_DBRX, FA_DBRX[:9] + ("bfloat16",)] \
-            + FA_MLA_CASES:
+            + FA_MLA_CASES + FA_PATH_CASES:
         if case is FA_MLA_CASES[0]:
             t_mla = time.perf_counter()
+        if case is FA_PATH_CASES[0]:
+            t_nc = time.perf_counter()
         causal, window, cap, dt = case[6:]
         q, k, v = _fa_inputs(case)
         # the default scale, Dqk ** -0.5, is MLA's (dn + dr) ** -0.5
@@ -1222,10 +1306,13 @@ def phase_model_kernels_vs_plain() -> dict:
             worst["flash_attention_dbrx"] = err
         if case is FA_MLA:
             worst["flash_attention_mla"] = err
+        if case == FA_SEAMLESS:
+            worst["flash_attention_seamless"] = err
         log(f"kernel flash_attention {case}: max abs error {err!r} "
             f"(tolerance {FA_TOL[dt]})")
         del q, k, v, got, want
-    log(f"phase seconds: 5's MLA cases {time.perf_counter() - t_mla:.1f}")
+    log(f"phase seconds: 5's MLA cases {t_nc - t_mla:.1f}, its seamless "
+        f"and qwen2-vl cases {time.perf_counter() - t_nc:.1f}")
     for B, S, D, dt in RG_CASES:
         for offset in ((0, 1) if (B, S, D) == RG_MAIN else (0,)):
             x, a, h0 = _rg_inputs(B, S, D, dtype=getattr(torch, dt),
@@ -1302,23 +1389,26 @@ def _build_model(cfg, n_params: int, seed: int = 0):
 
 
 def phase_prefill(cfg, n_params: int, B: int, S: int,
-                  expect: dict, profile: bool = False) -> dict:
-    """`make_prefill_step` on B random prompts of S tokens, with every
-    kernel's launches counted around the first run; a second run gives
-    the same bits.  With `profile`, a third run under `torch.profiler`
-    (`_profile`: device time by kernel, idle share)."""
+                  expect: dict, profile: bool = False,
+                  extra: dict | None = None, label: str = "") -> dict:
+    """`make_prefill_step` on B random prompts of S tokens (and the
+    frontends' inputs in `extra`), with every kernel's launches counted
+    around the first run; a second run gives the same bits.  With
+    `profile`, a third run under `torch.profiler` (`_profile`: device
+    time by kernel, idle share)."""
     from repro_torch.launch.steps import make_prefill_step
-    arch = cfg.name
+    arch = cfg.name + label
     model = _build_model(cfg, n_params)
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(
         0, model.cfg.vocab_size, (B, S))).cuda()
+    batch = {"tokens": tokens, **(extra or {})}
     step = make_prefill_step(model.cfg)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
-    logits = step(model, {"tokens": tokens})
+    logits = step(model, batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = read_launches()
@@ -1328,7 +1418,7 @@ def phase_prefill(cfg, n_params: int, B: int, S: int,
           "prefill logits shape")
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     t0 = time.perf_counter()
-    again = step(model, {"tokens": tokens})
+    again = step(model, batch)
     torch.cuda.synchronize()
     second_s = time.perf_counter() - t0
     rerun_diff = float((again - logits).abs().max())
@@ -1346,13 +1436,16 @@ def phase_prefill(cfg, n_params: int, B: int, S: int,
     del again
     if profile:
         prof = _profile(f"prefill profile {arch}",
-                        lambda: step(model, {"tokens": tokens}))
+                        lambda: step(model, batch))
         check(prof["fa_fwd_ms"] > 0, f"{arch} prefill profile finds no "
               f"flash-attention kernel by name, though it launched")
-    del model, logits
+    del model, logits, batch
     torch.cuda.empty_cache()
-    return {"launches": launches, "first_s": first_s, "second_s": second_s,
-            "peak_gb": peak, "tokens_per_s": B * S / second_s}
+    out = {"launches": launches, "first_s": first_s, "second_s": second_s,
+           "peak_gb": peak, "tokens_per_s": B * S / second_s}
+    if profile:
+        out["profile"] = prof
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -1506,6 +1599,135 @@ def phase_serve(cfg, expect_serve: dict, expect_prefill: dict,
     torch.cuda.empty_cache()
     return {"max_abs_diff": err, "launches": serve_launches,
             "decode_ms": decode_ms}
+
+
+# ---------------------------------------------------------------------- #
+# 10f-10h. the encoder and the vision frontend
+# ---------------------------------------------------------------------- #
+def _normal(shape, seed: int) -> torch.Tensor:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda")
+
+
+def _qwen_inputs(cfg) -> dict:
+    """qwen2-vl-2b's frontend inputs: QWEN_PATCHES patch embeddings in
+    place of the first tokens' embeddings, and M-RoPE positions as
+    Qwen2-VL assigns them: the patches at temporal position 0 on a square
+    (height, width) grid, the text after them from the grid's side on,
+    on all three streams."""
+    n = QWEN_PATCHES
+    side = int(round(n ** 0.5))
+    i = torch.arange(QWEN_S, device="cuda")
+    text = i - n + side
+    pos = torch.stack([torch.where(i < n, 0, text),
+                       torch.where(i < n, i // side, text),
+                       torch.where(i < n, i % side, text)])
+    return {"patch_embeds": _normal((QWEN_B, n, cfg.d_model), seed=2),
+            "mrope_pos": pos[:, None].expand(3, QWEN_B, QWEN_S).contiguous()}
+
+
+def phase_seamless_decode(cfg) -> dict:
+    """The encoder-decoder decode: `prefill` on SEAMLESS_DEC_B prompts of
+    SEAMLESS_PROMPT tokens with SEAMLESS_SE frames each (the encoder and
+    the prompt's forward; the cache's `enc` is the encoder's output),
+    then the prompt replayed and SEAMLESS_GEN greedy tokens through
+    `decode_step`, whose cross attentions read the cache's `enc`: one
+    flash-attention launch a layer and step (Sq = 1 by Se), the
+    self-attention computed inline.  The replay within SERVE_TOL of the
+    prefill.  Then one decode step under `torch.profiler` (its device
+    busy time and idle share: the host's dispatch of ~1,000 small
+    launches outlasts the card's work) and the device time of the cross
+    attentions' key and value projections that every step recomputes
+    from `enc` (`CrossAttention.project_kv`, as the step calls it),
+    beside the step's bounds: the decoder's and the unembedding's
+    weights, `enc` and the cache read once, and the recompute's
+    operations on the CUDA cores (the products run in
+    float32, TF32 off)."""
+    from repro_torch import models
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.attention import CrossAttention
+    L, E = cfg.n_layers, cfg.n_encoder_layers
+    B, P, G, Se = SEAMLESS_DEC_B, SEAMLESS_PROMPT, SEAMLESS_GEN, SEAMLESS_SE
+    model = _build_model(cfg, SEAMLESS_PARAMS)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, P)),
+                              dtype=torch.int32).cuda()
+    frames = _normal((B, Se, cfg.d_model), seed=3)
+    step = make_serve_step(cfg)
+    with torch.inference_mode():
+        zero_launches()
+        last, cache = models.prefill(model, {"tokens": prompts,
+                                             "frame_embeds": frames},
+                                     max_len=P + G)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(launches == _expect(flash_attention=E + 2 * L),
+              f"seamless prefill with {Se} frames: launches {launches}")
+        check(tuple(cache.enc.shape) == (B, Se, cfg.d_model),
+              "the cache holds no encoder output")
+        zero_launches()
+        t0 = time.perf_counter()
+        for t in range(P):
+            logits, cache = models.decode_step(model, cache, prompts[:, t], t)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        tok, out = torch.argmax(logits, dim=-1).to(torch.int32), []
+        t0 = time.perf_counter()
+        for t in range(P, P + G):
+            out.append(tok)
+            tok, cache = step(model, cache, tok, t)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        decode_launches = read_launches()
+    check(decode_launches == _expect(flash_attention=(P + G) * L),
+          f"seamless decode launches {decode_launches}, expected "
+          f"{(P + G) * L}")
+    err = float((logits - last).abs().max())
+    check(err <= SERVE_TOL, f"seamless prefill vs prompt replay: max abs "
+          f"difference {err!r}")
+    gen = torch.stack(out, dim=1)
+    check(bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+          "generated ids outside the vocabulary")
+    with torch.inference_mode():
+        enc = cache.enc
+        prof = _profile("seamless decode step profile",
+                        lambda: models.decode_step(model, cache, tok,
+                                                   P + G - 1), top=6)
+        kv_ms = _cuda_ms(lambda: [
+            CrossAttention.project_kv(p["xattn"], cfg, enc)
+            for p in model.layers], reps=5)
+    weights = sum(p.numel() for layer in model.layers
+                  for p in layer.parameters()) \
+        + model.final_ln["scale"].numel() + model.embed["unembed"].numel()
+    nbytes = 4 * weights + enc.numel() * enc.element_size() + sum(
+        t.numel() * t.element_size() for c in cache for t in c.values())
+    kv_ops = 2 * B * Se * cfg.d_model * 2 * cfg.n_kv_heads * cfg.head_dim * L
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = kv_ops / PEAK_F32_OPS_PER_S * 1e3
+    decode_ms = gen_s / G * 1e3
+    log(f"seamless encoder-decoder decode B={B} prompt={P} gen={G} "
+        f"Se={Se}: prefill launches {json.dumps(launches)}; replay and "
+        f"generation launches {json.dumps(decode_launches)}; prefill vs "
+        f"prompt replay max abs difference {err!r} (tolerance "
+        f"{SERVE_TOL}); replay {replay_s * 1e3:.3f} ms, generation "
+        f"{decode_ms:.3f} ms/step (host clock), "
+        f"{B * G / gen_s:.3f} tok/s; first generated ids "
+        f"{gen[0, :16].tolist()}")
+    busy = prof["busy_ms"]
+    log(f"seamless decode step: device busy {busy!r} ms of a "
+        f"{prof['wall_ms']!r} ms profiled wall; the cross attentions' key "
+        f"and value projections from enc {kv_ms!r} ms ({kv_ms / busy:.4f} "
+        f"of the device time, {kv_ms / decode_ms:.4f} of the host-clock "
+        f"step; {kv_ops / 1e9:.1f} GFLOP); bounds: {nbytes / 1e9:.3f} GB "
+        f"read once {t_bytes!r} ms, the recompute's operations on the "
+        f"CUDA cores {t_ops!r} ms")
+    del model, cache, enc, frames, last, logits
+    torch.cuda.empty_cache()
+    return {"prefill_launches": launches["flash_attention"],
+            "launches": decode_launches["flash_attention"],
+            "max_abs_diff": err, "decode_ms": decode_ms,
+            "busy_ms": busy, "kv_ms": kv_ms, "bound_bytes_ms": t_bytes,
+            "bound_ops_ms": t_ops}
 
 
 # ---------------------------------------------------------------------- #
@@ -2340,6 +2562,27 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
         f"cores {cuda_core_mla!r}), library {library_mla!r} ms")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    # seamless's encoder self-attention (PR 24): no mask, 16 heads of 64
+    q, k, v = _fa_inputs(FA_SEAMLESS)
+    ms_sm = _cuda_ms(lambda: fa.flash_attention(q, k, v, causal=False),
+                     reps=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_sm = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt), reps=10)
+    bound_sm, by_sm, cuda_core_sm = _fa_bound(FA_SEAMLESS)
+    fa_entry.update({
+        "ms_seamless": ms_sm, "bound_seamless_ms": bound_sm,
+        "bound_seamless_by": by_sm,
+        "bound_seamless_cuda_core_ms": cuda_core_sm,
+        "library_seamless_ms": library_sm,
+        "max_abs_err_seamless": errs["flash_attention_seamless"],
+        "shape_seamless": "q/k/v [2,2048,16,64] float32, no mask "
+                          "(library: no mask)"})
+    log(f"timing flash_attention at {fa_entry['shape_seamless']}: kernel "
+        f"{ms_sm!r} ms, bound {bound_sm!r} ms ({by_sm}; on the CUDA cores "
+        f"{cuda_core_sm!r}), library {library_sm!r} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
 
     B, S, D = RG_MAIN
     x, a, h0 = _rg_inputs(B, S, D)
@@ -2735,6 +2978,31 @@ def main() -> int:
     log(f"phase seconds: 10d {t1 - t0:.1f}, 10e "
         f"{time.perf_counter() - t1:.1f}")
     t0 = time.perf_counter()
+    seamless = get_config(SEAMLESS_ARCH)
+    n_sm = seamless.n_encoder_layers + 2 * seamless.n_layers
+    sm_prefill = phase_prefill(
+        seamless, SEAMLESS_PARAMS, SEAMLESS_B, SEAMLESS_S,
+        _expect(flash_attention=n_sm), profile=True, label=" (frames)",
+        extra={"frame_embeds": _normal(
+            (SEAMLESS_B, SEAMLESS_S, seamless.d_model), seed=1)})
+    sm_decoder = phase_prefill(
+        seamless, SEAMLESS_PARAMS, SEAMLESS_B, SEAMLESS_S,
+        _expect(flash_attention=seamless.n_layers), label=" (no frames)")
+    t1 = time.perf_counter()
+    phase_serve(seamless, _expect(),
+                _expect(flash_attention=seamless.n_layers),
+                note=" (decoder only, as the JAX launcher runs it: no "
+                     "frames, its decode computes attention inline)")
+    sm_decode = phase_seamless_decode(seamless)
+    t2 = time.perf_counter()
+    qwen = get_config(QWEN_ARCH)
+    qwen_prefill = phase_prefill(
+        qwen, QWEN_PARAMS, QWEN_B, QWEN_S,
+        _expect(flash_attention=qwen.n_layers), extra=_qwen_inputs(qwen),
+        label=" (patches)")
+    log(f"phase seconds: 10f {t1 - t0:.1f}, 10g {t2 - t1:.1f}, 10h "
+        f"{time.perf_counter() - t2:.1f}")
+    t0 = time.perf_counter()
     bwd_errs = phase_backward_kernels_vs_plain()
     t1 = time.perf_counter()
     rwkv_bwd_err = phase_rwkv_backward_vs_plain()
@@ -2761,6 +3029,13 @@ def main() -> int:
         dbrx_prefill["launches"]["flash_attention"]
     kernels["kernels"][1]["launches_deepseek_prefill"] = \
         dsv3_prefill["launches"]["flash_attention"]
+    kernels["kernels"][1].update({
+        "launches_seamless_prefill": sm_prefill["launches"]["flash_attention"],
+        "launches_seamless_prefill_no_frames":
+            sm_decoder["launches"]["flash_attention"],
+        "launches_seamless_decode": sm_decode["launches"],
+        "launches_qwen2_vl_prefill":
+            qwen_prefill["launches"]["flash_attention"]})
     kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
                                                 rwkv_err))
     kernels["kernels"] += phase_train_timing(train_a, train_b, bwd_errs)

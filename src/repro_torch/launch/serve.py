@@ -7,7 +7,9 @@ The port of `repro.launch.serve`, with the same flags and `--device`
 (default `cuda`, which needs a card).  The prompt is replayed through
 `decode_step` to populate the cache (the decode-vs-forward equivalence is
 test-verified), then generation proceeds greedily.  Requests are batched:
-all sequences advance in lockstep.
+all sequences advance in lockstep.  An encoder-decoder config
+(seamless-m4t-large-v2) serves decoder-only, as the JAX launcher does:
+it passes no frames, so the cross attentions do not run.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Attention blocks: GQA/MQA (with local windows, softcap, RoPE/M-RoPE)
-and multi-head latent attention (MLA, DeepSeek-V3).
+"""Attention blocks: GQA/MQA (with local windows, softcap, RoPE/M-RoPE),
+multi-head latent attention (MLA, DeepSeek-V3) and encoder-decoder cross
+attention (seamless).
 
 The port of `repro.models.attention`.  `GQA` and `MLA` provide:
   init(gen, cfg, dtype)                              -> params
@@ -12,8 +13,10 @@ The port of `repro.models.attention`.  `GQA` and `MLA` provide:
 are ring buffers of size min(window, max_len).  Unlike the JAX package's
 immutable arrays, `apply_decode` writes the new key and value (MLA: the
 latent and the rotary key) into the cache in place (one slot per step,
-no copy of the cache) and returns the same dict.  Cross-attention is not
-ported yet.
+no copy of the cache) and returns the same dict.  `CrossAttention`
+provides `init` (GQA's) and `apply(p, cfg, x, enc, impl)`: queries from
+the decoder's x, keys and values from the encoder's output, no mask and
+no RoPE, in prefill and decode alike.
 """
 from __future__ import annotations
 
@@ -133,12 +136,6 @@ class GQA:
         return y, cache
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1, item 4 (the "
-        f"encoder and the vision frontend)")
-
-
 class MLA:
     """Multi-head latent attention (DeepSeek-V3).
 
@@ -254,10 +251,28 @@ class MLA:
 
 
 class CrossAttention:
-    """Encoder-decoder cross attention (seamless): not ported yet."""
+    """Encoder-decoder cross attention (seamless): the decoder's S rows
+    attend to all Se rows of the encoder's output, with no mask (the
+    flash-attention kernel at Sq != Sk on the card, Sq = 1 in decode).
+    Decode projects the keys and values from `enc` again at every step,
+    as the JAX package does."""
+
+    init = staticmethod(GQA.init)
 
     @staticmethod
-    def init(*args, **kw):
-        _not_ported("CrossAttention")
+    def project_kv(p, cfg: ModelConfig, enc: torch.Tensor):
+        """The keys and values [B, Se, Hkv, hd] from the encoder's
+        output (no RoPE)."""
+        B, Se, _ = enc.shape
+        k = dense(p["wk"], enc).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+        v = dense(p["wv"], enc).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+        return k, v
 
-    apply = init
+    @staticmethod
+    def apply(p, cfg: ModelConfig, x: torch.Tensor, enc: torch.Tensor,
+              impl: str = "auto") -> torch.Tensor:
+        B, S, _ = x.shape
+        q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        k, v = CrossAttention.project_kv(p, cfg, enc)
+        o = ops.attention(q, k, v, causal=False, impl=impl)
+        return dense(p["wo"], o.reshape(B, S, -1))

@@ -4,10 +4,14 @@ The JAX package's parameter tree, as nested dicts of numpy arrays (what
 `jax.tree.map(np.asarray, params)` gives), stacks the layers of each
 repeat of the layer pattern along a leading `n_stages` axis under
 `params["stages"]` (keys `b{i}_{kind}`) and keeps the partial last repeat
-under `params["tail"]`; a config with `mtp_depth` adds the MTP head's
-blocks, unstacked, under `params["mtp"]` (keys `b{i}_attn`) and its norm
-under `params["mtp_ln"]`.  The port keeps one flat list of layers in
-layer order, and the head's blocks as a list under "mtp".  Dense weights
+under `params["tail"]`; an encoder-decoder config adds the encoder, its
+layers stacked under `params["encoder"]["stages"]["b0_attn"]` and its
+norm under `params["encoder"]["final_ln"]` (each decoder block carries
+its cross attention, `ln_x` and `xattn`); a config with `mtp_depth` adds
+the MTP head's blocks, unstacked, under `params["mtp"]` (keys
+`b{i}_attn`) and its norm under `params["mtp_ln"]`.  The port keeps one
+flat list of layers in layer order, the encoder as {"layers": [...],
+"final_ln"}, and the head's blocks as a list under "mtp".  Dense weights
 have the same [d_in, d_out] layout in both, so nothing is transposed:
 the conversion only unstacks and restacks.
 
@@ -43,8 +47,9 @@ def _stage_keys(cfg: ModelConfig):
 
 def from_jax_tree(cfg: ModelConfig, tree: dict, *, device="cuda") -> dict:
     """A tree in the JAX package's layout (numpy leaves) as the port's
-    {"embed", "final_ln", "layers": [...]} of tensors on `device`, each
-    leaf in its own dtype."""
+    {"embed", "final_ln", "layers": [...]} (and "encoder", "mtp" and
+    "mtp_ln" where the tree has them) of tensors on `device`, each leaf
+    in its own dtype.  A key the port has no block for raises."""
     device = resolve_device(device)
     pattern, n_stages, tail = _stage_keys(cfg)
 
@@ -59,14 +64,19 @@ def from_jax_tree(cfg: ModelConfig, tree: dict, *, device="cuda") -> dict:
     for i, kind in enumerate(tail):
         layers.append(_map(tree["tail"][f"b{i}_{kind}"], tensor))
     for key in tree:
-        if key not in ("embed", "final_ln", "stages", "tail", "mtp",
-                       "mtp_ln"):
-            raise NotImplementedError(
-                f"parameters {key!r} belong to a block this slice does not "
-                f"run: ROADMAP.md queue 1, item 4")
+        if key not in ("embed", "final_ln", "stages", "tail", "encoder",
+                       "mtp", "mtp_ln"):
+            raise ValueError(f"parameters {key!r} belong to no block of "
+                             f"the port's model")
     out = {"embed": _map(tree["embed"], tensor),
            "final_ln": _map(tree["final_ln"], tensor),
            "layers": layers}
+    if "encoder" in tree:
+        stacked = tree["encoder"]["stages"]["b0_attn"]
+        out["encoder"] = {
+            "layers": [_map(stacked, lambda a, s=s: tensor(a[s]))
+                       for s in range(cfg.n_encoder_layers)],
+            "final_ln": _map(tree["encoder"]["final_ln"], tensor)}
     if "mtp" in tree:
         out["mtp"] = [_map(tree["mtp"][f"b{i}_attn"], tensor)
                       for i in range(len(tree["mtp"]))]
@@ -93,6 +103,11 @@ def to_jax_tree(cfg: ModelConfig, tree: dict) -> dict:
     if tail:
         out["tail"] = {f"b{i}_{kind}": _map(layers[n_stages * P + i], array)
                        for i, kind in enumerate(tail)}
+    if "encoder" in tree:
+        out["encoder"] = {
+            "stages": {"b0_attn": _stack([_map(block, array) for block in
+                                          tree["encoder"]["layers"]])},
+            "final_ln": _map(tree["encoder"]["final_ln"], array)}
     if "mtp" in tree:
         out["mtp"] = {f"b{i}_attn": _map(block, array)
                       for i, block in enumerate(tree["mtp"])}

@@ -24,8 +24,9 @@ __all__ = ["Params", "rms_norm", "init_rms_norm", "rope", "mrope",
 class Params(nn.Module):
     """A nested dict of tensors as a module: dict keys become submodules,
     tensor leaves become parameters (frozen: `requires_grad_(True)` on
-    the model turns them on for training), and `p[key]` reads either, as
-    the JAX package's dict params are read."""
+    the model turns them on for training), and `p[key]` reads either and
+    `key in p` tests for either, as the JAX package's dict params are
+    read."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -38,6 +39,9 @@ class Params(nn.Module):
 
     def __getitem__(self, key: str):
         return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
 
     def tree(self) -> dict:
         """The nested dict of tensors back (the parameters themselves)."""

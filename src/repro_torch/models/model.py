@@ -1,8 +1,13 @@
 """The model: a stack of pattern-typed blocks (attn / local / global /
 rec / rwkv; each attention block GQA or, for an MLA config, multi-head
 latent attention, with an MLP or, for an MoE config, an MoE layer)
-between an embedding and an unembedding, and for a config with
-`mtp_depth` the multi-token-prediction head that `loss_fn` trains.
+between an embedding and an unembedding; for an encoder-decoder config
+(seamless) a bidirectional encoder over precomputed frame embeddings,
+read by a cross attention in every decoder block; for a vision config
+(qwen2-vl) precomputed patch embeddings in place of the first token
+embeddings; and for a config with `mtp_depth` the multi-token-prediction
+head that `loss_fn` trains.  The audio and vision frontends themselves
+are stubs in the JAX package too: a batch carries their embeddings.
 
 The port of `repro.models.model`.  The JAX package stacks
 the layers of each repeat of `cfg.layer_pattern` along a leading axis and
@@ -16,16 +21,19 @@ API (the JAX package's, with a `Model` where it passes (cfg, params)):
   loss_fn(model, batch, impl, remat) -> scalar
   init_cache(model, batch, max_len)
   prefill(model, batch, max_len, impl) -> (logits_last, cache)
-  decode_step(model, cache, tokens, pos) -> (logits, cache)
+  decode_step(model, cache, tokens, pos, enc) -> (logits, cache)
   param_tree(model) -> the parameters as `init_params` shapes them
+
+A batch is {"tokens": [B, S]} and, where the config has them,
+"frame_embeds" [B, Se, d] (the encoder's input), "patch_embeds"
+[B, N, d] and "mrope_pos" [3, B, S].
 
 The weights are built frozen (serving runs under `inference_mode`); a
 trainer turns them on with `model.requires_grad_(True)`.
 
-Blocks and features outside this slice raise NotImplementedError naming
-their ROADMAP.md item.  Sharding (`maybe_shard`) and the scan barrier
-have no counterpart: the first goes with ROADMAP.md queue 1, item 10, and
-the second only steers XLA.
+Sharding (`maybe_shard`) and the scan barrier have no counterpart: the
+first goes with ROADMAP.md queue 1, item 10, and the second only steers
+XLA.
 """
 from __future__ import annotations
 
@@ -35,25 +43,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.cuda import resolve_device
-from .attention import GQA, MLA
+from .attention import GQA, MLA, CrossAttention
 from .layers import (Params, embed, init_embedding, init_mlp,
                      init_rms_norm, mlp, rms_norm, unembed)
 from .moe import MoE
 from .recurrent import RGLRUBlock
 from .rwkv import RWKV6Block
 
-__all__ = ["Model", "init_params", "layer_kinds", "forward", "loss_fn",
-           "init_cache", "prefill", "decode_step", "param_tree"]
-
-
-# ---------------------------------------------------------------------- #
-# what this slice runs
-# ---------------------------------------------------------------------- #
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_encoder_layers:
-        raise NotImplementedError(
-            f"the encoder is not ported yet, so {cfg.name} does not run: "
-            f"ROADMAP.md queue 1, item 4")
+__all__ = ["Model", "Cache", "init_params", "layer_kinds", "forward",
+           "loss_fn", "init_cache", "prefill", "decode_step", "param_tree"]
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -90,7 +88,8 @@ def _positions(cfg: ModelConfig, batch: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------- #
 # block-level init / apply
 # ---------------------------------------------------------------------- #
-def _block_init(gen, cfg: ModelConfig, kind: str, dtype) -> dict:
+def _block_init(gen, cfg: ModelConfig, kind: str, dtype,
+                cross: bool = False) -> dict:
     if kind == "rwkv":
         return {"ln": init_rms_norm(cfg.d_model, gen, dtype),
                 "rwkv": RWKV6Block.init(gen, cfg, dtype)}
@@ -104,13 +103,18 @@ def _block_init(gen, cfg: ModelConfig, kind: str, dtype) -> dict:
         p["moe"] = MoE.init(gen, cfg, dtype)
     else:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    if cross:
+        p["ln_x"] = init_rms_norm(cfg.d_model, gen, dtype)
+        p["xattn"] = CrossAttention.init(gen, cfg, dtype)
     return p
 
 
 def _block_apply(p, cfg: ModelConfig, kind: str, h, positions,
-                 impl: str = "auto"):
+                 enc=None, impl: str = "auto"):
     """One block, full-sequence.  Returns (h, the MoE aux loss: a float32
-    scalar, None without MoE)."""
+    scalar, None without MoE).  A decoder block of an encoder-decoder
+    config attends to `enc` after its self-attention; without `enc` it
+    runs as a plain decoder block."""
     if kind == "rwkv":      # the block carries its own residuals
         return RWKV6Block.apply(p["rwkv"], cfg, rms_norm(p["ln"], h),
                                 impl=impl), None
@@ -122,6 +126,9 @@ def _block_apply(p, cfg: ModelConfig, kind: str, h, positions,
                                      positions,
                                      window=_window_for(cfg, kind),
                                      impl=impl)
+    if "xattn" in p and enc is not None:
+        h = h + CrossAttention.apply(p["xattn"], cfg, rms_norm(p["ln_x"], h),
+                                     enc, impl=impl)
     x = rms_norm(p["ln2"], h)
     if cfg.is_moe:
         return h + MoE.apply(p["moe"], cfg, x), MoE.aux_loss(p["moe"], cfg, x)
@@ -139,7 +146,8 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                                      dtype=dtype, device=device)
 
 
-def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int):
+def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int,
+                  enc=None):
     if kind == "rwkv":
         return RWKV6Block.apply_decode(p["rwkv"], cfg, rms_norm(p["ln"], h),
                                        cache, pos)
@@ -151,6 +159,9 @@ def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int):
             p["attn"], cfg, rms_norm(p["ln1"], h), cache, pos,
             window=_window_for(cfg, kind))
     h = h + y
+    if "xattn" in p and enc is not None:   # impl "auto", as in JAX
+        h = h + CrossAttention.apply(p["xattn"], cfg,
+                                     rms_norm(p["ln_x"], h), enc)
     x = rms_norm(p["ln2"], h)
     if cfg.is_moe:        # each token its own group; no aux in decode
         return h + MoE.apply(p["moe"], cfg, x), cache
@@ -163,16 +174,25 @@ def _block_decode(p, cfg: ModelConfig, kind: str, h, cache, pos: int):
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype=torch.float32) -> dict:
     """Random weights on the generator's device, with the distributions of
-    the JAX package's `init_params`: {"embed", "final_ln", "layers"}, and
+    the JAX package's `init_params`, drawn in its order: {"embed",
+    "final_ln", "layers"} (each decoder block of an encoder-decoder
+    config with its cross attention, "ln_x" and "xattn"), then for
+    `cfg.n_encoder_layers` the encoder ("encoder": {"layers": [...],
+    "final_ln"}, each layer an "attn" block without cross attention), then
     with `cfg.mtp_depth` the MTP head's blocks ("mtp", a list of
     `mtp_depth` attention blocks) and its norm ("mtp_ln")."""
-    _check_supported(cfg)
+    cross = cfg.n_encoder_layers > 0
     params = {
         "embed": init_embedding(gen, cfg, dtype),
         "final_ln": init_rms_norm(cfg.d_model, gen, dtype),
-        "layers": [_block_init(gen, cfg, kind, dtype)
+        "layers": [_block_init(gen, cfg, kind, dtype, cross=cross)
                    for kind in layer_kinds(cfg)],
     }
+    if cfg.n_encoder_layers:
+        params["encoder"] = {
+            "layers": [_block_init(gen, cfg, "attn", dtype)
+                       for _ in range(cfg.n_encoder_layers)],
+            "final_ln": init_rms_norm(cfg.d_model, gen, dtype)}
     if cfg.mtp_depth:
         params["mtp"] = [_block_init(gen, cfg, "attn", dtype)
                          for _ in range(cfg.mtp_depth)]
@@ -194,7 +214,6 @@ class Model(nn.Module):
                  params: dict | None = None):
         super().__init__()
         dev = resolve_device(device)
-        _check_supported(cfg)
         if params is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
@@ -210,6 +229,18 @@ class Model(nn.Module):
         self.embed = Params(params["embed"])
         self.final_ln = Params(params["final_ln"])
         self.layers = nn.ModuleList(Params(p) for p in params["layers"])
+        # the encoder, which `forward` and `prefill` run on a batch's
+        # frame embeddings
+        if cfg.n_encoder_layers:
+            enc = params.get("encoder", {"layers": []})
+            if len(enc["layers"]) != cfg.n_encoder_layers:
+                raise ValueError(f"{len(enc['layers'])} encoder layers "
+                                 f"given, {cfg.name} has "
+                                 f"{cfg.n_encoder_layers}")
+            self.encoder = nn.ModuleList(Params(p) for p in enc["layers"])
+            self.encoder_ln = Params(enc["final_ln"])
+        else:
+            self.encoder = self.encoder_ln = None
         # the MTP head, which only `loss_fn` reads (as in the JAX package,
         # a tree without it trains without its term)
         if "mtp" in params:
@@ -227,31 +258,72 @@ class Model(nn.Module):
         return self.final_ln["scale"].dtype
 
     def forward(self, batch: dict, impl: str = "auto", remat: bool = False):
-        """batch: {"tokens": [B, S]}.  Returns (logits [B, S, V], aux),
-        aux being the sum of the layers' MoE auxiliary losses (a float32
-        scalar, 0 without MoE).
+        """batch: {"tokens": [B, S], optional frontend inputs}.  Returns
+        (logits [B, S, V], aux), aux being the sum of the layers' MoE
+        auxiliary losses (a float32 scalar, 0 without MoE).
         With `remat`, each layer is checkpointed: the backward recomputes
         its internals instead of keeping them (the JAX package checkpoints
         each stage of its layer scan)."""
-        cfg = self.cfg
-        if "patch_embeds" in batch:
-            raise NotImplementedError(
-                "the vision frontend is not ported yet: ROADMAP.md queue 1, "
-                "item 4")
-        h = embed(self.embed, cfg, batch["tokens"].long())
-        positions = _positions(cfg, batch)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for kind, p in zip(self.kinds, self.layers):
-            if remat and torch.is_grad_enabled():
-                h, a = checkpoint(_block_apply, p, cfg, kind, h, positions,
-                                  impl, use_reentrant=False)
-            else:
-                h, a = _block_apply(p, cfg, kind, h, positions, impl=impl)
-            if a is not None:
-                aux = aux + a
-        h = rms_norm(self.final_ln, h)
-        logits = unembed(self.embed, cfg, h)
+        logits, aux, _ = _forward(self, batch, impl, remat)
         return logits, aux
+
+
+def _encode(model: Model, frames: torch.Tensor,
+            impl: str = "auto") -> torch.Tensor:
+    """Run the (non-causal) encoder over precomputed frame embeddings
+    [B, Se, d]: each layer's self-attention with RoPE at positions
+    0..Se-1 and no mask, then its MLP; then the encoder's norm.  Its
+    callers pass no `impl`, as in the JAX package, so on the card the
+    encoder launches the flash-attention kernel even under a
+    `forward(impl="ref")`."""
+    cfg = model.cfg
+    B, S, _ = frames.shape
+    positions = torch.arange(S, device=frames.device)[None].expand(B, S)
+    h = frames
+    for blk in model.encoder:
+        h = h + GQA.apply_bidirectional(blk["attn"], cfg,
+                                        rms_norm(blk["ln1"], h), positions,
+                                        impl=impl)
+        h = h + mlp(blk["mlp"], rms_norm(blk["ln2"], h), cfg.hidden_act)
+    return rms_norm(model.encoder_ln, h)
+
+
+def _inputs_to_hidden(model: Model, batch: dict):
+    """(the token embeddings [B, S, d], with a batch's `patch_embeds`
+    [B, N, d] in place of the first N for a vision config; the encoder's
+    output on a batch's `frame_embeds`, cast to the hidden dtype, for an
+    encoder-decoder config, else None)."""
+    cfg = model.cfg
+    h = embed(model.embed, cfg, batch["tokens"].long())
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(h.dtype)
+        h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
+    enc = None
+    if cfg.n_encoder_layers and "frame_embeds" in batch:
+        enc = _encode(model, batch["frame_embeds"].to(h.dtype))
+    return h, enc
+
+
+def _forward(model: Model, batch: dict, impl: str, remat: bool):
+    """(logits, aux, the encoder's output or None): `Model.forward`, and
+    the encoder's output that `prefill` puts on the cache."""
+    cfg = model.cfg
+    h, enc = _inputs_to_hidden(model, batch)
+    positions = _positions(cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for kind, p in zip(model.kinds, model.layers):
+        if remat and torch.is_grad_enabled():
+            # `enc` goes in as an input, so the backward gives the
+            # encoder every cross attention's gradient
+            h, a = checkpoint(_block_apply, p, cfg, kind, h, positions, enc,
+                              impl, use_reentrant=False)
+        else:
+            h, a = _block_apply(p, cfg, kind, h, positions, enc=enc,
+                                impl=impl)
+        if a is not None:
+            aux = aux + a
+    h = rms_norm(model.final_ln, h)
+    return unembed(model.embed, cfg, h), aux, enc
 
 
 # ---------------------------------------------------------------------- #
@@ -281,7 +353,7 @@ def loss_fn(model: Model, batch: dict, impl: str = "auto",
     if cfg.is_moe:
         loss = loss + aux_weight * aux
     if cfg.mtp_depth and model.mtp is not None:
-        h = embed(model.embed, cfg, tokens)
+        h, _ = _inputs_to_hidden(model, batch)
         positions = _positions(cfg, batch)
         for p in model.mtp:
             h, _ = _block_apply(p, cfg, "attn", h, positions, impl=impl)
@@ -294,46 +366,68 @@ def loss_fn(model: Model, batch: dict, impl: str = "auto",
 
 def param_tree(model: Model) -> dict:
     """The model's parameters (the tensors themselves) as `init_params`
-    shapes them: {"embed", "final_ln", "layers": [...]}, and "mtp" and
-    "mtp_ln" where the model holds the MTP head.  Gradients and optimizer
-    moments are trees of the same shape."""
+    shapes them: {"embed", "final_ln", "layers": [...]}, "encoder" where
+    the model holds one, and "mtp" and "mtp_ln" where it holds the MTP
+    head.  Gradients and optimizer moments are trees of the same shape."""
     tree = {"embed": model.embed.tree(), "final_ln": model.final_ln.tree(),
             "layers": [p.tree() for p in model.layers]}
+    if model.encoder is not None:
+        tree["encoder"] = {"layers": [p.tree() for p in model.encoder],
+                           "final_ln": model.encoder_ln.tree()}
     if model.mtp is not None:
         tree["mtp"] = [p.tree() for p in model.mtp]
         tree["mtp_ln"] = model.mtp_ln.tree()
     return tree
 
 
-def init_cache(model: Model, batch: int, max_len: int) -> list[dict]:
+class Cache(list):
+    """The decode cache: one dict per layer, in layer order (a list, as
+    every caller indexes it), and as `enc` the encoder's output
+    [B, Se, d] that the cross attentions read (None: none is read).  The
+    JAX package keeps it as `cache["enc"]`."""
+
+    enc: torch.Tensor | None = None
+
+
+def init_cache(model: Model, batch: int, max_len: int) -> Cache:
     """One cache dict per layer, in layer order, on the model's device and
-    in its dtype (the recurrent state is float32)."""
-    return [_block_cache(model.cfg, kind, batch, max_len, model.dtype,
-                         model.device) for kind in model.kinds]
+    in its dtype (the recurrent state is float32); no encoder output."""
+    return Cache(_block_cache(model.cfg, kind, batch, max_len, model.dtype,
+                              model.device) for kind in model.kinds)
 
 
 def decode_step(model: Model, cache: list[dict], tokens: torch.Tensor,
-                pos: int) -> tuple[torch.Tensor, list[dict]]:
+                pos: int, enc: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, Cache]:
     """tokens [B] (current token), pos an int.  Returns (logits [B, V],
-    the cache with this position written)."""
+    the cache with this position written).  For an encoder-decoder
+    config the cross attentions read `enc`, by default the cache's."""
     cfg = model.cfg
+    new_cache = Cache()
+    new_cache.enc = getattr(cache, "enc", None)
+    if enc is None:
+        enc = new_cache.enc
     h = embed(model.embed, cfg, tokens.long()[:, None])
-    new_cache = []
     for kind, p, c in zip(model.kinds, model.layers, cache):
-        h, c = _block_decode(p, cfg, kind, h, c, pos)
+        h, c = _block_decode(p, cfg, kind, h, c, pos, enc=enc)
         new_cache.append(c)
     h = rms_norm(model.final_ln, h)
     return unembed(model.embed, cfg, h)[:, 0], new_cache
 
 
 def prefill(model: Model, batch: dict, max_len: int,
-            impl: str = "auto") -> tuple[torch.Tensor, list[dict]]:
+            impl: str = "auto") -> tuple[torch.Tensor, Cache]:
     """Process the full prompt, returning (last-position logits, cache).
 
     As in the JAX package, the prompt's forward pass runs here and the
     returned cache starts empty; the serving loop replays the prompt
-    through `decode_step` to fill it (see launch/serve.py)."""
-    logits, _ = forward(model, batch, impl=impl)
+    through `decode_step` to fill it (see launch/serve.py).  For an
+    encoder-decoder batch with `frame_embeds` the cache's `enc` is the
+    encoder's output: the forward pass's own (the JAX package encodes the
+    frames a second time, the same function of the same inputs)."""
+    logits, _, enc = _forward(model, batch, impl, remat=False)
     last = logits[:, -1].clone()    # frees the [B, S, V] logits
     del logits
-    return last, init_cache(model, batch["tokens"].shape[0], max_len)
+    cache = init_cache(model, batch["tokens"].shape[0], max_len)
+    cache.enc = enc
+    return last, cache

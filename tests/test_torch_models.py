@@ -352,35 +352,59 @@ def test_text_models_outside_the_slice_run_too(setups, jx):
     ("deepseek-v3-671b", ()), ("seamless-m4t-large-v2", ()),
     ("deepseek-v3-671b", ("use_mla",))])
 def test_blocks_outside_the_slice_raise(name, unset):
-    """The encoder (seamless-m4t-large-v2) raises item 4; deepseek-v3
-    builds, with MLA and with MLA turned off (GQA), its MoE layers
-    and its MTP head alike."""
+    """Every config builds and runs: seamless-m4t-large-v2 with its
+    encoder and a cross attention in each decoder block (its forward on
+    frame embeddings finite), deepseek-v3 with MLA and with MLA turned
+    off (GQA), its MoE layers and its MTP head alike
+    (tests/test_torch_encdec.py and tests/test_torch_mla.py hold them to
+    the JAX package)."""
     cfg = reduced_config(get_config(name))
     cfg = dataclasses.replace(cfg, **{field: False for field in unset})
+    model = models.Model(cfg, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
     if cfg.n_encoder_layers:
-        with pytest.raises(NotImplementedError,
-                           match="encoder.*ROADMAP.md.*item 4"):
-            models.Model(cfg, device="cpu")
-        return
-    model = models.Model(cfg, device="cpu")
-    assert ("wkv_a" in model.layers[0]["attn"].tree()) == cfg.use_mla
-    assert len(model.mtp) == cfg.mtp_depth == 1
-    logits, _ = models.forward(model, {"tokens": torch.zeros(
-        (1, 4), dtype=torch.int64)})
+        assert len(model.encoder) == cfg.n_encoder_layers
+        assert all("xattn" in p and "ln_x" in p for p in model.layers)
+        batch["frame_embeds"] = torch.ones((1, 3, cfg.d_model))
+    else:
+        assert ("wkv_a" in model.layers[0]["attn"].tree()) == cfg.use_mla
+        assert len(model.mtp) == cfg.mtp_depth == 1
+    logits, _ = models.forward(model, batch)
     assert logits.shape == (1, 4, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
-def test_vision_frontend_and_training_raise():
-    """The vision frontend raises item 4 in the forward pass and in
-    training through it (`loss_fn` itself is ported)."""
-    cfg = reduced_config(get_config("qwen2-vl-2b"))
-    model = models.Model(cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "patch_embeds": torch.zeros((1, 2, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
-        models.forward(model, batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
-        models.loss_fn(model, batch)
+def _patch_batch(cfg, seed=6):
+    """qwen2-vl's batch with its vision frontend, as numpy arrays: 12
+    tokens, explicit M-RoPE positions, and 4 patch embeddings in place
+    of the first 4 tokens' (the JAX package's tests/test_models.py
+    draws)."""
+    rng = np.random.default_rng(seed)
+    batch = _inputs(cfg, _tokens(cfg.vocab_size, seed=seed))
+    batch["patch_embeds"] = rng.standard_normal(
+        (2, 4, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def test_vision_frontend_and_training_raise(setups, jx):
+    """The vision frontend (qwen2-vl-2b's patch embeddings, with explicit
+    M-RoPE positions): `forward` and `loss_fn` against the JAX package's
+    (1e-4), and the patches change the logits."""
+    jax, jnp = jx.jax, jx.jnp
+    model, jcfg, params, _, _ = setups("qwen2-vl-2b")
+    batch = _patch_batch(jcfg)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    want, _ = jx.models.forward(jcfg, params, jbatch, impl="pallas")
+    logits, _ = models.forward(model, tbatch)
+    assert float(np.abs(logits.numpy() - np.asarray(want)).max()) < 1e-4
+    text, _ = models.forward(model, {k: v for k, v in tbatch.items()
+                                     if k != "patch_embeds"})
+    assert float((text - logits).abs().max()) > 1e-3
+    jloss = jx.models.loss_fn(jcfg, params, jbatch)
+    loss = models.loss_fn(model, tbatch)
+    assert abs(float(loss) - float(jloss)) <= 1e-4 * max(1.0,
+                                                         abs(float(jloss)))
 
 
 # ---------------------------------------------------------------------- #

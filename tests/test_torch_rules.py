@@ -165,10 +165,11 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_unported_paths_raise_and_name_their_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="encoder .*seamless-m4t-"
-                       "large-v2.*ROADMAP.md.*item 4"):
-        models.Model(reduced_config(get_config("seamless-m4t-large-v2")),
-                     device="cpu")
+    """The capture half of item 5 raises; the encoder (item 4c) is ported,
+    so seamless-m4t-large-v2 builds."""
+    model = models.Model(reduced_config(get_config("seamless-m4t-large-v2")),
+                         device="cpu")
+    assert model.encoder is not None and model.encoder_ln is not None
     from repro_torch.trace.__main__ import main as trace_cli
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 5"):
         trace_cli(["record", os.path.join(tmp_path, "r.ndjson")])

@@ -547,13 +547,40 @@ def test_loss_fn_and_its_gradients_match_jax(name, carried, jx):
         assert float((a - b).abs().max()) <= 1e-6
 
 
-def test_loss_fn_raises_for_blocks_outside_the_slice():
-    """The encoder (seamless-m4t-large-v2) raises item 4 before `loss_fn`
-    can run; deepseek-v3's MLA and MTP head train (tests/test_torch_mla.py
-    holds them to the JAX package)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 4"):
-        models.Model(reduced_config(get_config("seamless-m4t-large-v2")),
-                     device="cpu")
+def test_loss_fn_raises_for_blocks_outside_the_slice(carried, jx):
+    """seamless-m4t-large-v2 trains through its encoder: `loss_fn` on a
+    batch with frame embeddings and every gradient leaf, the encoder's
+    and the cross attentions' included, against the JAX package's, with
+    and without remat (deepseek-v3's MLA and MTP head are held in
+    tests/test_torch_mla.py)."""
+    jcfg, params, cfg = carried("seamless-m4t-large-v2")
+    toks = _tokens(cfg.vocab_size, (2, 12))
+    frames = np.random.default_rng(1).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32)
+    jloss, jgrads = jx.jax.value_and_grad(
+        lambda p: jx.models.loss_fn(jcfg, p, {
+            "tokens": jx.jnp.asarray(toks),
+            "frame_embeds": jx.jnp.asarray(frames)}))(params)
+    model = _port_model(jx, cfg, params)
+    batch = {"tokens": torch.as_tensor(toks),
+             "frame_embeds": torch.as_tensor(frames)}
+    tree = models.param_tree(model)
+    want = _flat(jx.jax.tree.map(np.asarray, jgrads))
+    losses = []
+    for remat in (False, True):
+        loss = models.loss_fn(model, batch, remat=remat)
+        assert abs(float(loss.detach()) - float(jloss)) <= 1e-4 * max(
+            1.0, abs(float(jloss)))
+        grads = torch.autograd.grad(loss, tree_leaves(tree))
+        it = iter(grads)
+        got = _flat(models.to_jax_tree(cfg, tree_map(lambda p: next(it),
+                                                     tree)))
+        assert got.keys() == want.keys()
+        assert any(k.startswith("/encoder") for k in got)
+        for key in want:
+            assert _scaled_err(got[key], want[key]) < 1e-4, (remat, key)
+        losses.append(float(loss.detach()))
+    assert abs(losses[1] - losses[0]) <= 1e-6
 
 
 @pytest.mark.parametrize("n_micro,accum", [
