@@ -185,7 +185,8 @@ Phases, each reported on its own line(s):
    seamless prefill's with and without frames, its encoder-decoder
    decode's and the qwen2-vl-2b prefill's as
    `launches_seamless_prefill`, `launches_seamless_prefill_no_frames`,
-   `launches_seamless_decode` and `launches_qwen2_vl_prefill`), and the
+   `launches_seamless_decode` and `launches_qwen2_vl_prefill`; the
+   capture path's planning as `launches_capture_plan`), and the
    three
    backward kernels (flash attention's at path A's layer shape and, as
    `ms_path_b` beside its `bound_path_b_ms` and SDPA's backward
@@ -194,8 +195,9 @@ Phases, each reported on its own line(s):
    shape, with the bound for the bytes its design moves beside the
    function's (`bound_design_ms`) and its 0.25 ms aim; RWKV6's at path
    C's layer shape, with the forward beside it with and without its
-   checkpoint write, its scratch bytes and its 1.25 ms aim): seven
-   entries;
+   checkpoint write, its scratch bytes and its 1.25 ms aim; the flash
+   attention forward's and backward's launches in the captured train
+   step as `launches_capture_step`): seven entries;
 12. backward kernels: flash attention's (`csrc/flash_attention_bwd.cu`)
    on `FA_CASES`, on every head dim in float32 and bfloat16 over
    `FA_BWD_EDGES` (GQA groups of 1, 2, 3 and 16, lengths that are not a
@@ -243,7 +245,29 @@ Phases, each reported on its own line(s):
    under `torch.profiler`;
 15. the training CLI (`python -m repro_torch.launch.train`, reduced
    smollm-360m on the card) twice on one `--ckpt-dir`: the second run
-   resumes from the first's checkpoint.
+   resumes from the first's checkpoint;
+17. capture path (`repro_torch.core.op_graph`): (a) `python -m
+   repro_torch.trace record` on the card for the three demo programs, one
+   process each, all started together, each trace ingesting to the
+   in-process capture's graph on the card and on the host, bit for bit
+   with the labels; (b) a reduced recurrentgemma-9b forward through the
+   flash-attention and RG-LRU kernels captured on the card and on the
+   host, the two graphs bit-identical and its kernel vertices equal to
+   the launches read around the call; (c) path A's full-width
+   smollm-360m train step (8 x 2,048 tokens in 2 microbatches) captured
+   on the card: its loss and every updated parameter bit-identical to an
+   uncaptured step from the same seed, its `flash_attention` and
+   `flash_attention_bwd` vertices equal to the launches (64 each), one
+   `silu_backward` vertex a layer and microbatch (the backward's
+   operators seen on autograd's device thread), its vertex and edge
+   counts, ten most frequent labels and wall time captured against
+   uncaptured logged; (d) `optimal_parallelism` over p in (2, 4, 8, 16,
+   32) with `backend="cuda"` on that step: each report's cut and replica
+   CSR bit-identical to `plan_graph(backend="fast")` on the same graph,
+   exec_time and comm_bytes to rtol 1e-12, `run_pipeline` at each p equal
+   to `fast` as in phase 4 (core_of included), the argmin picked,
+   `plan_step(p=8)` equal to the p=8 report, the segment sum's launches
+   and each plan's seconds logged.
 
 The last line is `{"ok": true, "device": {...}}`.  Any failure raises
 and the script exits non-zero before that line.  It imports nothing of
@@ -471,6 +495,11 @@ RWKV_BWD = (TRAIN_C_B // TRAIN_C_MICRO, TRAIN_C_S, 64, 64, 64)
 RWKV_BWD_STRESS = [(1, 33, 2, 8, 20), (1, 33, 2, 40, 24), (1, 33, 2, 64, 20),
                    (1, 37, 2, 64, 300), (2, 300, 2, 64, 40)]
 RWKV_BWD_EDGES = (1, 512, 8, 64, 64)
+
+# the capture path: the reduced recurrentgemma-9b forward's tokens (B, S)
+# and optimal_parallelism's candidates, the JAX package's defaults
+CAPTURE_MODEL_TOKENS = (2, 64)
+CAPTURE_P = (2, 4, 8, 16, 32)
 
 GRAPH_N, GRAPH_ALPHA, GRAPH_SEED = 3_000_000, 2.2, 0
 P_MAIN = (1024, 64)
@@ -2376,6 +2405,257 @@ def phase_train_cli(tmp: str) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# 17. the capture path: program -> IR graph -> NDJSON, and a full-width
+# train step planned on the card
+# ---------------------------------------------------------------------- #
+def _same_labelled(a, b) -> bool:
+    return _same_graph(a, b) and list(a.node_labels) == list(b.node_labels)
+
+
+def _graph_diff(a, b) -> str:
+    """Where two captured graphs part: their sizes, the labels one has
+    more of than the other, and the first vertex whose label differs."""
+    import collections
+    ca, cb = (collections.Counter(g.node_labels) for g in (a, b))
+    la, lb = list(a.node_labels), list(b.node_labels)
+    i = next((i for i, (x, y) in enumerate(zip(la, lb)) if x != y),
+             min(len(la), len(lb)))
+    return (f"{a.n} vs {b.n} vertices, {a.num_edges} vs {b.num_edges} "
+            f"edges; labels only in the first {dict(ca - cb)}, only in the "
+            f"second {dict(cb - ca)}; first differing vertex {i}: "
+            f"{la[max(0, i - 3):i + 4]} vs {lb[max(0, i - 3):i + 4]}")
+
+
+def _capture_demos(tmp: str) -> None:
+    """(a) `python -m repro_torch.trace record` on the card, one process
+    per demo program, all started together; each trace ingests to the
+    in-process capture's graph on the card and on the host."""
+    from repro_torch.core.op_graph import trace_to_graph
+    from repro_torch.trace import DEMO_PROGRAMS, demo_program, ingest_trace
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")))))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.trace", "record",
+         os.path.join(tmp, f"{name}.ndjson"), "--program", name],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for name in sorted(DEMO_PROGRAMS)}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        check(proc.returncode == 0, f"record {name} exited "
+              f"{proc.returncode}: {err[-2000:]}")
+    t_cli = time.perf_counter() - t0
+    for name in procs:
+        g = ingest_trace(os.path.join(tmp, f"{name}.ndjson"),
+                         weight_model="bytes", keep_labels=True)
+        on = {}
+        for dev in ("cuda", "cpu"):
+            fn, args = demo_program(name, device=dev)
+            on[dev] = trace_to_graph(fn, *args, name=name)
+        check(_same_labelled(g, on["cuda"]) and _same_labelled(g, on["cpu"]),
+              f"record {name}: the trace, the card's and the host's "
+              f"captures differ: {_graph_diff(g, on['cuda'])}; "
+              f"{_graph_diff(g, on['cpu'])}")
+        log(f"capture demo {name}: {g.n} vertices, {g.num_edges} edges, "
+            f"{g.w.sum():.0f} bytes; the recorded trace, the card's and the "
+            f"host's graphs bit-identical (labels included)")
+    log(f"capture demos: 3 record processes on the card in {t_cli:.1f} s "
+        f"(with the process starts)")
+
+
+def _capture_reduced_model() -> dict:
+    """(b) A reduced recurrentgemma-9b forward through the kernels: the
+    card's graph is the host's, and its kernel vertices are the launches
+    read around the same call."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.op_graph import trace_to_graph
+    cfg = reduced_config(get_config(ARCH))
+    cpu = models.Model(cfg, device="cpu", generator=torch.Generator()
+                       .manual_seed(0))
+    gpu = models.from_jax_params(cfg, models.to_jax_params(cpu),
+                                 device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, CAPTURE_MODEL_TOKENS))
+
+    def fwd(model, batch):
+        return models.forward(model, batch, impl="cuda")[0]
+
+    with torch.no_grad():
+        want = trace_to_graph(fwd, cpu, {"tokens": toks}, name=cfg.name)
+        zero_launches()
+        got = trace_to_graph(fwd, gpu, {"tokens": toks.cuda()},
+                             name=cfg.name)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    check(_same_labelled(got, want), f"reduced {cfg.name}: the card's graph "
+          f"differs from the host's: {_graph_diff(got, want)}")
+    labels = {k: got.node_labels.count(k) for k in launches}
+    check(labels == launches and launches["flash_attention"] > 0
+          and launches["rglru"] > 0, f"reduced {cfg.name}: kernel vertices "
+          f"{labels}, launches {launches}")
+    log(f"capture reduced {cfg.name} ({cfg.n_layers} layers, tokens "
+        f"{CAPTURE_MODEL_TOKENS}): {got.n} vertices, {got.num_edges} edges, "
+        f"the card's graph bit-identical to the host's; kernel vertices = "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+def _top_labels(g, top: int = 10) -> list:
+    import collections
+    return collections.Counter(g.node_labels).most_common(top)
+
+
+def phase_capture() -> dict:
+    """(c) A full-width smollm-360m train step (path A's shape) captured on
+    the card, against an uncaptured step from the same seed; (d)
+    `optimal_parallelism` and `plan_step` on it with `backend="cuda"`,
+    held against `fast`."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import plan_graph, run_pipeline
+    from repro_torch.core.cuda import segsum
+    from repro_torch.core.op_graph import capture
+    from repro_torch.core.planner import optimal_parallelism, plan_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as tmp:
+        _capture_demos(tmp)
+    reduced_launches = _capture_reduced_model()
+
+    cfg = get_config(TRAIN_A_ARCH)
+    batch = _train_batches(cfg, TRAIN_A_B, TRAIN_A_S, TRAIN_A_MICRO, 1)[0]
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_A_STEPS)
+    step = make_train_step(cfg, opt_cfg,
+                           ParallelConfig(microbatches=TRAIN_A_MICRO),
+                           impl="cuda")
+    runs = {}
+    for captured in (False, True):
+        model = _train_model(cfg, TRAIN_A_PARAMS)
+        opt = adamw_init(models.param_tree(model), opt_cfg)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if captured:
+            g, (_, _, metrics) = capture(step, model, opt, batch,
+                                         name="smollm-360m train step")
+        else:
+            _, _, metrics = step(model, opt, batch)
+        torch.cuda.synchronize()
+        runs[captured] = {
+            "s": time.perf_counter() - t0, "launches": read_launches(),
+            "loss": metrics["loss"].item(),
+            "params": [p.detach().clone() for p in model.parameters()]}
+        if not captured:
+            del model, opt
+            torch.cuda.empty_cache()
+    plain, capt = runs.pop(False), runs.pop(True)
+    check(capt["loss"] == plain["loss"] and all(
+        torch.equal(a, b) for a, b in zip(capt["params"], plain["params"])),
+          f"the captured step differs from the uncaptured one: loss "
+          f"{capt['loss']!r} against {plain['loss']!r}")
+    del plain["params"], capt["params"]
+    n = TRAIN_A_MICRO * cfg.n_layers
+    expect = _expect(flash_attention=n, flash_attention_bwd=n)
+    labels = {k: g.node_labels.count(k) for k in expect}
+    check(capt["launches"] == plain["launches"] == expect == labels,
+          f"capture path: kernel vertices {labels}, launches "
+          f"{capt['launches']} (uncaptured {plain['launches']}), expected "
+          f"{expect}")
+    # the backward's operators ran on autograd's device thread: the
+    # capture saw them there
+    n_silu = g.node_labels.count("silu_backward")
+    check(n_silu == n, f"capture path: {n_silu} silu_backward vertices, "
+          f"expected {n}")
+    log(f"capture path {cfg.name} train step ({TRAIN_A_PARAMS} float32 "
+        f"parameters, B={TRAIN_A_B} S={TRAIN_A_S} in {TRAIN_A_MICRO} "
+        f"microbatches): {g.n} vertices, {g.num_edges} edges, "
+        f"{g.w.sum():.0f} bytes on the edges; loss {capt['loss']!r} and "
+        f"every parameter bit-identical to an uncaptured step from the same "
+        f"seed; kernel vertices = launches {json.dumps(labels)}")
+    log(f"capture path top labels: {json.dumps(_top_labels(g))}")
+    # the wall in turns: uncaptured and captured above (each a fresh
+    # model's first step), then captured and uncaptured on the second model
+    walls = [plain["s"], capt["s"]]
+    for captured in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if captured:
+            capture(step, model, opt, batch)
+        else:
+            step(model, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"capture path wall (host clock after synchronize, one step each; "
+        f"uncaptured, captured on fresh models, then captured, uncaptured): "
+        f"{[round(t, 6) for t in walls]} s; captured / uncaptured "
+        f"{(walls[1] + walls[2]) / (walls[0] + walls[3]):.4f}")
+
+    # (d) plan the step; the model and its state move on one step per capture
+    segsum.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, reports = optimal_parallelism(step, model, opt, batch,
+                                        candidates=CAPTURE_P,
+                                        backend="cuda")
+    t_opt = time.perf_counter() - t0
+    opt_launches = segsum.launches
+    check(opt_launches > 0, "optimal_parallelism launched no segment sum")
+    gp = reports[0].graph
+    check(_same_labelled(gp, g), f"the step's graph changed between "
+          f"steps: {_graph_diff(gp, g)}")
+    times = {}
+    for rep in reports:
+        p = rep.p
+        t0 = time.perf_counter()
+        fast = plan_graph(gp, p, backend="fast")
+        t_fast = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cuda = plan_graph(gp, p, backend="cuda")
+        torch.cuda.synchronize()
+        t_cuda = time.perf_counter() - t0
+        for field in CUT_FIELDS:
+            a, b = getattr(rep.cut, field), getattr(fast.cut, field)
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"capture plan p={p}: {field} differs from fast")
+        for a, b, what in ((rep.exec_time, fast.exec_time, "exec_time"),
+                           (rep.comm_bytes, fast.comm_bytes, "comm_bytes"),
+                           (cuda.exec_time, rep.exec_time, "a second plan")):
+            check(_close(a, b), f"capture plan p={p}: {what} {a!r} vs {b!r}")
+        _compare(run_pipeline(gp, p, "wb_libra", backend="cuda"),
+                 run_pipeline(gp, p, "wb_libra", backend="fast"), p)
+        times[p] = (t_cuda, t_fast)
+        log(f"capture plan p={p}: exec_time {rep.exec_time!r}, comm_bytes "
+            f"{rep.comm_bytes!r}, replication_factor "
+            f"{rep.cut.replication_factor!r}: bit-identical to fast (cut, "
+            f"replica CSR, core_of); plan seconds (host clock) cuda "
+            f"{t_cuda:.6f}, fast {t_fast:.6f}")
+    check(best == min(reports, key=lambda r: r.exec_time).p,
+          "optimal_parallelism did not pick the argmin")
+    rep8 = plan_step(step, model, opt, batch, p=8, backend="cuda")
+    want8 = next(r for r in reports if r.p == 8)
+    check(_same_labelled(rep8.graph, gp)
+          and rep8.summary() == want8.summary()
+          and np.array_equal(rep8.cut.assignment, want8.cut.assignment)
+          and rep8.exec_time == want8.exec_time,
+          "plan_step(p=8) differs from optimal_parallelism's p=8 report")
+    log(f"capture plan: optimal_parallelism over {list(CAPTURE_P)} picks "
+        f"p={best} in {t_opt:.3f} s (one captured step and "
+        f"{len(CAPTURE_P)} plans), {opt_launches} segment-sum launches; "
+        f"plan_step(p=8) equals its p=8 report")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"launches_plan": opt_launches, "launches_step": labels,
+            "launches_reduced": reduced_launches, "best_p": best,
+            "plan_s": times, "walls": walls}
+
+
+# ---------------------------------------------------------------------- #
 # 11. timing of the segment sum at the partition path's largest shapes
 # ---------------------------------------------------------------------- #
 def _cuda_ms(fn, reps: int = 20) -> float:
@@ -3015,15 +3295,18 @@ def main() -> int:
     t3c = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         phase_train_cli(tmp)
+    t3d = time.perf_counter()
+    capture = phase_capture()
     log(f"phase seconds: 12 {t1 - t0:.1f}, 12b {t1b - t1:.1f}, 13 "
         f"{t2 - t1b:.1f}, 14 {t3 - t2:.1f}, 16 {t3c - t3:.1f}, 15 "
-        f"{time.perf_counter() - t3c:.1f}")
+        f"{t3d - t3c:.1f}, 17 {time.perf_counter() - t3d:.1f}")
     kernels = phase_timing(runs, max_abs_err)
     kernels["kernels"][0]["launches_trace"] = trace["launches"]
     kernels["kernels"][0]["launches_serve"] = serve["launches_serve"]
     kernels["kernels"][0]["launches_incremental"] = \
         serve["launches_incremental"]
     kernels["kernels"][0]["launches_expert_placement"] = ep_launches
+    kernels["kernels"][0]["launches_capture_plan"] = capture["launches_plan"]
     kernels["kernels"] += phase_model_timing(prefill, errs)
     kernels["kernels"][1]["launches_dbrx_prefill"] = \
         dbrx_prefill["launches"]["flash_attention"]
@@ -3039,6 +3322,10 @@ def main() -> int:
     kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
                                                 rwkv_err))
     kernels["kernels"] += phase_train_timing(train_a, train_b, bwd_errs)
+    for entry in kernels["kernels"]:
+        if capture["launches_step"].get(entry["name"]):
+            entry["launches_capture_step"] = \
+                capture["launches_step"][entry["name"]]
     t4 = time.perf_counter()
     kernels["kernels"].append(phase_rwkv_bwd_timing(train_c, rwkv_bwd_err))
     log(f"phase seconds: 11 (rwkv6_bwd timing) "

@@ -20,12 +20,14 @@ silently).
 `launches` counts the calls of `segment_sum` that reach the card, one per
 call: the kernel runs as up to two launches (one pass over the stream,
 then the long segments), counted once.  A run sets it to 0 and reads it
-back to show that a path went through the kernel.
+back to show that a path went through the kernel.  Under a program
+capture (`core.op_graph`) each call is one `segment_sum` vertex.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import op_graph
 from . import _build
 
 __all__ = ["segment_sum", "segment_sum_plain", "keyed_sum"]
@@ -73,6 +75,7 @@ def _launch(data: torch.Tensor, segment_ids: torch.Tensor,
     return out
 
 
+@op_graph.kernel_vertex("segment_sum")
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, *, validate: bool = False
                 ) -> torch.Tensor:

@@ -5,7 +5,10 @@ The port of `repro.core.planner`:
   1. `plan_graph` — partition an `IRGraph` (or a path to an `.npz`
      snapshot, a `.rtb` container or an NDJSON trace) with WB-Libra, map
      the clusters with the memory-centric mapper and return the
-     simulated cost.
+     simulated cost; `plan_step` / `optimal_parallelism` capture a
+     PyTorch step function to an IR graph (`core.op_graph`) and plan it,
+     the paper's "discover the optimal parallelization degree" applied
+     to PyTorch programs.
   2. `expert_placement` — Weight Balanced Vertex Cut over the expert
      co-activation graph: experts are vertices, co-routed token pairs
      weighted edges, and the cut's replica sets A(expert) give an
@@ -18,10 +21,7 @@ The port of `repro.core.planner`:
 
 Items 2 and 3 are host numpy over `vertex_cut` and
 `memory_centric_mapping`; `expert_placement`'s cut runs its finalize
-on the card with `backend="cuda"` (the default).  The program-capture
-half of the JAX package's planner (`plan_step`, `optimal_parallelism`)
-needs a graph built from a traced program and is still to be ported
-(ROADMAP.md, queue 1, item 5).
+on the card with `backend="cuda"` (the default).
 """
 from __future__ import annotations
 
@@ -35,10 +35,12 @@ from .cuda import resolve_device
 from .graph import IRGraph
 from .mapping import (Machine, cluster_interaction_graphs,
                       memory_centric_mapping, resolve_mapping_backend)
+from .op_graph import trace_to_graph
 from .simulator import coerce_graph, simulate, vertex_bytes_model
 from .vertex_cut import VertexCutResult, vertex_cut
 
-__all__ = ["PlanReport", "plan_graph", "ExpertPlacement",
+__all__ = ["PlanReport", "plan_graph", "plan_step", "optimal_parallelism",
+           "ExpertPlacement",
            "expert_placement", "naive_expert_placement", "mesh_device_order"]
 
 
@@ -104,6 +106,37 @@ def plan_graph(g, p: int, method: str = "wb_libra",
         rep = simulate(g, cut, mapping, backend=map_backend, device=dev)
     return PlanReport(graph=g, cut=cut, exec_time=rep.exec_time,
                       comm_bytes=rep.data_comm_bytes, p=p)
+
+
+def plan_step(fn, *args, p: int = 8, method: str = "wb_libra",
+              lam: float = 1.0, backend: str = "cuda", device: str = "cuda",
+              **kw) -> PlanReport:
+    """Capture `fn(*args, **kw)` and plan its p-way partitioned
+    execution; `device` is the planner's (`plan_graph`: it raises before
+    the capture where it cannot be had), the program runs where its
+    tensors are."""
+    if backend == "cuda":
+        resolve_device(device)
+    g = trace_to_graph(fn, *args, **kw)
+    return plan_graph(g, p, method=method, lam=lam, backend=backend,
+                      device=device)
+
+
+def optimal_parallelism(fn, *args, candidates=(2, 4, 8, 16, 32),
+                        method: str = "wb_libra", backend: str = "cuda",
+                        device: str = "cuda") -> tuple[int, list]:
+    """Pick the cluster count with the lowest simulated execution time —
+    the paper's stated goal of 'discovering optimal parallelization
+    degree' for a program.  `fn(*args)` is captured once and planned at
+    each candidate."""
+    if backend == "cuda":
+        resolve_device(device)
+    g = trace_to_graph(fn, *args)
+    reports = [plan_graph(g, p, method=method, backend=backend,
+                          device=device)
+               for p in candidates]
+    best = int(np.argmin([r.exec_time for r in reports]))
+    return candidates[best], reports
 
 
 # ---------------------------------------------------------------------- #

@@ -37,13 +37,17 @@ mask hides entirely gets a zero gradient.
 
 `launches` counts the forward kernel's launches and `launches_bwd` the
 backward's (one a backward call); a run sets them to 0 and reads them
-back to show that a path went through the kernels.
+back to show that a path went through the kernels.  Under a program
+capture (`core.op_graph`) each call is one `flash_attention` vertex and
+each backward kernel call one `flash_attention_bwd` vertex, on either
+device.
 """
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..core import op_graph
 from ..core.cuda import _build
 from .ref import attention_ref
 
@@ -192,10 +196,12 @@ class _FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        return (*_launch_bwd(q, k, v, out, dout, lse, *ctx.args),
+        return (*op_graph.opaque("flash_attention_bwd", _launch_bwd, q, k,
+                                 v, out, dout, lse, *ctx.args),
                 None, None, None, None, None)
 
 
+@op_graph.kernel_vertex("flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None,
@@ -211,9 +217,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window, q_offset)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
+        # laid out as the kernel's output, so that a program runs the same
+        # operators after it on either device
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
-                                     q_offset=q_offset)
+                                     q_offset=q_offset).contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q.shape[3] != v.shape[3]:
             raise NotImplementedError(

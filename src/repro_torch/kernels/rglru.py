@@ -26,7 +26,9 @@ bit in float32.
 
 `launches` counts the forward kernel's launches and `launches_bwd` the
 backward's (one a backward call); a run sets them to 0 and reads them
-back to show that a path went through the kernels.
+back to show that a path went through the kernels.  Under a program
+capture (`core.op_graph`) each call is one `rglru` vertex and each
+backward kernel call one `rglru_bwd` vertex, on either device.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..core import op_graph
 from ..core.cuda import _build
 from .ref import rglru_ref
 
@@ -149,9 +152,11 @@ class _RGLRU(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dh, dh_last):
         x, a, h0, h = ctx.saved_tensors
-        return _launch_bwd(x, a, h0, h, dh, dh_last)
+        return op_graph.opaque("rglru_bwd", _launch_bwd, x, a, h0, h, dh,
+                               dh_last)
 
 
+@op_graph.kernel_vertex("rglru")
 def rglru_scan(x: torch.Tensor, a: torch.Tensor,
                h0: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:

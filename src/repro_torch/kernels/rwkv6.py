@@ -31,7 +31,9 @@ u's and s0's.
 
 `launches` counts the forward kernel's launches and `launches_bwd` the
 backward's (one a backward call); a run sets them to 0 and reads them
-back to show that a path went through the kernels.
+back to show that a path went through the kernels.  Under a program
+capture (`core.op_graph`) each call is one `rwkv6` vertex and each
+backward kernel call one `rwkv6_bwd` vertex, on either device.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..core import op_graph
 from ..core.cuda import _build
 from .ref import rwkv6_ref
 
@@ -201,12 +204,13 @@ class _RWKV6(torch.autograd.Function):
         r, k, v, w, u, s0, ckpt = ctx.saved_tensors
         if dout is None and dS_last is None:
             return (None,) * 6
-        dr, dk, dv, dw, du, ds0 = _launch_bwd(r, k, v, w, u, s0, ckpt, dout,
-                                              dS_last)
+        dr, dk, dv, dw, du, ds0 = op_graph.opaque(
+            "rwkv6_bwd", _launch_bwd, r, k, v, w, u, s0, ckpt, dout, dS_last)
         return (dr, dk, dv, dw, du.to(u.dtype),
                 ds0.to(s0.dtype) if s0 is not None else None)
 
 
+@op_graph.kernel_vertex("rwkv6")
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor,
                s0: torch.Tensor | None = None

@@ -6,9 +6,11 @@ per-memory-op timing).  This package adopts the ct-publicness NDJSON
 TRACE/CFG schemas (v0) as the interchange format, streams million-line
 traces into `IRGraph`s with constant per-chunk memory (`ingest.py`),
 replays static listings along CFG paths (`replay_trace`) and derives
-edge weights through pluggable models (`weights.py`).  Graphs are
-array-identical to the JAX package's for the same input, and `.rtb`
-containers move between the two packages unchanged.
+edge weights through pluggable models (`weights.py`), and writes the
+same schema back out from captured PyTorch programs (`record.py`) —
+giving a round-trip oracle against `core.op_graph.trace_to_graph`.
+Graphs are array-identical to the JAX package's for the same input, and
+`.rtb` containers move between the two packages unchanged.
 
 Two fast paths sit in front of the sequential interpreter:
 
@@ -22,10 +24,7 @@ Two fast paths sit in front of the sequential interpreter:
     by ``python -m repro_torch.trace convert``; `.rtb` paths are accepted
     everywhere NDJSON paths are and load at memory speed.
 
-The recorder of program traces (`record.py` in the JAX package) rests on
-program capture and is still to be ported (ROADMAP.md, queue 1, item 5).
-
-CLI: ``python -m repro_torch.trace {inspect,convert,partition,synth}``.
+CLI: ``python -m repro_torch.trace {inspect,convert,partition,record,synth}``.
 """
 from .schema import SCHEMA_VERSION, TraceFormatError, type_bytes
 from .weights import (WEIGHT_MODELS, register_weight_model,
@@ -37,6 +36,7 @@ from .binfmt import (BINARY_MAGIC, BINARY_VERSION, BinaryFormatError,
                      read_trace_bin, read_trace_bin_header, write_trace_bin)
 from .scan import (SCAN_MAX_MB_ENV, SCANNER_ENV, scanner_enabled,
                    scanner_mode, try_scan_ingest)
+from .record import DEMO_PROGRAMS, demo_program, record_fn, record_graph
 from .synth import iter_synthetic_trace, synthesize_trace
 
 __all__ = [
@@ -49,5 +49,6 @@ __all__ = [
     "read_trace_bin_header", "write_trace_bin",
     "SCAN_MAX_MB_ENV", "SCANNER_ENV", "scanner_enabled", "scanner_mode",
     "try_scan_ingest",
+    "DEMO_PROGRAMS", "demo_program", "record_fn", "record_graph",
     "iter_synthetic_trace", "synthesize_trace",
 ]

@@ -3,6 +3,7 @@
     python -m repro_torch.trace inspect  examples/traces/toy_loop.ndjson
     python -m repro_torch.trace convert  trace.ndjson graph.rtb
     python -m repro_torch.trace partition trace.ndjson -p 64 --method wb_libra
+    python -m repro_torch.trace record   mlp.ndjson --program mlp
     python -m repro_torch.trace synth    big.ndjson --lines 1000000 --seed 0
 
 `inspect` prints ingestion stats + graph stats as JSON; `convert` writes
@@ -11,9 +12,9 @@ the full partition -> map -> simulate pipeline on the ingested graph and
 prints the plan summary, on the card by default (`--device cpu` runs
 the kernels' plain versions, `--backend fast` the host engine;
 `--workers W` > 1 parses on W sharded workers and cuts with the host
-`dist` backend); `synth` writes a deterministic synthetic trace.
-`record` (a program's own trace) waits for program capture and raises,
-naming its ROADMAP.md item.
+`dist` backend); `record` captures a built-in PyTorch demo program's
+dynamic trace, on the card by default (`--device cpu` runs it on the
+host); `synth` writes a deterministic synthetic trace.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import json
 import sys
 
 from .ingest import ingest_trace_with_stats, replay_trace
+from .record import DEMO_PROGRAMS, demo_program, record_fn
 from .synth import synthesize_trace
 from .weights import WEIGHT_MODELS
 
@@ -102,10 +104,14 @@ def main(argv=None) -> int:
                          "-m repro_torch.obs summarize OUT.json`)")
 
     sp = sub.add_parser("record",
-                        help="write a program's trace as NDJSON (not "
-                             "ported yet)")
+                        help="write a PyTorch demo program's trace as "
+                             "NDJSON")
     sp.add_argument("out", help="output .ndjson path")
-    sp.add_argument("--program", default="mlp")
+    sp.add_argument("--program", default="mlp",
+                    choices=sorted(DEMO_PROGRAMS))
+    sp.add_argument("--device", default="cuda",
+                    help="where the program runs: cuda (the card, the "
+                         "default) or cpu")
 
     sp = sub.add_parser("synth", help="write a synthetic NDJSON trace")
     sp.add_argument("out", help="output .ndjson path")
@@ -148,9 +154,9 @@ def main(argv=None) -> int:
             print(f"profile: {args.profile} (python -m repro_torch.obs "
                   f"summarize {args.profile})", file=sys.stderr)
     elif args.cmd == "record":
-        raise NotImplementedError(
-            "recording a program's trace needs program capture, which is "
-            "not ported yet (ROADMAP.md, queue 1, item 5)")
+        fn, fargs = demo_program(args.program, device=args.device)
+        lines = record_fn(fn, *fargs, out=args.out, name=args.program)
+        print(f"wrote {args.out}: {lines} trace lines ({args.program})")
     elif args.cmd == "synth":
         lines = synthesize_trace(args.out, args.lines, seed=args.seed,
                                  n_fns=args.fns)

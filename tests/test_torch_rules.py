@@ -6,7 +6,8 @@
   carries on on the host;
 - a tensor that is not on the CPU has no path to a plain version: it
   launches the kernel or raises;
-- what is not ported yet raises and names its ROADMAP item.
+- what is not ported yet raises and names its ROADMAP item;
+- program capture and planning ask for the card unless told otherwise.
 """
 import os
 import re
@@ -22,7 +23,10 @@ import repro_torch.core as T  # noqa: E402
 from repro_torch import models  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.core.cuda import _build, segsum  # noqa: E402
-from repro_torch.core.planner import expert_placement  # noqa: E402
+from repro_torch.core.planner import (expert_placement,  # noqa: E402
+                                      optimal_parallelism, plan_step)
+from repro_torch.trace import demo_program  # noqa: E402
+from repro_torch.trace.__main__ import main as trace_cli  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -33,6 +37,13 @@ IMPORT_RE = re.compile(r"^\s*(from|import)\s+(repro|jax)(\.|\s|$)")
 def no_gpu():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a GPU")
+
+
+def _cpu_mlp():
+    """The mlp demo program and its arguments on the CPU, flattened for
+    `plan_step(fn, *args)`."""
+    fn, args = demo_program("mlp", device="cpu")
+    return (fn, *args)
 
 
 def _graph():
@@ -107,6 +118,10 @@ def test_no_source_line_imports_repro_or_jax():
                          T.round_robin_mapping(4)),
     lambda g: expert_placement(np.arange(1.0, 9.0), n_devices=4),
     lambda g: models.Model(reduced_config(get_config("dbrx-132b"))),
+    lambda g: plan_step(*_cpu_mlp(), p=4),
+    lambda g: optimal_parallelism(*_cpu_mlp(), candidates=(2, 4)),
+    lambda g: demo_program("mlp"),
+    lambda g: trace_cli(["record", os.devnull]),
 ])
 def test_asking_for_the_card_without_one_raises(call, no_gpu):
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -165,14 +180,18 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_unported_paths_raise_and_name_their_roadmap_item(tmp_path):
-    """The capture half of item 5 raises; the encoder (item 4c) is ported,
-    so seamless-m4t-large-v2 builds."""
+    """Nothing of items 4 and 5 raises any more: the encoder (item 4c) is
+    ported, so seamless-m4t-large-v2 builds, and program capture (item 5)
+    is, so `record` writes a trace that ingests."""
     model = models.Model(reduced_config(get_config("seamless-m4t-large-v2")),
                          device="cpu")
     assert model.encoder is not None and model.encoder_ln is not None
-    from repro_torch.trace.__main__ import main as trace_cli
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 5"):
-        trace_cli(["record", os.path.join(tmp_path, "r.ndjson")])
+    from repro_torch.trace import ingest_trace
+    out = os.path.join(tmp_path, "r.ndjson")
+    assert trace_cli(["record", out, "--device", "cpu"]) == 0
+    g = ingest_trace(out, keep_labels=True)
+    assert (g.n, g.num_edges) == (7, 6)
+    assert g.node_labels.count("mm") == 2
 
 
 def test_chip_smoke_fails_without_a_gpu(no_gpu):
