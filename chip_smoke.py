@@ -197,7 +197,10 @@ Phases, each reported on its own line(s):
    C's layer shape, with the forward beside it with and without its
    checkpoint write, its scratch bytes and its 1.25 ms aim; the flash
    attention forward's and backward's launches in the captured train
-   step as `launches_capture_step`): seven entries;
+   step as `launches_capture_step`, and in phase 18's step on a mesh as
+   `launches_mesh_step`): seven entries; each bound from the function's
+   work as `repro_torch.analysis.hlo_cost` (and, for the segment sum,
+   `repro_torch.core.cuda.cost`) counts it, over the card's peaks;
 12. backward kernels: flash attention's (`csrc/flash_attention_bwd.cu`)
    on `FA_CASES`, on every head dim in float32 and bfloat16 over
    `FA_BWD_EDGES` (GQA groups of 1, 2, 3 and 16, lengths that are not a
@@ -267,7 +270,30 @@ Phases, each reported on its own line(s):
    exec_time and comm_bytes to rtol 1e-12, `run_pipeline` at each p equal
    to `fast` as in phase 4 (core_of included), the argmin picked,
    `plan_step(p=8)` equal to the p=8 report, the segment sum's launches
-   and each plan's seconds logged.
+   and each plan's seconds logged;
+18. mesh and cost (`repro_torch.parallel`, `.launch.{mesh,cells,dryrun}`,
+   `.analysis`): (a) path A's step on a (1, 1) `DeviceMesh("cuda")`, every
+   parameter a DTensor placed by `param_specs`, against the unsharded
+   step from the same seed: the same 64 + 64 flash-attention launches,
+   the loss and every parameter within 1e-4 (bit-identity logged), the
+   placed arguments' bytes equal to the unsharded ones'; (b)
+   `analyze_program` of one more step on the mesh: its mm FLOPs equal to
+   `FlopCounterMode`'s, FLOPs and bytes by operator class beside the
+   profiler's device time by class; (c) the dry run of the same step
+   (fake tensors, a (1, 1) CPU mesh, the kernels as regions): its
+   argument bytes equal to the card's params, moments, step and batch to
+   the byte, its peak beside `max_memory_allocated` of the real step;
+   (d) `repro_torch.launch.dryrun.run_cell` on the fake 16 x 16 mesh for
+   `MESH_CELLS` (a dense, an MoE and a recurrent train cell at full
+   width cut in depth, and a decode cell whole), one subprocess each,
+   started at the phase's start; (e) `tools/capture_census.py`'s step
+   captured on the card and on the host: the card's kernel vertices
+   equal to its launches, the two graphs apart only by the
+   flash-attention backward (`CENSUS_PLAIN_BWD` a call on the host, one
+   `flash_attention_bwd` vertex on the card; ROADMAP.md queue 3, item
+   2); (f) row 2c, which has no kernel: the
+   flash-attention backward's bound at MLA's shape and SDPA's backward
+   time there.
 
 The last line is `{"ok": true, "device": {...}}`.  Any failure raises
 and the script exits non-zero before that line.  It imports nothing of
@@ -500,6 +526,20 @@ RWKV_BWD_EDGES = (1, 512, 8, 64, 64)
 # and optimal_parallelism's candidates, the JAX package's defaults
 CAPTURE_MODEL_TOKENS = (2, 64)
 CAPTURE_P = (2, 4, 8, 16, 32)
+# phase 18: the dry run's cells on the fake 16x16 mesh, (arch, shape,
+# depth or None for the whole model), one subprocess each, all started
+# together; the train cells cut in depth (the plan is the cell's) to fit
+# the phase's time, the decode cell whole
+MESH_CELLS = (("smollm-360m", "train_4k", 2), ("dbrx-132b", "train_4k", 2),
+              ("recurrentgemma-9b", "train_4k", 3),
+              ("smollm-360m", "decode_32k", None))
+MESH_CELLS_TIMEOUT = 240
+# the operators a flash-attention call's plain backward adds to the
+# captured census step on the host, where the card has one
+# `flash_attention_bwd` vertex (its 8 operators and the 3 clones of its
+# non-contiguous gradients; PERF.md, PR 26 (e))
+CENSUS_PLAIN_BWD = {"bmm": 4, "_softmax_backward_data": 1,
+                    "scalar_tensor": 1, "where": 1, "mul": 1, "clone": 3}
 
 GRAPH_N, GRAPH_ALPHA, GRAPH_SEED = 3_000_000, 2.2, 0
 P_MAIN = (1024, 64)
@@ -2656,6 +2696,351 @@ def phase_capture() -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# 18. mesh and cost on the card
+# ---------------------------------------------------------------------- #
+_DRY_RUN_CELL = """
+import json, sys
+from repro_torch.launch.cells import enumerate_cells
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import fake_world, make_production_mesh
+arch, shape, n_layers, out = sys.argv[1:]
+cell, = [c for c in enumerate_cells() if (c.arch, c.shape) == (arch, shape)]
+with fake_world(256):
+    mesh = make_production_mesh(device_type="cpu")
+    rec = run_cell(cell, mesh, False, n_layers=int(n_layers) or None)
+with open(out, "w") as f:
+    json.dump([rec], f)
+"""
+
+
+def _start_mesh_cells(tmp: str) -> list:
+    """18d's dry runs, one `launch.dryrun.run_cell` on the fake 16x16 mesh
+    each, in subprocesses on the CPU started together: [(cell, output
+    path, process, start)]."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src"),
+           "OMP_NUM_THREADS": "1"}
+    runs = []
+    for arch, shape, n_layers in MESH_CELLS:
+        out = os.path.join(tmp, f"{arch}_{shape}.json")
+        cmd = [sys.executable, "-c", _DRY_RUN_CELL, arch, shape,
+               str(n_layers or 0), out]
+        runs.append(((arch, shape, n_layers), out, subprocess.Popen(
+            cmd, env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), time.perf_counter()))
+    return runs
+
+
+def _finish_mesh_cells(runs: list) -> None:
+    try:
+        for (arch, shape, n_layers), out, proc, t0 in runs:
+            text = proc.communicate(timeout=MESH_CELLS_TIMEOUT)[0]
+            check(proc.returncode == 0, f"dry run {arch}/{shape}: exit "
+                  f"{proc.returncode}: {text[-2000:]}")
+            rec = json.load(open(out))[0]
+            check(rec["ok"] is True and rec["mesh"] == "16x16",
+                  f"dry run {arch}/{shape}: {rec}")
+            mem, coll = rec["memory"], rec["collectives"]
+            check(mem["argument_bytes"] > 0 and rec["flops"] > 0
+                  and coll["total_bytes"] > 0,
+                  f"dry run {arch}/{shape}: no work recorded: {rec}")
+            depth = (f"depth cut to {n_layers} layers" if n_layers
+                     else "whole")
+            log(f"mesh 18d dry run {arch}/{shape} on the fake 16x16 mesh "
+                f"({depth}, {rec['parallel']['microbatches']} microbatches; "
+                f"rank 0 of 256): argument {mem['argument_bytes']} bytes, "
+                f"temp {mem['temp_bytes']} bytes, {rec['flops']:.6e} FLOPs, "
+                f"{rec['hlo_hbm_bytes']:.6e} bytes, collectives "
+                f"{coll['total_bytes']:.6e} bytes "
+                f"{json.dumps(coll['counts'])}; {rec['lower_s']} s in the "
+                f"run, {time.perf_counter() - t0:.1f} s wall")
+    finally:
+        for _, _, proc, _ in runs:
+            proc.kill()
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _class_device_ms(prof) -> dict:
+    """Device ms by operator class (`hlo_cost.op_class` of each ATen
+    operator's own kernels; the port's kernels by their names)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.analysis.hlo_cost import op_class
+    out: dict = {}
+    for ev in prof.key_averages():
+        dev_ms = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        if dev_ms <= 0:
+            continue
+        if ev.device_type == DeviceType.CUDA:
+            if "(anonymous namespace)::" in ev.key:
+                out["kernel"] = out.get("kernel", 0.0) + dev_ms
+            continue
+        if ev.key.startswith("aten::"):
+            cls = op_class(ev.key[len("aten::"):])
+            out[cls] = out.get(cls, 0.0) + dev_ms
+    return out
+
+
+def phase_mesh() -> dict:
+    """18. (a) path A's step on a (1, 1) DeviceMesh against the unsharded
+    step; (b) its cost analysis against FlopCounterMode and the
+    profiler; (c) the dry run of the same step against the card's
+    memory; (d) dry runs of cells on the fake 16x16 mesh, in
+    subprocesses started first; (e) the census step captured on the card
+    against the host (ROADMAP.md queue 3, item 2); (f) row 2c's bound and
+    SDPA's backward at MLA's shape."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import models
+    from repro_torch.analysis import analyze_program
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.cells import lower_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    cells = _start_mesh_cells(tmp)
+    dist.init_process_group("cuda:nccl,cpu:gloo", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    try:
+        cfg = get_config(TRAIN_A_ARCH)
+        batch = _train_batches(cfg, TRAIN_A_B, TRAIN_A_S, TRAIN_A_MICRO,
+                               1)[0]
+        opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                              total_steps=TRAIN_A_STEPS)
+        par = ParallelConfig(microbatches=TRAIN_A_MICRO)
+        # (a) the unsharded step, its memory, then the sharded one
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model = _train_model(cfg, TRAIN_A_PARAMS)
+        opt = adamw_init(models.param_tree(model), opt_cfg)
+        card_args = _nbytes(tree_leaves(models.param_tree(model))
+                            + tree_leaves(opt) + list(batch.values()))
+        torch.cuda.synchronize()
+        args_alloc = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        _, _, m_plain = make_train_step(cfg, opt_cfg, par)(model, opt, batch)
+        torch.cuda.synchronize()
+        s_plain = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches_plain = read_launches()
+        want = [p.detach().clone() for p in
+                tree_leaves(models.param_tree(model))]
+        want_m = {k: m_plain[k].item() for k in ("loss", "grad_norm")}
+        del model, opt, m_plain
+        torch.cuda.empty_cache()
+
+        mesh = DeviceMesh("cuda", [[0]], mesh_dim_names=("data", "model"))
+        model = _train_model(cfg, TRAIN_A_PARAMS)
+        prepared = lower_step(model, "train", mesh, par=par,
+                              opt_cfg=opt_cfg, batch=batch)
+        check(prepared.argument_bytes == card_args,
+              f"mesh 18a: the placed arguments hold "
+              f"{prepared.argument_bytes} bytes, the unsharded step's "
+              f"{card_args}")
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = prepared.run()
+        torch.cuda.synchronize()
+        s_mesh = time.perf_counter() - t0
+        launches = read_launches()
+        n = TRAIN_A_MICRO * cfg.n_layers
+        expect = _expect(flash_attention=n, flash_attention_bwd=n)
+        check(launches == launches_plain == expect,
+              f"mesh 18a: launches {launches} on the mesh, "
+              f"{launches_plain} without, expected {expect}")
+        got = [_full(p).detach() for p in
+               tree_leaves(models.param_tree(model))]
+        got_m = {k: _full(m[k]).item() for k in ("loss", "grad_norm")}
+        identical = all(torch.equal(a, b) for a, b in zip(got, want)) \
+            and got_m == want_m
+        worst = max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(got, want))
+        for key in ("loss", "grad_norm"):
+            rel = abs(got_m[key] - want_m[key]) / abs(want_m[key])
+            check(rel <= TRAIN_TOL, f"mesh 18a: {key} {got_m[key]!r} on "
+                  f"the mesh, {want_m[key]!r} without ({rel!r})")
+        check(worst <= TRAIN_TOL, f"mesh 18a: a parameter differs by "
+              f"{worst!r} of max(1, max|p|)")
+        placements = sorted({str(tuple(p.placements)) for p in
+                             tree_leaves(models.param_tree(model))})
+        log(f"mesh 18a {cfg.name} train step on a (1, 1) DeviceMesh "
+            f"('data', 'model'), every parameter a DTensor placed by "
+            f"param_specs ({placements}): launches {json.dumps(launches)} "
+            f"= the unsharded step's; loss {got_m['loss']!r} "
+            f"(unsharded {want_m['loss']!r}), grad_norm "
+            f"{got_m['grad_norm']!r} ({want_m['grad_norm']!r}); "
+            f"parameters {'' if identical else 'not '}bit-identical "
+            f"(worst {worst!r} of max(1, max|p|)); step seconds (host "
+            f"clock) {s_mesh:.6f} on the mesh, {s_plain:.6f} without")
+        del got, want
+        # (b) the cost of one more step, beside FlopCounterMode and the
+        # profiler's device time by class
+        with prepared.context(), FlopCounterMode(display=False) as fc, \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            cost = analyze_program(prepared.step, *prepared.args)
+            torch.cuda.synchronize()
+        mm = cost.by_class.get("mm", {}).get("flops", 0.0)
+        counted = fc.get_total_flops()
+        check(mm == counted, f"mesh 18b: analyze_program's mm family "
+              f"{mm!r} FLOPs, FlopCounterMode {counted!r}")
+        dev = _class_device_ms(prof)
+        rows = []
+        for cls, row in sorted(cost.by_class.items(),
+                               key=lambda kv: -kv[1]["flops"]):
+            ms = dev.get(cls, 0.0)
+            rate = row["flops"] / ms * 1e-9 if ms else 0.0
+            rows.append(f"{cls}: {row['count']} ops, {row['flops']:.6e} "
+                        f"FLOPs, {row['bytes']:.6e} bytes, {ms:.3f} device "
+                        f"ms ({rate:.1f} TFLOP/s)" if ms else
+                        f"{cls}: {row['count']} ops, {row['flops']:.6e} "
+                        f"FLOPs, {row['bytes']:.6e} bytes, no device time")
+        log(f"mesh 18b analyze_program of the step: {cost.flops:.6e} FLOPs "
+            f"(mm family {mm:.6e} = FlopCounterMode's {counted:.6e}), "
+            f"{cost.hbm_bytes:.6e} bytes, collectives "
+            f"{json.dumps(cost.collective_counts)}; by class: "
+            + "; ".join(rows) + f"; device ms by class "
+            f"{json.dumps({k: round(v, 3) for k, v in dev.items()})}")
+        del model, opt, prepared, m
+        torch.cuda.empty_cache()
+
+        # (c) the dry run of path A's step at its batch, (1, 1) mesh
+        cpu_mesh = DeviceMesh("cpu", [[0]], mesh_dim_names=("data",
+                                                             "model"))
+        fake = FakeTensorMode(allow_non_fake_inputs=True)
+        with fake:
+            fmodel = models.Model(cfg, device="cpu").requires_grad_(True)
+            fbatch = {k: torch.empty(v.shape, dtype=v.dtype)
+                      for k, v in batch.items()}
+        t0 = time.perf_counter()
+        dry = lower_step(fmodel, "train", cpu_mesh, par=par, opt_cfg=opt_cfg,
+                         batch=fbatch, impl="cuda", fake_mode=fake)
+        with dry.context():
+            dcost = analyze_program(dry.step, *dry.args)
+        s_dry = time.perf_counter() - t0
+        check(dry.argument_bytes == card_args,
+              f"mesh 18c: the dry run's argument bytes "
+              f"{dry.argument_bytes}, the card's {card_args}")
+        dry_peak = dry.argument_bytes + dcost.peak_bytes
+        log(f"mesh 18c dry run of the step (fake tensors, (1, 1) mesh, the "
+            f"kernels as regions): argument bytes {dry.argument_bytes} = "
+            f"the card's params, moments, step and batch {card_args} "
+            f"(allocated: {args_alloc}); peak {dry_peak} bytes "
+            f"(arguments + temp {int(dcost.peak_bytes)}) against "
+            f"max_memory_allocated {peak} (ratio {dry_peak / peak:.4f}); "
+            f"FLOPs {dcost.flops:.6e} (the card's step {cost.flops:.6e}); "
+            f"{s_dry:.1f} s on the host")
+        del fmodel, dry
+    finally:
+        dist.destroy_process_group()
+    # (e) the census step captured on the card and on the host
+    census = _census_on_both()
+    # (f) row 2c: the FA backward's bound at MLA's shape, SDPA's time
+    row_2c = _mla_bwd_yardstick()
+    from repro_torch.analysis.hlo_cost import RWKV6_CKPT_STEPS
+    from repro_torch.kernels import rwkv6
+    check(rwkv6.ckpt_steps() == RWKV6_CKPT_STEPS, f"mesh: the dry run "
+          f"allocates RWKV6 checkpoints every {RWKV6_CKPT_STEPS} steps, "
+          f"the kernel writes them every {rwkv6.ckpt_steps()}")
+    t_d = time.perf_counter()
+    _finish_mesh_cells(cells)
+    log(f"phase seconds: 18 {time.perf_counter() - t_start:.1f} (18d's "
+        f"wait after 18a-c, e, f: {time.perf_counter() - t_d:.1f})")
+    return {"launches": launches, "census": census, "row_2c": row_2c}
+
+
+def _census_on_both() -> dict:
+    """`tools/capture_census.py`'s step (smollm-360m at full depth and the
+    tests' reduced width, 2 microbatches of 2 x 64, impl="cuda") captured
+    on the card and on the host (ROADMAP.md queue 3, item 2): the card's
+    kernel vertices equal its launches, and the two graphs differ only by
+    the flash-attention backward, one `flash_attention_bwd` vertex a call
+    on the card where the host runs its plain version's operators
+    (`CENSUS_PLAIN_BWD`, the account PERF.md gives)."""
+    import collections
+
+    from capture_census import census_step
+    from repro_torch.core.op_graph import capture
+    step, args = census_step(device="cuda")
+    zero_launches()
+    card, _ = capture(step, *args)
+    launches = read_launches()
+    del step, args
+    step, args = census_step(device="cpu")
+    host, _ = capture(step, *args)
+    labels = {name: collections.Counter(g.node_labels)
+              for name, g in (("card", card), ("host", host))}
+    calls = labels["card"]["flash_attention"]
+    only_host = labels["host"] - labels["card"]
+    only_card = labels["card"] - labels["host"]
+    log(f"mesh 18e census step: the card {card.n} vertices, "
+        f"{card.num_edges} edges; the host {host.n}, {host.num_edges}: "
+        f"only there {json.dumps(dict(only_host))}, only on the card "
+        f"{json.dumps(dict(only_card))} ({calls} flash-attention calls, "
+        f"launches {json.dumps(launches)})")
+    check(calls > 0 and launches == _expect(
+        flash_attention=calls, flash_attention_bwd=labels["card"][
+            "flash_attention_bwd"]), f"mesh 18e: the card's graph has "
+          f"{calls} flash-attention vertices, its run launched {launches}")
+    want = collections.Counter({k: calls * n
+                                for k, n in CENSUS_PLAIN_BWD.items()})
+    check(only_card == collections.Counter(flash_attention_bwd=calls)
+          and only_host == want,
+          f"mesh 18e: the graphs differ beyond the flash-attention "
+          f"backward: only on the host {dict(only_host)} (want "
+          f"{dict(want)}), only on the card {dict(only_card)}")
+    return {"card": card.n, "host": host.n, "calls": calls,
+            "edges": card.num_edges}
+
+
+def _mla_bwd_yardstick() -> dict:
+    """Row 2c, which has no kernel yet: the bound of the flash-attention
+    backward at MLA's shape from the function's work, and the time of
+    `scaled_dot_product_attention`'s backward there."""
+    from repro_torch.analysis.hlo_cost import attention_bwd_work
+    F = torch.nn.functional
+    B, Sq, Sk, Hq, Hkv, D, causal, window, _, dt = FA_MLA
+    Dqk, Dv = _head_dims(D)
+    size = torch.tensor([], dtype=getattr(torch, dt)).element_size()
+    bound_ms, bound_by, cuda_core_ms = _tensor_core_bound(
+        attention_bwd_work(B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal, window,
+                           size), dt)
+    q, k, v = _fa_inputs(FA_MLA)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dt_ = torch.randn_like(ot)
+    library_ms = _cuda_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dt_, retain_graph=True), reps=5)
+    log(f"mesh 18f row 2c (the FA backward at q/k [{B},{Sq},{Hq},{Dqk}], v "
+        f"[{B},{Sk},{Hkv},{Dv}] {dt}, causal; no kernel yet): bound "
+        f"{bound_ms!r} ms ({bound_by}; on the CUDA cores {cuda_core_ms!r}), "
+        f"the backward of scaled_dot_product_attention(is_causal) "
+        f"{library_ms!r} ms")
+    del q, k, v, qt, kt, vt, ot, dt_
+    torch.cuda.empty_cache()
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_cuda_core_ms": cuda_core_ms, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------- #
 # 11. timing of the segment sum at the partition path's largest shapes
 # ---------------------------------------------------------------------- #
 def _cuda_ms(fn, reps: int = 20) -> float:
@@ -2687,6 +3072,26 @@ def _host_ms(fn, reps: int = 3) -> float:
     return best * 1e3
 
 
+def _bound(work: tuple, ops_per_s: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations"): the function's work, (its
+    operations, the bytes it moves) as `repro_torch.analysis.hlo_cost`
+    and `repro_torch.core.cuda.cost` count them, over the card's memory
+    rate and over `ops_per_s`."""
+    ops, nbytes = work
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _segsum_bound(m: int, nseg: int, value_size: int,
+                  id_size: int) -> tuple[float, str]:
+    """One segment sum: the values and ids read once, the sums written
+    once, one float64 addition a value."""
+    from repro_torch.core.cuda.cost import segment_sum_work
+    return _bound(segment_sum_work(m, nseg, value_size, id_size),
+                  PEAK_F64_OPS_PER_S)
+
+
 def _time_shape(name: str, data: torch.Tensor, ids: torch.Tensor,
                 nseg: int) -> dict:
     from repro_torch.core.cuda import segsum
@@ -2695,14 +3100,11 @@ def _time_shape(name: str, data: torch.Tensor, ids: torch.Tensor,
     plain_ms = _host_ms(lambda: segsum.segment_sum_plain(data, ids, nseg))
     library_ms = _cuda_ms(lambda: torch.zeros(
         nseg, dtype=data.dtype, device=data.device).index_add_(0, ids, data))
-    nbytes = data.element_size() * m + ids.element_size() * m \
-        + data.element_size() * nseg
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = m / PEAK_F64_OPS_PER_S * 1e3
+    bound_ms, bound_by = _segsum_bound(m, nseg, data.element_size(),
+                                       ids.element_size())
     return {"shape": f"{name}: m={m} segments={nseg} {data.dtype}",
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_timing(runs: dict, max_abs_err: float) -> dict:
@@ -2747,27 +3149,28 @@ def _fa_bound(case) -> tuple[float, str, float]:
     and the output written once over the memory rate.  Also the
     operations' time on the CUDA cores' float32 peak, the bound of the
     kernel's first, CUDA-core design."""
+    from repro_torch.analysis.hlo_cost import attention_work
     B, Sq, Sk, Hq, Hkv, D, causal, window, _, dt = case
     Dqk, Dv = _head_dims(D)
-    pos = np.arange(Sq)[:, None]
-    kp = np.arange(Sk)[None, :]
-    ok = np.ones((Sq, Sk), bool)
-    if causal:
-        ok &= kp <= pos
-    if window is not None:
-        ok &= kp > pos - window
-    pairs = int(ok.sum()) * B * Hq
     size = torch.tensor([], dtype=getattr(torch, dt)).element_size()
-    nbytes = size * (B * Sq * Hq + B * Sk * Hkv) * (Dqk + Dv)
-    ops = 2 * (Dqk + Dv) * pairs
-    t_ops = (3 * ops / PEAK_TF32_OPS_PER_S if dt == "float32"
-             else ops / PEAK_BF16_OPS_PER_S) * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
-            "bytes", ops / PEAK_F32_OPS_PER_S * 1e3)
+    return _tensor_core_bound(attention_work(B, Sq, Sk, Hq, Hkv, Dqk, Dv,
+                                             causal, window, size), dt)
+
+
+def _tensor_core_bound(work: tuple, dt: str) -> tuple[float, str, float]:
+    """`_bound` on the tensor cores (float32 as three TF32 products, bf16
+    at the bf16 rate), and the operations' time on the CUDA cores'
+    float32 peak."""
+    ops, nbytes = work
+    if dt == "float32":
+        bound_ms, by = _bound((3 * ops, nbytes), PEAK_TF32_OPS_PER_S)
+    else:
+        bound_ms, by = _bound((ops, nbytes), PEAK_BF16_OPS_PER_S)
+    return bound_ms, by, ops / PEAK_F32_OPS_PER_S * 1e3
 
 
 def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
+    from repro_torch.analysis.hlo_cost import rglru_work
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru
     F = torch.nn.functional
@@ -2869,17 +3272,14 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
     ms = _cuda_ms(lambda: rglru.rglru_scan(x, a), reps=10)
     ms_h0 = _cuda_ms(lambda: rglru.rglru_scan(x, a, h0), reps=10)
     plain_ms = _host_ms(lambda: rglru.rglru_plain(x, a))
-    n = B * S * D
-    t_bytes = 4 * (3 * n + B * D) / PEAK_BYTES_PER_S * 1e3
-    t_ops = 8 * n / PEAK_F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = _bound(rglru_work(B, S, D, 4), PEAK_F32_OPS_PER_S)
     rg_entry = {
         "name": "rglru", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru.cu",
         "replaces": "src/repro/kernels/rglru.py:25",
         "launches": prefill["launches"]["rglru"],
         "max_abs_err": errs["rglru"], "ms": ms, "ms_h0": ms_h0,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
         "library": "none: no single PyTorch call computes the recurrence",
         "shape": "x, a [2,3072,4096] float32, no h0",
@@ -2899,29 +3299,20 @@ def _fa_bwd_bound(case) -> tuple[float, str, float]:
     (float32 as three TF32 products), against q, k, v, O, dO read once,
     L read once and dq, dk, dv written once; also the operations on the
     CUDA cores' float32 peak."""
+    from repro_torch.analysis.hlo_cost import attention_bwd_work
     B, Sq, Sk, Hq, Hkv, D, causal, window, _, dt = case
-    pos = np.arange(Sq)[:, None]
-    kp = np.arange(Sk)[None, :]
-    ok = np.ones((Sq, Sk), bool)
-    if causal:
-        ok &= kp <= pos
-    if window is not None:
-        ok &= kp > pos - window
-    ops = 10 * D * int(ok.sum()) * B * Hq
+    Dqk, Dv = _head_dims(D)
     size = torch.tensor([], dtype=getattr(torch, dt)).element_size()
-    t_ops = (3 * ops / PEAK_TF32_OPS_PER_S if dt == "float32"
-             else ops / PEAK_BF16_OPS_PER_S) * 1e3
-    nbytes = (size * (4 * B * Sq * Hq * D + 4 * B * Sk * Hkv * D)
-              + 4 * B * Hq * Sq)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
-            "bytes", ops / PEAK_F32_OPS_PER_S * 1e3)
+    return _tensor_core_bound(attention_bwd_work(B, Sq, Sk, Hq, Hkv, Dqk,
+                                                 Dv, causal, window, size),
+                              dt)
 
 
 def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
     """The backward kernels at the training paths' shapes: flash
     attention's at path A's attention layer, RG-LRU's at path B's."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.analysis.hlo_cost import rglru_bwd_work
     from repro_torch.kernels import rglru
     F = torch.nn.functional
     B, Sq, Sk, Hq, Hkv, D = FA_BWD_A[:6]
@@ -3016,8 +3407,8 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
     plain_ms = _host_ms(lambda: rglru.rglru_bwd_plain(x, a, None, dh,
                                                       dlast))
     n = B * S * D
-    t_bytes = 4 * (6 * n + B * D) / PEAK_BYTES_PER_S * 1e3
-    t_ops = 15 * n / PEAK_F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = _bound(rglru_bwd_work(B, S, D, 4),
+                                PEAK_F32_OPS_PER_S)
     # what this design moves: a and dh read twice, and per chunk and
     # channel alpha and beta written, read, the carry written and read
     n_chunks = -(-S // rglru.chunk_steps())
@@ -3033,8 +3424,7 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
         "launches": train_b["per_step"]["rglru_bwd"],
         "launches_path": train_b["launches"]["rglru_bwd"],
         "max_abs_err": errs["rglru_bwd"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_design_ms": design_bytes / PEAK_BYTES_PER_S * 1e3,
         "bound_design_note": "the bytes this design moves: 8 arrays (a "
                              "and dh read twice) and 5 floats a chunk "
@@ -3065,6 +3455,7 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
 def phase_rwkv_bwd_timing(train_c: dict, err: float) -> dict:
     """The RWKV6 backward kernel at path C's layer shape; the forward
     with and without its checkpoint write beside it."""
+    from repro_torch.analysis.hlo_cost import rwkv6_bwd_work
     from repro_torch.core.cuda import _build
     from repro_torch.kernels import rwkv6
     B, S, H, Dk, Dv = RWKV_BWD
@@ -3086,11 +3477,8 @@ def phase_rwkv_bwd_timing(train_c: dict, err: float) -> dict:
         B, S, H, Dk, Dv)
     aim = (f"{'met' if ms <= RWKV_BWD_AIM_MS else 'missed'}: {ms!r} ms "
            f"against {RWKV_BWD_AIM_MS} ms")
-    bths = B * S * H
-    nbytes = 4 * (bths * (3 * Dk + 2 * Dv) + H * Dk
-                  + bths * (3 * Dk + Dv) + H * Dk)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 13 * Dk * Dv * bths / PEAK_F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = _bound(rwkv6_bwd_work(B, S, H, Dk, Dv, 4),
+                                PEAK_F32_OPS_PER_S)
     entry = {
         "name": "rwkv6_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/rwkv6_bwd.cu",
@@ -3100,8 +3488,7 @@ def phase_rwkv_bwd_timing(train_c: dict, err: float) -> dict:
         "launches": train_c["per_step"]["rwkv6_bwd"],
         "launches_path": train_c["launches"]["rwkv6_bwd"],
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
         "library": "none: no single PyTorch call computes the recurrence "
                    "or its gradient",
@@ -3136,11 +3523,8 @@ def _rwkv_bound(B: int, S: int, H: int, Dk: int, Dv: int,
     """Least time for one WKV scan without s0: r, k, w, v read once, out
     and S_last (float32) written once, over the memory rate, against
     7*Dk*Dv float32 operations per (b, t, h) over the float32 peak."""
-    nbytes = (size * B * S * H * (3 * Dk + 2 * Dv) + 4 * H * Dk
-              + 4 * B * H * Dk * Dv)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 7 * Dk * Dv * B * S * H / PEAK_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+    from repro_torch.analysis.hlo_cost import rwkv6_work
+    return _bound(rwkv6_work(B, S, H, Dk, Dv, size), PEAK_F32_OPS_PER_S)
 
 
 def phase_rwkv_timing(prefill: dict, serve: dict, err: float) -> dict:
@@ -3300,6 +3684,7 @@ def main() -> int:
     log(f"phase seconds: 12 {t1 - t0:.1f}, 12b {t1b - t1:.1f}, 13 "
         f"{t2 - t1b:.1f}, 14 {t3 - t2:.1f}, 16 {t3c - t3:.1f}, 15 "
         f"{t3d - t3c:.1f}, 17 {time.perf_counter() - t3d:.1f}")
+    mesh = phase_mesh()
     kernels = phase_timing(runs, max_abs_err)
     kernels["kernels"][0]["launches_trace"] = trace["launches"]
     kernels["kernels"][0]["launches_serve"] = serve["launches_serve"]
@@ -3326,6 +3711,8 @@ def main() -> int:
         if capture["launches_step"].get(entry["name"]):
             entry["launches_capture_step"] = \
                 capture["launches_step"][entry["name"]]
+        if mesh["launches"].get(entry["name"]):
+            entry["launches_mesh_step"] = mesh["launches"][entry["name"]]
     t4 = time.perf_counter()
     kernels["kernels"].append(phase_rwkv_bwd_timing(train_c, rwkv_bwd_err))
     log(f"phase seconds: 11 (rwkv6_bwd timing) "

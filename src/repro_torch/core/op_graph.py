@@ -56,6 +56,7 @@ capture.  Python scalars are not tensors, so there are no "lit" vertices.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -238,22 +239,32 @@ def kernel_vertex(name: str):
     return wrap
 
 
+@contextlib.contextmanager
+def installed(mode):
+    """Run the block under the dispatch mode `mode`, which also takes every
+    kernel region (`opaque` calls `mode.opaque(name, fn, args, kwargs)`):
+    the capture's hook, shared with `analysis.hlo_cost`'s cost mode.  One
+    such mode at a time."""
+    global _active
+    if _active is not None:
+        raise RuntimeError("a capture is already running")
+    _active = mode
+    try:
+        with mode:
+            yield mode
+    finally:
+        _active = None
+
+
 def capture(fn, *args, name: str | None = None, **kw):
     """Run `fn(*args, **kw)` once under the capture: (its `IRGraph`, what
     it returned).  It runs where its tensors are; a capture never moves a
     program to another device.  One capture at a time."""
-    global _active
-    if _active is not None:
-        raise RuntimeError("a capture is already running")
     cap = _Capture()
     for t in _tensors((args, kw)):
         cap.define(t, cap._new("input"))
-    _active = cap
-    try:
-        with cap:
-            out = fn(*args, **kw)
-    finally:
-        _active = None
+    with installed(cap):
+        out = fn(*args, **kw)
     return cap.graph(name or getattr(fn, "__name__", "fn")), out
 
 

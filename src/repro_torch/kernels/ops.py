@@ -18,11 +18,18 @@ Implementations per op:
 the CPU it keeps the JAX package's choice: ref for short sequences,
 chunked for attention once Sk exceeds `CHUNK_THRESHOLD`, and chunked for
 RWKV6 whenever S > 1.  A kernel's failure is never caught.
+
+Under a mesh (`parallel.sharding.use_mesh`) each op takes DTensors and
+runs on every rank's local shards (`parallel.sharding.local_region`):
+the batch over the data axes and the heads (the recurrence's channels)
+over 'model' where every head count divides, so a kernel wrapper always
+receives a local tensor and launches once a rank, as without a mesh.
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel.sharding import axis_size, local_region
 from . import ref as _ref
 from .flash_attention import flash_attention as _flash
 from .rglru import rglru_scan as _rglru_cuda
@@ -87,6 +94,13 @@ def _attention_chunked(q, k, v, *, causal, window, softcap, scale,
     return (acc / lsum).to(q.dtype)
 
 
+def _model_axis(*counts: int):
+    """'model' where its size divides every count (head counts), else
+    None: a GQA group must stay whole on a rank."""
+    m = axis_size("model")
+    return "model" if all(c % m == 0 for c in counts) else None
+
+
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               softcap: float | None = None, scale: float | None = None,
               q_offset=0, kv_len=None, impl: str = "auto") -> torch.Tensor:
@@ -98,6 +112,17 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     package's "pallas" does.  A head-dim pair outside the kernel's
     `HEAD_DIM_PAIRS` raises on a CUDA tensor.
     """
+    heads = ("data", None, _model_axis(q.shape[2], k.shape[2]), None)
+    return local_region(
+        lambda q, k, v: _attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale,
+                                   q_offset=q_offset, kv_len=kv_len,
+                                   impl=impl),
+        (q, k, v), (heads,) * 3, heads)
+
+
+def _attention(q, k, v, *, causal, window, softcap, scale, q_offset,
+               kv_len, impl):
     if impl == "auto":
         if q.device.type != "cpu":
             impl = "cuda"
@@ -128,6 +153,12 @@ def rglru(x, a, h0=None, impl: str = "auto"):
     """RG-LRU scan; returns (h, h_last).  Every impl other than "cuda"
     (and "auto" off the CPU) runs the plain version, as in the JAX
     package, so a model's impl="chunked" reaches it too."""
+    ch = ("data", None, _model_axis(x.shape[2]))
+    return local_region(lambda x, a, h0: _rglru(x, a, h0, impl), (x, a, h0),
+                        (ch, ch, (ch[0], ch[2])), [ch, (ch[0], ch[2])])
+
+
+def _rglru(x, a, h0, impl):
     if impl == "auto":
         impl = "ref" if x.device.type == "cpu" else "cuda"
     if impl == "cuda":
@@ -143,6 +174,15 @@ def rwkv6(r, k, v, w, u, s0=None, impl: str = "auto"):
     package's choice: the chunk-parallel form for sequences (state carried
     once per 64 steps) and the per-step form for single-token decode.
     """
+    hd = _model_axis(r.shape[2])
+    seq, state = ("data", None, hd, None), ("data", hd, None, None)
+    return local_region(
+        lambda r, k, v, w, u, s0: _rwkv6(r, k, v, w, u, s0, impl),
+        (r, k, v, w, u, s0), (seq, seq, seq, seq, (hd, None), state),
+        [seq, state])
+
+
+def _rwkv6(r, k, v, w, u, s0, impl):
     if impl == "auto":
         if r.device.type != "cpu":
             impl = "cuda"

@@ -12,9 +12,19 @@ import torch
 
 from .. import models
 from ..configs.base import ModelConfig, ParallelConfig
-from ..optim.adamw import AdamWConfig, adamw_update, tree_leaves, tree_map
+from ..optim.adamw import (AdamWConfig, adamw_update, tree_leaves,
+                           tree_map, zeros_as)
+from ..parallel.sharding import current_mesh, maybe_shard
 
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
+
+
+def _no_grad():
+    """`inference_mode`, or under a mesh `no_grad` (DTensor's in-place
+    writes need the version counters that inference tensors lack)."""
+    if current_mesh() is None:
+        return torch.inference_mode()
+    return torch.no_grad()
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -45,8 +55,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         n_micro = par.microbatches
         if n_micro > 1:
             tot_l = torch.zeros((), dtype=torch.float32, device=model.device)
-            acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-                   for p in tree_leaves(params)]
+            acc = [zeros_as(p, accum_dtype) for p in tree_leaves(params)]
             for i in range(n_micro):
                 loss, grads = value_and_grad(
                     model, params, {k: v[i] for k, v in batch.items()})
@@ -73,10 +82,13 @@ def make_serve_step(cfg: ModelConfig):
     """serve_step(model, cache, tokens [B], pos) -> (next_tokens int32
     [B], cache): one greedy decode step with a KV/state cache."""
 
-    @torch.inference_mode()
     def serve_step(model, cache, tokens, pos):
-        logits, cache = models.decode_step(model, cache, tokens, pos)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        with _no_grad():
+            logits, cache = models.decode_step(model, cache, tokens, pos)
+            # the vocab whole on each rank: DTensor's argmax over a
+            # sharded dim reads its offsets back from the device
+            logits = maybe_shard(logits, "data", None)
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return serve_step
 
@@ -85,9 +97,9 @@ def make_prefill_step(cfg: ModelConfig, impl: str = "auto"):
     """prefill_step(model, batch) -> last-position logits [B, V]: the
     prompt forward pass, through the kernels on the card."""
 
-    @torch.inference_mode()
     def prefill_step(model, batch):
-        logits, _ = models.forward(model, batch, impl=impl)
-        return logits[:, -1].clone()    # frees the [B, S, V] logits
+        with _no_grad():
+            logits, _ = models.forward(model, batch, impl=impl)
+            return logits[:, -1].clone()    # frees the [B, S, V] logits
 
     return prefill_step

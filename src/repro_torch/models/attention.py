@@ -25,9 +25,20 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
+from ..parallel.sharding import axis_size, maybe_shard, write_at
 from .layers import dense, init_dense, init_rms_norm, mrope, rms_norm, rope
 
 __all__ = ["GQA", "MLA", "CrossAttention"]
+
+
+def _split_heads(x, B: int, S: int, H: int, D: int):
+    """x [B, S, H*D] as [B, S, H, D].  Under a mesh whose 'model' axis
+    does not divide H the last dim is replicated first: a DTensor cannot
+    split a dim sharded over 'model' into heads it does not divide (XLA
+    pads them instead)."""
+    if H % axis_size("model"):
+        x = maybe_shard(x, "data", None, None)
+    return x.reshape(B, S, H, D)
 
 
 def _apply_rope(cfg: ModelConfig, x, positions):
@@ -55,9 +66,9 @@ class GQA:
     def _qkv(p, cfg, x, positions):
         B, S, _ = x.shape
         hd = cfg.head_dim
-        q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-        k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-        v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+        q = _split_heads(dense(p["wq"], x), B, S, cfg.n_heads, hd)
+        k = _split_heads(dense(p["wk"], x), B, S, cfg.n_kv_heads, hd)
+        v = _split_heads(dense(p["wv"], x), B, S, cfg.n_kv_heads, hd)
         q = _apply_rope(cfg, q, positions)
         k = _apply_rope(cfg, k, positions)
         return q, k, v
@@ -111,8 +122,8 @@ class GQA:
         ck, cv = cache["k"], cache["v"]
         W = ck.shape[1]
         slot = pos % W  # ring buffer for windowed layers; == pos otherwise
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
+        write_at(ck, 1, slot, k[:, 0].to(ck.dtype))
+        write_at(cv, 1, slot, v[:, 0].to(cv.dtype))
         # positions of ring slots: slot i holds absolute pos p where
         # p % W == i and p <= pos and p > pos - W
         idx = torch.arange(W, device=dev)
@@ -124,6 +135,9 @@ class GQA:
         # grouped-query einsum: no repeat of the cache across heads
         Hkv = cfg.n_kv_heads
         G = cfg.n_heads // Hkv
+        # the query's heads whole on each rank (a DTensor cannot split
+        # a sharded head dim into (Hkv, G) groups)
+        q = maybe_shard(q, "data", None, None, None)
         qg = (q * (hd ** -0.5)).reshape(B, 1, Hkv, G, hd)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), ck.float())
         if cfg.attn_softcap is not None:
@@ -175,7 +189,7 @@ class MLA:
             q = dense(p["wq_b"], rms_norm(p["q_norm"], dense(p["wq_a"], x)))
         else:
             q = dense(p["wq"], x)
-        q = q.reshape(B, S, cfg.n_heads, dn + dr)
+        q = _split_heads(q, B, S, cfg.n_heads, dn + dr)
         return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
 
     @staticmethod
@@ -199,8 +213,8 @@ class MLA:
         dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         q_nope, q_rope = MLA._q(p, cfg, x, positions)
         c_kv, k_rope = MLA._latent(p, cfg, x, positions)
-        k_nope = dense(p["wk_b"], c_kv).reshape(B, S, H, dn)
-        v = dense(p["wv_b"], c_kv).reshape(B, S, H, dv)
+        k_nope = _split_heads(dense(p["wk_b"], c_kv), B, S, H, dn)
+        v = _split_heads(dense(p["wv_b"], c_kv), B, S, H, dv)
         q = torch.cat([q_nope, q_rope], -1)
         k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
         o = ops.attention(q, k, v, causal=True, window=window,
@@ -232,8 +246,8 @@ class MLA:
         q_nope, q_rope = MLA._q(p, cfg, x, positions)       # [B, 1, H, *]
         c_kv, k_rope = MLA._latent(p, cfg, x, positions)
         ckv, krope = cache["ckv"], cache["krope"]
-        ckv[:, pos] = c_kv[:, 0].to(ckv.dtype)
-        krope[:, pos] = k_rope[:, 0, 0].to(krope.dtype)
+        write_at(ckv, 1, pos, c_kv[:, 0].to(ckv.dtype))
+        write_at(krope, 1, pos, k_rope[:, 0, 0].to(krope.dtype))
         wk = p["wk_b"]["w"].reshape(L, H, dn).float()
         q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope.float(), wk)
         s_nope = torch.einsum("bqhl,bkl->bhqk", q_lat, ckv.float())
@@ -264,15 +278,17 @@ class CrossAttention:
         """The keys and values [B, Se, Hkv, hd] from the encoder's
         output (no RoPE)."""
         B, Se, _ = enc.shape
-        k = dense(p["wk"], enc).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
-        v = dense(p["wv"], enc).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+        k = _split_heads(dense(p["wk"], enc), B, Se, cfg.n_kv_heads,
+                         cfg.head_dim)
+        v = _split_heads(dense(p["wv"], enc), B, Se, cfg.n_kv_heads,
+                         cfg.head_dim)
         return k, v
 
     @staticmethod
     def apply(p, cfg: ModelConfig, x: torch.Tensor, enc: torch.Tensor,
               impl: str = "auto") -> torch.Tensor:
         B, S, _ = x.shape
-        q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        q = _split_heads(dense(p["wq"], x), B, S, cfg.n_heads, cfg.head_dim)
         k, v = CrossAttention.project_kv(p, cfg, enc)
         o = ops.attention(q, k, v, causal=False, impl=impl)
         return dense(p["wo"], o.reshape(B, S, -1))

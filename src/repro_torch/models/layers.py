@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..parallel import sharding
 
 __all__ = ["Params", "rms_norm", "init_rms_norm", "rope", "mrope",
            "init_dense", "dense", "init_mlp", "mlp", "init_embedding",
@@ -26,7 +27,9 @@ class Params(nn.Module):
     tensor leaves become parameters (frozen: `requires_grad_(True)` on
     the model turns them on for training), and `p[key]` reads either and
     `key in p` tests for either, as the JAX package's dict params are
-    read."""
+    read.  Under a mesh `p[key]` gives a DTensor weight gathered over the
+    data axes (`parallel.sharding.gather_data`: FSDP's gather before a
+    use); `tree()` gives the parameters themselves."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -38,7 +41,10 @@ class Params(nn.Module):
                     key, nn.Parameter(value, requires_grad=False))
 
     def __getitem__(self, key: str):
-        return getattr(self, key)
+        value = getattr(self, key)
+        if sharding._mesh is not None and isinstance(value, nn.Parameter):
+            return sharding.gather_data(value)
+        return value
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
@@ -118,7 +124,11 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].to(x.dtype)
+    """x @ w.  Under a mesh the product is `parallel.sharding.settle`d
+    (partial sums all-reduced) and the gradients of x and of the product
+    take their values' placements, so the backward never meets a layout
+    the forward did not choose."""
+    return sharding.settle(sharding.grad_like(x) @ p["w"].to(x.dtype))
 
 
 def act_fn(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -159,17 +169,36 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig,
 
 
 def embed(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    h = p["table"][tokens]
+    # under a mesh each rank looks its own tokens up (a lookup's gradient
+    # is an index_put, which DTensor does not shard): in the whole table,
+    # or, where the table's vocab is split over 'model', in its own rows,
+    # the rows it lacks zero, all-reduced over 'model'
+    table = p["table"]
+    batch = ("data",) + (None,) * (tokens.dim() - 1)
+    if not sharding.sharded_over(table, "model", 0):
+        h = sharding.local_region(lambda table, ids: table[ids],
+                                  (table, tokens), ((None, None), batch),
+                                  batch + (None,))
+    else:
+        def lookup(table, ids):
+            t = ids - sharding.axis_index("model") * table.shape[0]
+            inside = (t >= 0) & (t < table.shape[0])
+            own = table[t.clamp(0, table.shape[0] - 1)]
+            return sharding.sum_over(
+                torch.where(inside[..., None], own, 0.0), "model")
+        h = sharding.local_region(lookup, (table, tokens),
+                                  (("model", None), batch), batch + (None,))
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     return h
 
 
 def unembed(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    h = sharding.grad_like(h)       # placed as `dense` places its product
     if cfg.tie_embeddings:
-        logits = h @ p["table"].to(h.dtype).T
+        logits = sharding.settle(h @ p["table"].to(h.dtype).T)
     else:
-        logits = h @ p["unembed"].to(h.dtype)
+        logits = sharding.settle(h @ p["unembed"].to(h.dtype))
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits

@@ -31,9 +31,12 @@ A batch is {"tokens": [B, S]} and, where the config has them,
 The weights are built frozen (serving runs under `inference_mode`); a
 trainer turns them on with `model.requires_grad_(True)`.
 
-Sharding (`maybe_shard`) and the scan barrier have no counterpart: the
-first goes with ROADMAP.md queue 1, item 10, and the second only steers
-XLA.
+Under a mesh (`launch.mesh.mesh_context`) the weights are DTensors
+placed by `parallel.param_specs`, and `_forward` constrains each layer's
+input and output to ("data", None, None) and the logits to ("data",
+None, "model") with `parallel.maybe_shard`, at the JAX package's call
+sites; outside a mesh those calls do nothing.  The scan barrier has no
+counterpart: it only steers XLA.
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.cuda import resolve_device
+from ..parallel.sharding import (axis_index, axis_size, local_region,
+                                 max_over, maybe_shard, sum_over)
 from .attention import GQA, MLA, CrossAttention
 from .layers import (Params, embed, init_embedding, init_mlp,
                      init_rms_norm, mlp, rms_norm, unembed)
@@ -312,6 +317,7 @@ def _forward(model: Model, batch: dict, impl: str, remat: bool):
     positions = _positions(cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for kind, p in zip(model.kinds, model.layers):
+        h = maybe_shard(h, "data", None, None)
         if remat and torch.is_grad_enabled():
             # `enc` goes in as an input, so the backward gives the
             # encoder every cross attention's gradient
@@ -320,10 +326,12 @@ def _forward(model: Model, batch: dict, impl: str, remat: bool):
         else:
             h, a = _block_apply(p, cfg, kind, h, positions, enc=enc,
                                 impl=impl)
+        h = maybe_shard(h, "data", None, None)
         if a is not None:
             aux = aux + a
     h = rms_norm(model.final_ln, h)
-    return unembed(model.embed, cfg, h), aux, enc
+    logits = maybe_shard(unembed(model.embed, cfg, h), "data", None, "model")
+    return logits, aux, enc
 
 
 # ---------------------------------------------------------------------- #
@@ -347,9 +355,7 @@ def loss_fn(model: Model, batch: dict, impl: str = "auto",
     cfg = model.cfg
     tokens = batch["tokens"].long()
     logits, aux = forward(model, batch, impl=impl, remat=remat)
-    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    nll = -torch.gather(lp, -1, tokens[:, 1:, None])[..., 0]
-    loss = nll.mean()
+    loss = _nll(logits, tokens, 1).mean()
     if cfg.is_moe:
         loss = loss + aux_weight * aux
     if cfg.mtp_depth and model.mtp is not None:
@@ -358,10 +364,43 @@ def loss_fn(model: Model, batch: dict, impl: str = "auto",
         for p in model.mtp:
             h, _ = _block_apply(p, cfg, "attn", h, positions, impl=impl)
         logits2 = unembed(model.embed, cfg, rms_norm(model.mtp_ln, h))
-        lp2 = torch.log_softmax(logits2[:, :-2].float(), dim=-1)
-        nll2 = -torch.gather(lp2, -1, tokens[:, 2:, None])[..., 0]
-        loss = loss + mtp_weight * nll2.mean()
+        loss = loss + mtp_weight * _nll(logits2, tokens, 2).mean()
     return loss
+
+
+def _nll(logits: torch.Tensor, tokens: torch.Tensor,
+         ahead: int) -> torch.Tensor:
+    """[B, S - ahead] float32 negative log-likelihoods of the tokens
+    `ahead` positions on under `logits` [B, S, V].  Under a mesh each
+    rank takes its own rows (DTensor would allocate the slice's and the
+    gather's gradients at the global batch); where the vocab is split
+    over 'model', as the logits are placed, each rank keeps its own
+    columns and the log-sum-exp and the token's logit are all-reduced
+    over 'model' (vocab-parallel cross entropy: no rank holds the whole
+    vocab's logits)."""
+    n = axis_size("model")
+    if n == 1 or logits.shape[-1] % n:
+        def nll(logits, tokens):
+            lp = torch.log_softmax(logits[:, :-ahead].float(), dim=-1)
+            return -torch.gather(lp, -1, tokens[:, ahead:, None])[..., 0]
+        return local_region(nll, (logits, tokens),
+                            (("data", None, None), ("data", None)),
+                            ("data", None))
+
+    def nll_vocab_parallel(logits, tokens):
+        x = logits[:, :-ahead].float()
+        v = x.shape[-1]
+        t = tokens[:, ahead:] - axis_index("model") * v
+        inside = (t >= 0) & (t < v)
+        m = max_over(x.amax(-1), "model")
+        z = (x - m[..., None]).exp().sum(-1)
+        own = torch.gather(x, -1, t.clamp(0, v - 1)[..., None])[..., 0]
+        z, picked = sum_over(torch.stack([z, torch.where(inside, own, 0.0)]),
+                             "model")
+        return m + z.log() - picked
+    return local_region(nll_vocab_parallel, (logits, tokens),
+                        (("data", None, "model"), ("data", None)),
+                        ("data", None))
 
 
 def param_tree(model: Model) -> dict:

@@ -19,12 +19,19 @@ The JAX package's semantics kept exactly:
     order of its adds;
   * the combine reads a dropped slot at position C-1 (the reference's
     gather clamps an out-of-range index) and weights it by 0.
+
+Under a mesh the routing, the dispatch by index and the combine run on
+each rank's own token groups (`parallel.sharding.local_region`; no
+DTensor rule covers `index_put` or a sort), and `maybe_shard` puts E over
+'model' for the expert products and the groups back over 'data' after
+them: the JAX package's call sites, its axes permuted to this layout.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..parallel.sharding import local_region, maybe_shard
 from .layers import _normal, act_fn, init_dense, init_mlp, mlp
 
 __all__ = ["MoE"]
@@ -71,26 +78,16 @@ class MoE:
         E, k = cfg.n_experts, cfg.experts_per_token
         cf = capacity_factor or cfg.capacity_factor
         C = max(int(S * k * cf / E), 4)
-
-        top_p, top_e = _top_k(_router_probs(p, x), k)      # [G, S, k]
-        top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
-
-        # position of each (token, slot) within its expert, per group,
-        # counted in token-major (token, slot) order
-        onehot = torch.nn.functional.one_hot(top_e, E)      # [G, S, k, E]
-        pos_in_e = onehot.reshape(G, S * k, E).cumsum(1).reshape(
-            G, S, k, E) - 1
-        pos = pos_in_e.gather(-1, top_e[..., None])[..., 0]  # [G, S, k]
-        keep = pos < C
-
-        # dispatch: dropped rows are zeroed before the add
-        g_idx = torch.arange(G, device=x.device)[:, None, None].expand(
-            G, S, k)
-        e_idx = torch.where(keep, top_e, E - 1)
-        p_idx = torch.where(keep, pos, C - 1)
-        rows = x[:, :, None, :] * keep[..., None].to(x.dtype)
-        buffers = x.new_zeros((E, G, C, d)).index_put(
-            (e_idx, g_idx, p_idx), rows, accumulate=True)
+        grp = ("data", None, None)          # each group on its own rank
+        top_p, top_e, pos, keep = local_region(
+            lambda probs: _route(probs, k, C), (_router_probs(p, x),),
+            (grp,), [grp] * 4)
+        buffers = local_region(lambda x, e, q, m: _dispatch(x, e, q, m, E, C),
+                               (x, top_e, pos, keep), (grp,) * 4,
+                               (None, "data", None, None))
+        # the expert products want E over 'model' ([E, G, C, d] here,
+        # [G, E, C, d] in the JAX package)
+        buffers = maybe_shard(buffers, "model", "data", None, None)
 
         # expert compute, batched over E: [E, G*C, d] x [E, d, ff]
         xb = buffers.view(E, G * C, d)
@@ -101,10 +98,11 @@ class MoE:
         out = torch.bmm(h, p["w_out"].to(x.dtype)).view(E, G, C, d)
         del h
 
-        # combine: the clamped gather, weighted by top_p for kept slots
-        vals = out[top_e, g_idx, pos.clamp(max=C - 1)]      # [G, S, k, d]
-        w = (top_p * keep).to(vals.dtype)[..., None]
-        y = (vals * w).sum(dim=2)
+        # back to the tokens' owners
+        out = maybe_shard(out, None, "data", None, None)
+        y = local_region(_combine, (out, top_e, pos, keep, top_p),
+                         ((None, "data", None, None),) + (grp,) * 4, grp)
+        y = maybe_shard(y, "data", None, None)
         if cfg.n_shared_experts:
             y = y + mlp(p["shared"], x, cfg.hidden_act)
         return y
@@ -113,8 +111,48 @@ class MoE:
     def aux_loss(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         """Load-balancing auxiliary loss (Switch-style), float32."""
         probs = _router_probs(p, x)
-        _, top_e = _top_k(probs, cfg.experts_per_token)
-        frac = torch.nn.functional.one_hot(
-            top_e, cfg.n_experts).float().mean((0, 1, 2))
+        E = cfg.n_experts
+        onehot = local_region(
+            lambda pr: torch.nn.functional.one_hot(
+                _top_k(pr, cfg.experts_per_token)[1], E).float(),
+            (probs,), (("data", None, None),), ("data", None, None, None))
+        frac = onehot.mean((0, 1, 2))
         imp = probs.mean((0, 1))
         return cfg.n_experts * torch.sum(frac * imp)
+
+
+def _route(probs: torch.Tensor, k: int, C: int):
+    """(top_p renormalised, top_e, pos, keep), each [G, S, k]: each
+    (token, slot)'s position within its expert, per group, counted in
+    token-major (token, slot) order, and whether it is below C."""
+    G, S, E = probs.shape
+    top_p, top_e = _top_k(probs, k)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    onehot = torch.nn.functional.one_hot(top_e, E)      # [G, S, k, E]
+    pos_in_e = onehot.reshape(G, S * k, E).cumsum(1).reshape(
+        G, S, k, E) - 1
+    pos = pos_in_e.gather(-1, top_e[..., None])[..., 0]
+    return top_p, top_e, pos, pos < C
+
+
+def _dispatch(x, top_e, pos, keep, E: int, C: int) -> torch.Tensor:
+    """The [E, G, C, d] expert buffers; dropped rows are zeroed before
+    the add."""
+    G, S, k = top_e.shape
+    g_idx = torch.arange(G, device=x.device)[:, None, None].expand(G, S, k)
+    e_idx = torch.where(keep, top_e, E - 1)
+    p_idx = torch.where(keep, pos, C - 1)
+    rows = x[:, :, None, :] * keep[..., None].to(x.dtype)
+    return x.new_zeros((E, G, C, x.shape[-1])).index_put(
+        (e_idx, g_idx, p_idx), rows, accumulate=True)
+
+
+def _combine(out, top_e, pos, keep, top_p) -> torch.Tensor:
+    """[G, S, d]: the clamped gather from `out` [E, G, C, d], weighted by
+    top_p for kept slots."""
+    G, S, k = top_e.shape
+    C = out.shape[2]
+    g_idx = torch.arange(G, device=out.device)[:, None, None].expand(G, S, k)
+    vals = out[top_e, g_idx, pos.clamp(max=C - 1)]      # [G, S, k, d]
+    w = (top_p * keep).to(vals.dtype)[..., None]
+    return (vals * w).sum(dim=2)

@@ -80,11 +80,23 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
 
+def zeros_as(p: torch.Tensor, dtype) -> torch.Tensor:
+    """Zeros of `p`'s shape in `dtype` on `p`'s device; for a DTensor `p`
+    a DTensor of its placements.  A plain one is made from the shape
+    alone, so a captured program sees no read of `p`."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=dtype,
+                                memory_format=torch.contiguous_format)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
 def adamw_init(params, cfg: AdamWConfig) -> dict:
     """Zero moments shaped like `params` (in `cfg.moment_dtype`, on each
-    leaf's device) and step 0."""
+    leaf's device, and as a leaf's DTensor placements under a mesh) and
+    step 0."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        return zeros_as(p, cfg.moment_dtype)
 
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else "cpu"

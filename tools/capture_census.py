@@ -5,10 +5,12 @@
 Captures one `make_train_step` of the config at its full depth but the
 reduced width of the tests (a graph's vertices and edges do not depend on
 the widths) on the CPU, 2 microbatches, and prints its vertex and edge
-counts and most frequent labels; then one flash-attention call and its
-gradient, so that the vertices a call's plain backward adds on the host
-can be told from the one `flash_attention_bwd` vertex the card makes.
-No card is needed.
+counts and most frequent labels; then the labels of one flash-attention
+call's gradient, so that the vertices a call's plain backward adds on
+the host can be told from the one `flash_attention_bwd` vertex the card
+makes.  No card is needed; `chip_smoke.py` phase 18e captures the same
+step on the card (`census_step(device="cuda")`) and holds its labels to
+the host's.
 """
 from __future__ import annotations
 
@@ -27,29 +29,34 @@ from repro_torch.core.op_graph import capture
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch.steps import make_train_step
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.optim.adamw import tree_map
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="smollm-360m")
-    args = ap.parse_args(argv)
-    full = get_config(args.arch)
+def census_step(arch: str = "smollm-360m", device: str = "cpu"):
+    """(the step, its arguments): one `make_train_step` of the config at
+    its full depth and the tests' reduced width, 2 microbatches of 2 x 64
+    tokens, impl="cuda" (the kernels on the card, their plain versions on
+    the host), with the weights of a seed-0 host model on `device`."""
+    full = get_config(arch)
     cfg = dataclasses.replace(reduced_config(full), n_layers=full.n_layers)
-    model = models.Model(cfg, device="cpu", generator=torch.Generator()
-                         .manual_seed(0)).requires_grad_(True)
+    host = models.Model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    model = models.Model(cfg, device=device, params=tree_map(
+        lambda t: t.detach().to(device), models.param_tree(host))
+    ).requires_grad_(True)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
     step = make_train_step(cfg, opt_cfg, ParallelConfig(microbatches=2),
                            impl="cuda")
     opt = adamw_init(models.param_tree(model), opt_cfg)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 2, 64)))
-    g, _ = capture(step, model, opt, {"tokens": toks})
-    labels = collections.Counter(g.node_labels)
-    print(json.dumps({"step": cfg.name, "layers": cfg.n_layers,
-                      "vertices": g.n, "edges": g.num_edges,
-                      "flash_attention": labels["flash_attention"],
-                      "top": labels.most_common(10)}))
+        0, cfg.vocab_size, (2, 2, 64))).to(device)
+    return step, (model, opt, {"tokens": toks})
 
+
+def one_call_backward_labels() -> collections.Counter:
+    """The labels one flash-attention call's gradient adds on the host:
+    its plain version's backward operators (the card makes one
+    `flash_attention_bwd` vertex instead)."""
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(1, 64, 4, 16, generator=gen, requires_grad=True)
     k, v = (torch.randn(1, 64, 2, 16, generator=gen, requires_grad=True)
@@ -62,10 +69,27 @@ def main(argv=None) -> int:
     labels = collections.Counter(g1.node_labels)
     # the program around the call: 3 inputs, the call, its sum and the
     # seed gradient; the rest is the plain version's backward
-    bwd = g1.n - 3 - labels["flash_attention"] - 2
-    print(json.dumps({"one_call": {"vertices": g1.n, "edges": g1.num_edges,
-                                   "plain_backward_vertices": bwd,
-                                   "labels": dict(labels)}}))
+    for label, n in (("input", 3), ("flash_attention", 1), ("sum", 1),
+                      ("ones_like", 1)):
+        labels[label] -= n
+    return +labels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="smollm-360m")
+    args = ap.parse_args(argv)
+    step, step_args = census_step(args.arch)
+    g, _ = capture(step, *step_args)
+    labels = collections.Counter(g.node_labels)
+    print(json.dumps({"step": args.arch, "layers": len(step_args[0].layers),
+                      "vertices": g.n, "edges": g.num_edges,
+                      "flash_attention": labels["flash_attention"],
+                      "top": labels.most_common(10)}))
+    bwd = one_call_backward_labels()
+    print(json.dumps({"one_call": {"plain_backward_vertices":
+                                   sum(bwd.values()),
+                                   "labels": dict(bwd)}}))
     return 0
 
 
