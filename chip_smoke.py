@@ -191,7 +191,13 @@ Phases, each reported on its own line(s):
    backward kernels (flash attention's at path A's layer shape and, as
    `ms_path_b` beside its `bound_path_b_ms` and SDPA's backward
    `library_path_b_ms`, at path B's, with the 1.5 ms
-   aim at path A stated as met or missed; RG-LRU's at path B's layer
+   aim at path A stated as met or missed; its (192, 128) instantiation,
+   row 2c, at path D's MLA layer as `ms_mla` beside `bound_mla_ms`,
+   `plain_mla_ms` and SDPA's `library_mla_ms` (and in bf16 as
+   `ms_mla_bf16`), and at path E's cross attention as
+   `ms_seamless_cross` with its bound and SDPA's time; its launches in
+   paths D and E as `launches_path_d` and `launches_path_e`; RG-LRU's
+   at path B's layer
    shape, with the bound for the bytes its design moves beside the
    function's (`bound_design_ms`) and its 0.25 ms aim; RWKV6's at path
    C's layer shape, with the forward beside it with and without its
@@ -202,16 +208,22 @@ Phases, each reported on its own line(s):
    work as `repro_torch.analysis.hlo_cost` (and, for the segment sum,
    `repro_torch.core.cuda.cost`) counts it, over the card's peaks;
 12. backward kernels: flash attention's (`csrc/flash_attention_bwd.cu`)
-   on `FA_CASES`, on every head dim in float32 and bfloat16 over
-   `FA_BWD_EDGES` (GQA groups of 1, 2, 3 and 16, lengths that are not a
-   multiple of its tiles, a window shorter than a tile, softcap with a
-   static q_offset) and at the two training paths' attention shapes (4 x
+   on `FA_CASES`, on every head dim and MLA's (192, 128) in float32 and
+   bfloat16 over `FA_BWD_EDGES` (GQA groups of 1, 2, 3 and 16, lengths
+   that are not a multiple of its tiles, last tiles of 2 and 3 rows, a
+   window shorter than a tile, softcap with a static q_offset, Sq != Sk
+   without a mask), at the two training paths' attention shapes (4 x
    2,048, 15 heads of 64 on 5, causal; 1 x 3,072, 16 heads of 256 on 1,
-   window 2048), float32 and bfloat16, against the plain version's
-   autograd in float64 on the card (5e-5 and 2e-2 of max(1, max|g|)),
-   two calls bit-identical and the forward's output unchanged by its
-   log-sum-exp write; RG-LRU's (`csrc/rglru_bwd.cu`, time-parallel over
-   chunks of 16 steps) at (1, 3,072, 4,096) with and without
+   window 2048) and at every shape paths D and E train it at
+   (`FA_BWD_PATHS`: phase 5's MLA cases with deepseek-v3's [2, 2,048,
+   128, 192/128]; seamless's encoder [2, 1,000, 16, 64] and cross
+   attention [2, 2,048] by [2, 1,000] without a mask, its decoder's [2,
+   2,048, 16 on 16, 64] causal), float32 and bfloat16, against the
+   plain version's autograd in float64 on the card (5e-5 and 2e-2 of
+   max(1, max|g|), dq, dk and dv each), two calls bit-identical and the
+   forward's output unchanged by its log-sum-exp write; RG-LRU's
+   (`csrc/rglru_bwd.cu`, time-parallel over chunks of 16 steps) at (1,
+   3,072, 4,096) with and without
    h0 alike, at S one short of a chunk, one past it, three chunks and 5
    and 3,071 (a ragged last chunk, S shorter than a chunk), and at S = 1
    on every float a in [0, 1] (and outside it) equal to the float32
@@ -249,6 +261,28 @@ Phases, each reported on its own line(s):
 15. the training CLI (`python -m repro_torch.launch.train`, reduced
    smollm-360m on the card) twice on one `--ckpt-dir`: the second run
    resumes from the first's checkpoint;
+16d. path D, deepseek-v3-671b's MLA: on phase 10d's cut (full width, 1
+   layer, no MTP head), `torch.autograd.grad` of `models.loss_fn` with
+   respect to the layer's 8 MLA leaves only (187,107,328 parameters; no
+   optimizer), sized first by the dry run (fake tensors, the kernels as
+   regions); at B = 1, S = 2,048 through the kernels (exactly 1
+   flash-attention and 1 backward launch, at (192, 128)) against
+   impl="ref" on the same weights and batch (no launch): the loss and
+   the MLA gradients' norm within 1e-4 relative, each leaf's scaled
+   error logged, everything finite; then at B = 2 three calls (seconds,
+   peak memory beside the dry run's) and one under `torch.profiler`
+   (the flash-attention backward's share of the device time);
+16e. path E, seamless-m4t-large-v2 whole (24 + 24 layers,
+   2,034,784,256 parameters): the microbatch sized by the dry run; a
+   train step of 2 encoder and 2 decoder layers at full width through
+   the kernels against impl="ref" (loss and grad_norm to 1e-4 relative;
+   impl="ref" still launches the kernel in the encoder, 2 + 2 a
+   microbatch, as the JAX package's `_encode` takes no impl), then 2 x
+   2,048 tokens with 2 x 1,000 frames in 2 microbatches for 3 AdamW
+   steps: exactly (24 + 24 + 24) x 2 x 3 = 432 flash-attention forward
+   and 432 backward launches and no other kernel, finite losses, the
+   last below the first; step time, tokens/s, peak memory and one step
+   under `torch.profiler`;
 17. capture path (`repro_torch.core.op_graph`): (a) `python -m
    repro_torch.trace record` on the card for the three demo programs, one
    process each, all started together, each trace ingesting to the
@@ -291,9 +325,7 @@ Phases, each reported on its own line(s):
    equal to its launches, the two graphs apart only by the
    flash-attention backward (`CENSUS_PLAIN_BWD` a call on the host, one
    `flash_attention_bwd` vertex on the card; ROADMAP.md queue 3, item
-   2); (f) row 2c, which has no kernel: the
-   flash-attention backward's bound at MLA's shape and SDPA's backward
-   time there.
+   2).
 
 The last line is `{"ok": true, "device": {...}}`.  Any failure raises
 and the script exits non-zero before that line.  It imports nothing of
@@ -497,9 +529,24 @@ FA_BWD_EDGES = [
     (2, 70, 130, 2, 1, True, 48, 30.0, 60),
     (2, 150, 150, 15, 5, True, None, None, 0),
     (2, 100, 100, 16, 1, True, 7, None, 0),
+    (2, 66, 66, 4, 2, True, None, None, 0),
+    (2, 131, 195, 2, 2, False, None, None, 0),
 ]
 # the aim for the backward at path A's shape (ms, H100)
 FA_BWD_AIM_MS = 1.5
+# the backward at every shape paths D and E train it at, each in float32
+# and bfloat16: MLA's (192, 128) cases of phase 5 with deepseek-v3's
+# prefill shape, then seamless-m4t-large-v2's encoder over Se = 1,000
+# frames and its cross attention (Sq = S by Se), no mask, and its
+# decoder's self-attention, causal
+FA_BWD_SEAMLESS_CROSS = (SEAMLESS_B, SEAMLESS_S, SEAMLESS_SE, 16, 16, 64,
+                         False, None, None, "float32")
+FA_BWD_PATHS = FA_MLA_CASES + [
+    shape + (None, None, dt)
+    for shape in ((SEAMLESS_B, SEAMLESS_SE, SEAMLESS_SE, 16, 16, 64, False),
+                  FA_BWD_SEAMLESS_CROSS[:7],
+                  (SEAMLESS_B, SEAMLESS_S, SEAMLESS_S, 16, 16, 64, True))
+    for dt in ("float32", "bfloat16")]
 # training path C: rwkv6-7b at full width (d 4,096, 64 heads of
 # 64, d_ff 14,336, vocab 65,536, float32) cut to 4 layers, 2 sequences
 # of 4,096 tokens (the JAX package's train_4k context) in 2
@@ -521,6 +568,22 @@ RWKV_BWD = (TRAIN_C_B // TRAIN_C_MICRO, TRAIN_C_S, 64, 64, 64)
 RWKV_BWD_STRESS = [(1, 33, 2, 8, 20), (1, 33, 2, 40, 24), (1, 33, 2, 64, 20),
                    (1, 37, 2, 64, 300), (2, 300, 2, 64, 40)]
 RWKV_BWD_EDGES = (1, 512, 8, 64, 64)
+
+# path D: the gradient of deepseek-v3-671b's loss at full width, 1 layer,
+# no MTP head (phase 10d's cut), with respect to its MLA leaves only (no
+# optimizer: the MoE layer's 11.3 B parameters with AdamW's state would be
+# 181 GB); held to impl="ref" at B = 1 (its [B, 128, S, S] float32 scores
+# and their gradients take ~4.3 GB a copy at B = 2), timed at the
+# prefill's B = 2
+PATH_D_LEAVES = ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wk_b",
+                 "wv_b", "wo")
+PATH_D_PARAMS = 187_107_328
+PATH_D_CHECK_B, PATH_D_B, PATH_D_S = 1, DSV3_PREFILL_B, DSV3_PREFILL_S
+# path E: seamless-m4t-large-v2 whole, 2 x 2,048 tokens with 2 x 1,000
+# frames (phase 10g's ~20 s of speech) in 2 microbatches, 3 AdamW steps;
+# the check against impl="ref" on 2 encoder and 2 decoder layers
+TRAIN_E_B, TRAIN_E_S, TRAIN_E_SE = 2, SEAMLESS_S, SEAMLESS_SE
+TRAIN_E_MICRO, TRAIN_E_STEPS, TRAIN_E_CHECK_LAYERS = 2, 3, 2
 
 # the capture path: the reduced recurrentgemma-9b forward's tokens (B, S)
 # and optimal_parallelism's candidates, the JAX package's defaults
@@ -1872,16 +1935,35 @@ def _grad_err(got, want) -> float:
         1.0, float(want.abs().max()))
 
 
-def _fa_bwd_check(case, seed: int = 0, q_offset: int = 0) -> float:
+def _fa_bwd_plain_f64(q, k, v, dout, **kw):
+    """The plain version's autograd in float64, over kv heads a few at a
+    time (with their q heads), so that the [B, H, Sq, Sk] float64 scores
+    of a large case stay near 2 GB."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Hq, _ = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    step = max(1, min(Hkv, (1 << 28) // max(1, B * group * Sq * Sk)))
+    parts = []
+    for h in range(0, Hkv, step):
+        qs = slice(h * group, (h + step) * group)
+        parts.append(fa.flash_attention_bwd_plain(
+            q[:, :, qs].double(), k[:, :, h:h + step].double(),
+            v[:, :, h:h + step].double(), dout[:, :, qs].double(), **kw))
+    return [torch.cat(g, dim=2) for g in zip(*parts)]
+
+
+def _fa_bwd_check(case, seed: int = 0, q_offset: int = 0) -> dict:
     """Flash attention's backward kernel on `case` against the plain
-    version's autograd in float64: the scaled error of dq, dk and dv;
-    also two calls bit-identical and `out` the same with and without the
-    log-sum-exp write."""
+    version's autograd in float64: the scaled error of dq, dk and dv,
+    each checked (a stride of the wrong width reads wrong columns without
+    a fault); also two calls bit-identical and `out` the same with and
+    without the log-sum-exp write."""
     from repro_torch.kernels import flash_attention as fa
     causal, window, cap, dt = case[6:]
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
     q, k, v = _fa_inputs(case, seed)
-    dout = torch.randn(q.shape, generator=torch.Generator(
+    dout = torch.randn(q.shape[:3] + v.shape[3:], generator=torch.Generator(
         device="cuda").manual_seed(seed + 1), device="cuda").to(q.dtype)
     with torch.no_grad():
         out_plain = fa.flash_attention(q, k, v, **kw)
@@ -1897,16 +1979,16 @@ def _fa_bwd_check(case, seed: int = 0, q_offset: int = 0) -> float:
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(*grads)),
           f"flash attention backward {case}: two calls differ")
-    want = fa.flash_attention_bwd_plain(q.double(), k.double(), v.double(),
-                                        dout.double(), **kw)
-    err = max(_grad_err(g, w) for g, w in zip(grads[0], want))
+    want = _fa_bwd_plain_f64(q, k, v, dout, **kw)
     check(all(g.dtype == q.dtype and g.shape == w.shape
               for g, w in zip(grads[0], want)),
           f"flash attention backward {case}: dtype or shape")
-    check(err <= BWD_TOL[dt],
-          f"flash attention backward {case}: error {err!r}")
+    errs = {name: _grad_err(g, w)
+            for name, g, w in zip(("dq", "dk", "dv"), grads[0], want)}
+    check(max(errs.values()) <= BWD_TOL[dt],
+          f"flash attention backward {case}: errors {errs}")
     del q, k, v, dout, grads, want
-    return err
+    return errs
 
 
 def _rg_bwd_check(B: int, S: int, D: int, dtype, with_h0: bool) -> float:
@@ -1941,29 +2023,34 @@ def _rg_bwd_check(B: int, S: int, D: int, dtype, with_h0: bool) -> float:
 def phase_backward_kernels_vs_plain() -> dict:
     from repro_torch.kernels import rglru
     worst = {}
+    # FA_CASES, the training paths' layers (A, B), and every shape paths D
+    # and E train at: MLA's (192, 128) and seamless's, no mask at Sq != Sk
     for case in FA_CASES + [FA_BWD_A, FA_BWD_A[:9] + ("bfloat16",),
-                            FA_BWD_B, FA_BWD_B[:9] + ("bfloat16",)]:
-        err = _fa_bwd_check(case)
-        if case in (FA_BWD_A, FA_BWD_B):
-            worst[case] = err
+                            FA_BWD_B, FA_BWD_B[:9] + ("bfloat16",)] \
+            + FA_BWD_PATHS:
+        errs = _fa_bwd_check(case)
+        worst[case] = max(errs.values())
         log(f"kernel flash_attention_bwd {case}: scaled max error "
-            f"{err!r} (tolerance {BWD_TOL[case[-1]]} of max(1, max|g|)); "
-            f"two calls bit-identical; out unchanged by the lse write")
+            f"{json.dumps(errs)} (tolerance {BWD_TOL[case[-1]]} of max(1, "
+            f"max|g|)); two calls bit-identical; out unchanged by the lse "
+            f"write")
         torch.cuda.empty_cache()
     worst["flash_attention_bwd"] = worst[FA_BWD_A]
-    # every instantiation: each head dim, both dtypes, on the edges
+    # every instantiation: each head dim and MLA's pair, both dtypes, on
+    # the edges
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     errs = {}
-    for D in HEAD_DIMS:
+    for D in HEAD_DIMS + (MLA_D,):
         for dt in ("float32", "bfloat16"):
             for B, Sq, Sk, Hq, Hkv, causal, window, cap, off in FA_BWD_EDGES:
                 case = (B, Sq, Sk, Hq, Hkv, D, causal, window, cap, dt)
-                err = _fa_bwd_check(case, seed=D, q_offset=off)
+                err = max(_fa_bwd_check(case, seed=_head_dims(D)[0],
+                                        q_offset=off).values())
                 errs[dt] = max(errs.get(dt, 0.0), err)
-    log(f"kernel flash_attention_bwd on every head dim {HEAD_DIMS} x "
-        f"float32, bfloat16 x {len(FA_BWD_EDGES)} edges: worst scaled "
-        f"error {errs} (tolerances {BWD_TOL}); each twice, bit-identical; "
-        f"out unchanged by the lse write")
+    log(f"kernel flash_attention_bwd on every head dim {HEAD_DIMS} and "
+        f"{MLA_D} x float32, bfloat16 x {len(FA_BWD_EDGES)} edges: worst "
+        f"scaled error {errs} (tolerances {BWD_TOL}); each twice, "
+        f"bit-identical; out unchanged by the lse write")
     for dtype in (torch.float32, torch.bfloat16):
         for with_h0 in (False, True):
             err = _rg_bwd_check(*RG_BWD, dtype, with_h0)
@@ -2417,6 +2504,279 @@ def phase_train_c() -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# 16d. path D: the gradient of deepseek-v3-671b's MLA on the card
+# ---------------------------------------------------------------------- #
+def _mla_leaves(model) -> list:
+    """(path, tensor) of every layer's MLA leaves (`PATH_D_LEAVES`)."""
+    from repro_torch import models
+    out = []
+    for i, layer in enumerate(models.param_tree(model)["layers"]):
+        for name in PATH_D_LEAVES:
+            for key, t in sorted(layer["attn"][name].items()):
+                out.append((f"layers/{i}/attn/{name}/{key}", t))
+    return out
+
+
+def _mla_grad(model, batch, impl: str):
+    """(loss, gradients of `models.loss_fn` with respect to the MLA
+    leaves)."""
+    from repro_torch import models
+    loss = models.loss_fn(model, batch, impl=impl)
+    grads = torch.autograd.grad(loss, [t for _, t in _mla_leaves(model)])
+    return loss.detach(), grads
+
+
+def _dry_peak(cfg, B: int, S: int, impl: str, run, extra=None) -> int:
+    """The peak bytes of `run(model, batch, impl)` as the dry run sizes
+    it: fake tensors (the kernels as regions), the parameters' bytes and
+    the peak of the bytes the run holds."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import models
+    from repro_torch.analysis import analyze_program
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    with fake:
+        fmodel = models.Model(cfg, device="cpu")
+        batch = {"tokens": torch.zeros((B, S), dtype=torch.int32),
+                 **{k: torch.empty(shape) for k, shape in
+                    (extra or {}).items()}}
+    params = sum(p.numel() * p.element_size()
+                 for p in fmodel.parameters())
+    with fake:
+        cost = analyze_program(lambda: run(fmodel, batch, impl))
+    del fmodel, batch
+    return int(params + cost.peak_bytes)
+
+
+def phase_train_d(cfg) -> dict:
+    """Path D: `torch.autograd.grad` of the 1-layer cut's loss with respect
+    to its MLA leaves, through the kernels against impl="ref" at B = 1,
+    then timed and profiled at B = 2; each sized by the dry run first."""
+    t_start = time.perf_counter()
+
+    def run(model, batch, impl):
+        model.requires_grad_(False)
+        for _, t in _mla_leaves(model):
+            t.requires_grad_(True)
+        return _mla_grad(model, batch, impl)
+
+    sizes = {(B, impl): _dry_peak(cfg, B, PATH_D_S, impl, run)
+             for B, impl in ((PATH_D_CHECK_B, "auto"),
+                             (PATH_D_CHECK_B, "ref"), (PATH_D_B, "auto"))}
+    log(f"path D sizing (fake tensors, the kernels as regions): peak "
+        + "; ".join(f"B={B} S={PATH_D_S} impl={impl} {v / 1e9:.3f} GB"
+                    for (B, impl), v in sizes.items()))
+    model = _build_model(cfg, DSV3_PARAMS)
+    model.requires_grad_(False)
+    leaves = _mla_leaves(model)
+    for _, t in leaves:
+        t.requires_grad_(True)
+    n = sum(t.numel() for _, t in leaves)
+    check(n == PATH_D_PARAMS, f"path D: {n} MLA parameters, expected "
+          f"{PATH_D_PARAMS}")
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (PATH_D_B, PATH_D_S))).cuda()
+    one = {"tokens": tokens[:PATH_D_CHECK_B]}
+    got, peaks = {}, {}
+    for impl in ("auto", "ref"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        loss, grads = _mla_grad(model, one, impl)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = read_launches()
+        peaks[impl] = torch.cuda.max_memory_allocated()
+        want = (_expect(flash_attention=1, flash_attention_bwd=1)
+                if impl == "auto" else _expect())
+        check(launches == want, f"path D impl={impl} launches {launches}, "
+              f"expected {want}")
+        check(bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads),
+            f"path D impl={impl}: a loss or gradient not finite")
+        got[impl] = (float(loss), grads, s)
+    loss_k, g_k, s_k = got["auto"]
+    loss_r, g_r, s_r = got["ref"]
+    norm = {impl: float(torch.sqrt(sum((g.double() ** 2).sum()
+                                       for g in got[impl][1])))
+            for impl in got}
+    rel = {"loss": abs(loss_k - loss_r) / abs(loss_r),
+           "grad_norm": abs(norm["auto"] - norm["ref"]) / norm["ref"]}
+    leaf_err = {path.split("/attn/")[1]: _grad_err(a, b)
+                for (path, _), a, b in zip(leaves, g_k, g_r)}
+    log(f"path D check {cfg.name} ({cfg.n_layers} layer at full width, no "
+        f"MTP head; {n} MLA parameters) B={PATH_D_CHECK_B} S={PATH_D_S}: "
+        f"through the kernels loss {loss_k!r}, MLA grad norm "
+        f"{norm['auto']!r} ({s_k:.3f} s, peak "
+        f"{peaks['auto'] / 1e9:.3f} GB, dry run "
+        f"{sizes[(PATH_D_CHECK_B, 'auto')] / 1e9:.3f}); impl='ref' loss "
+        f"{loss_r!r}, grad norm {norm['ref']!r} ({s_r:.3f} s, peak "
+        f"{peaks['ref'] / 1e9:.3f} GB, dry run "
+        f"{sizes[(PATH_D_CHECK_B, 'ref')] / 1e9:.3f}); relative "
+        f"{json.dumps(rel)} (tolerance {TRAIN_TOL}); each leaf's scaled "
+        f"error against impl='ref' {json.dumps(leaf_err)}")
+    for key, r in rel.items():
+        check(r <= TRAIN_TOL, f"path D: {key} through the kernels differs "
+              f"from impl='ref' by {r!r} relative")
+    del got, g_k, g_r, grads
+    torch.cuda.empty_cache()
+
+    batch = {"tokens": tokens}
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        loss, grads = _mla_grad(model, batch, "auto")
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = read_launches()
+        check(launches == _expect(flash_attention=1, flash_attention_bwd=1),
+              f"path D B={PATH_D_B} launches {launches}")
+        check(bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads),
+            "path D: a loss or gradient not finite")
+        del grads
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile(f"path D profile {cfg.name} B={PATH_D_B}",
+                    lambda: _mla_grad(model, batch, "auto"))
+    check(prof["fa_bwd_ms"] > 0, "path D's profile finds no flash-attention "
+          "backward kernel by name, though the backward launched")
+    log(f"path D {cfg.name} B={PATH_D_B} S={PATH_D_S} (q/k [{PATH_D_B},"
+        f"{PATH_D_S},{cfg.n_heads},192], v [..,128], causal): loss "
+        f"{float(loss)!r}, call seconds (host clock after synchronize) "
+        f"{[round(x, 6) for x in seconds]}; launches a call "
+        f"{json.dumps(launches)}; peak {peak / 1e9:.3f} GB (dry run "
+        f"{sizes[(PATH_D_B, 'auto')] / 1e9:.3f}); the FA backward "
+        f"{prof['fa_bwd_ms']:.3f} ms, {prof['fa_bwd_ms'] / prof['busy_ms']:.4f}"
+        f" of the profiled call's device time")
+    del model, batch, tokens, one, loss
+    torch.cuda.empty_cache()
+    log(f"phase seconds: 16d {time.perf_counter() - t_start:.1f}")
+    return {"launches": launches, "seconds": seconds, "peak_gb": peak / 1e9,
+            "profile": prof}
+
+
+# ---------------------------------------------------------------------- #
+# 16e. path E: seamless-m4t-large-v2 trains whole on the card
+# ---------------------------------------------------------------------- #
+def _train_e_batches(cfg, n_micro: int, steps: int) -> list:
+    """`_train_batches`' tokens with frame embeddings from a seeded
+    generator, [n_micro, B / n_micro, Se, d] a step."""
+    batches = _train_batches(cfg, TRAIN_E_B, TRAIN_E_S, n_micro, steps)
+    for s, batch in enumerate(batches):
+        batch["frame_embeds"] = _normal(
+            (n_micro, TRAIN_E_B // n_micro, TRAIN_E_SE, cfg.d_model),
+            seed=100 + s)
+    return batches
+
+
+def phase_train_e(cfg) -> dict:
+    """Path E: a train step of 2 encoder and 2 decoder layers at full
+    width through the kernels held against impl="ref" (whose encoder still
+    launches the kernel: `_encode` takes no impl, as in the JAX package),
+    then the whole model for 3 steps, its microbatch sized by the dry run
+    first."""
+    from repro_torch import models
+    from repro_torch.optim.adamw import tree_map
+    t_start = time.perf_counter()
+    n_layers = cfg.n_encoder_layers + 2 * cfg.n_layers   # FA calls a micro
+    batches = _train_e_batches(cfg, TRAIN_E_MICRO, TRAIN_E_STEPS)
+
+    def grad_call(model, batch, impl):
+        model.requires_grad_(True)
+        loss = models.loss_fn(model, batch, impl=impl)
+        return torch.autograd.grad(loss, list(model.parameters()))
+
+    micro_b = TRAIN_E_B // TRAIN_E_MICRO
+    dry = _dry_peak(cfg, micro_b, TRAIN_E_S, "auto", grad_call,
+                    extra={"frame_embeds": (micro_b, TRAIN_E_SE,
+                                            cfg.d_model)})
+    # the step also holds the accumulator and AdamW's two moments
+    # (float32, the parameters' size each)
+    step_dry = dry + 3 * 4 * SEAMLESS_PARAMS
+    log(f"path E sizing (fake tensors, the kernels as regions): one "
+        f"microbatch of {micro_b} x {TRAIN_E_S} tokens and {TRAIN_E_SE} "
+        f"frames, parameters and their gradients {dry / 1e9:.3f} GB; with "
+        f"the accumulator and the moments {step_dry / 1e9:.3f} GB")
+
+    small = dataclasses.replace(cfg, n_layers=TRAIN_E_CHECK_LAYERS,
+                                n_encoder_layers=TRAIN_E_CHECK_LAYERS)
+    base = models.Model(small, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1))
+    got = {}
+    n_small = 3 * TRAIN_E_CHECK_LAYERS * TRAIN_E_MICRO
+    n_enc = TRAIN_E_CHECK_LAYERS * TRAIN_E_MICRO
+    for impl, n in (("auto", n_small), ("ref", n_enc)):
+        model = models.Model(small, device="cuda", params=tree_map(
+            lambda w: w.detach().clone(), models.param_tree(base)))
+        model.requires_grad_(True)
+        zero_launches()
+        got[impl] = _run_steps(small, model, batches, TRAIN_E_MICRO, 1,
+                               impl=impl)[0][0]
+        launches = read_launches()
+        want = _expect(flash_attention=n, flash_attention_bwd=n)
+        check(launches == want, f"path E check impl={impl}: launches "
+              f"{launches}, expected {want} (impl='ref' still launches the "
+              f"kernel in the encoder)")
+        del model
+        torch.cuda.empty_cache()
+    rel = {key: abs(got["auto"][key] - got["ref"][key]) / abs(got["ref"][key])
+           for key in ("loss", "grad_norm")}
+    log(f"train step check {cfg.name} {TRAIN_E_CHECK_LAYERS} + "
+        f"{TRAIN_E_CHECK_LAYERS} layers at full width, B={TRAIN_E_B} "
+        f"S={TRAIN_E_S} Se={TRAIN_E_SE} in {TRAIN_E_MICRO} microbatches: "
+        f"kernels loss {got['auto']['loss']!r} grad_norm "
+        f"{got['auto']['grad_norm']!r}; impl='ref' loss "
+        f"{got['ref']['loss']!r} grad_norm {got['ref']['grad_norm']!r} "
+        f"(its encoder through the kernel: {n_enc} + {n_enc} launches); "
+        f"relative {json.dumps(rel)} (tolerance {TRAIN_TOL})")
+    for key, r in rel.items():
+        check(r <= TRAIN_TOL, f"path E check: {key} through the kernels "
+              f"differs from impl='ref' by {r!r} relative")
+    del base
+    torch.cuda.empty_cache()
+
+    model = _train_model(cfg, SEAMLESS_PARAMS)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    metrics, seconds = _run_steps(cfg, model, batches, TRAIN_E_MICRO,
+                                  TRAIN_E_STEPS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = n_layers * TRAIN_E_MICRO * TRAIN_E_STEPS
+    expect = _expect(flash_attention=n, flash_attention_bwd=n)
+    check(launches == expect, f"path E launches {launches}, expected "
+          f"{expect}")
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(losses)), f"path E losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"path E loss did not fall: {losses}")
+    prof = _profile(f"train step profile {cfg.name}", lambda: _run_steps(
+        cfg, model, batches[:1], TRAIN_E_MICRO, 1))
+    check(prof["fa_bwd_ms"] > 0, "path E's profile finds no flash-attention "
+          "backward kernel by name, though the backward launched")
+    steady = float(np.mean(seconds[1:]))
+    tokens = TRAIN_E_B * TRAIN_E_S
+    log(f"train path E {cfg.name} ({SEAMLESS_PARAMS} float32 parameters, "
+        f"{cfg.n_encoder_layers} + {cfg.n_layers} layers) B={TRAIN_E_B} "
+        f"S={TRAIN_E_S} with {TRAIN_E_SE} frames in {TRAIN_E_MICRO} "
+        f"microbatches, {TRAIN_E_STEPS} steps: losses "
+        f"{[round(x, 6) for x in losses]}; launches {json.dumps(launches)}")
+    log(f"train path E wall (host clock after synchronize): step seconds "
+        f"{[round(s, 6) for s in seconds]}; steps 2-{TRAIN_E_STEPS} mean "
+        f"{steady:.6f} s ({tokens / steady:.1f} tokens/s); peak device "
+        f"memory {peak / 1e9:.3f} GB (dry run {step_dry / 1e9:.3f})")
+    del model, batches
+    torch.cuda.empty_cache()
+    log(f"phase seconds: 16e {time.perf_counter() - t_start:.1f}")
+    return {"launches": launches, "step_s": steady, "peak_gb": peak / 1e9,
+            "profile": prof}
+
+
+# ---------------------------------------------------------------------- #
 # 15. the training CLI, resumed from its checkpoint
 # ---------------------------------------------------------------------- #
 def phase_train_cli(tmp: str) -> None:
@@ -2794,8 +3154,7 @@ def phase_mesh() -> dict:
     profiler; (c) the dry run of the same step against the card's
     memory; (d) dry runs of cells on the fake 16x16 mesh, in
     subprocesses started first; (e) the census step captured on the card
-    against the host (ROADMAP.md queue 3, item 2); (f) row 2c's bound and
-    SDPA's backward at MLA's shape."""
+    against the host (ROADMAP.md queue 3, item 2)."""
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.device_mesh import DeviceMesh
@@ -2952,8 +3311,6 @@ def phase_mesh() -> dict:
         dist.destroy_process_group()
     # (e) the census step captured on the card and on the host
     census = _census_on_both()
-    # (f) row 2c: the FA backward's bound at MLA's shape, SDPA's time
-    row_2c = _mla_bwd_yardstick()
     from repro_torch.analysis.hlo_cost import RWKV6_CKPT_STEPS
     from repro_torch.kernels import rwkv6
     check(rwkv6.ckpt_steps() == RWKV6_CKPT_STEPS, f"mesh: the dry run "
@@ -2962,8 +3319,8 @@ def phase_mesh() -> dict:
     t_d = time.perf_counter()
     _finish_mesh_cells(cells)
     log(f"phase seconds: 18 {time.perf_counter() - t_start:.1f} (18d's "
-        f"wait after 18a-c, e, f: {time.perf_counter() - t_d:.1f})")
-    return {"launches": launches, "census": census, "row_2c": row_2c}
+        f"wait after 18a-c, e: {time.perf_counter() - t_d:.1f})")
+    return {"launches": launches, "census": census}
 
 
 def _census_on_both() -> dict:
@@ -3008,36 +3365,6 @@ def _census_on_both() -> dict:
           f"{dict(want)}), only on the card {dict(only_card)}")
     return {"card": card.n, "host": host.n, "calls": calls,
             "edges": card.num_edges}
-
-
-def _mla_bwd_yardstick() -> dict:
-    """Row 2c, which has no kernel yet: the bound of the flash-attention
-    backward at MLA's shape from the function's work, and the time of
-    `scaled_dot_product_attention`'s backward there."""
-    from repro_torch.analysis.hlo_cost import attention_bwd_work
-    F = torch.nn.functional
-    B, Sq, Sk, Hq, Hkv, D, causal, window, _, dt = FA_MLA
-    Dqk, Dv = _head_dims(D)
-    size = torch.tensor([], dtype=getattr(torch, dt)).element_size()
-    bound_ms, bound_by, cuda_core_ms = _tensor_core_bound(
-        attention_bwd_work(B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal, window,
-                           size), dt)
-    q, k, v = _fa_inputs(FA_MLA)
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                  for x in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-    dt_ = torch.randn_like(ot)
-    library_ms = _cuda_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dt_, retain_graph=True), reps=5)
-    log(f"mesh 18f row 2c (the FA backward at q/k [{B},{Sq},{Hq},{Dqk}], v "
-        f"[{B},{Sk},{Hkv},{Dv}] {dt}, causal; no kernel yet): bound "
-        f"{bound_ms!r} ms ({bound_by}; on the CUDA cores {cuda_core_ms!r}), "
-        f"the backward of scaled_dot_product_attention(is_causal) "
-        f"{library_ms!r} ms")
-    del q, k, v, qt, kt, vt, ot, dt_
-    torch.cuda.empty_cache()
-    return {"bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_cuda_core_ms": cuda_core_ms, "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------------- #
@@ -3308,9 +3635,48 @@ def _fa_bwd_bound(case) -> tuple[float, str, float]:
                               dt)
 
 
-def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
+def _fa_bwd_timed(case, reps: int, plain: bool = False) -> dict:
+    """The flash-attention backward kernel at `case` (no window) on the
+    card's clock beside its bound and the backward of one
+    `scaled_dot_product_attention` call (`is_causal`), and with `plain`
+    the plain version's autograd on the host's clock."""
+    from repro_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+    B, Sq, Sk, Hq, Hkv, D, causal, _, _, dt = case
+    Dqk = _head_dims(D)[0]
+    q, k, v = _fa_inputs(case)
+    dout = torch.randn(q.shape[:3] + v.shape[3:], device="cuda").to(q.dtype)
+    scale = Dqk ** -0.5
+    out, lse = fa._launch(q, k, v, causal, None, None, scale, 0,
+                          with_lse=True)
+    res = {"ms": _cuda_ms(lambda: fa._launch_bwd(
+        q, k, v, out, dout, lse, causal, None, None, scale, 0), reps=reps)}
+    res["bound_ms"], res["bound_by"], res["cuda_core_ms"] = \
+        _fa_bwd_bound(case)
+    res["plain_ms"] = _host_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, dout, causal=causal, scale=scale), reps=2) if plain else None
+    del out, lse
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                        scale=scale, enable_gqa=Hq != Hkv)
+    dt_ = dout.transpose(1, 2).contiguous()
+    res["library_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dt_, retain_graph=True), reps=reps)
+    res["shape"] = (f"q [{B},{Sq},{Hq},{Dqk}], k/v [{B},{Sk},{Hkv},"
+                    f"{_head_dims(D)[0]}/{_head_dims(D)[1]}] {dt}, "
+                    f"{'causal' if causal else 'no mask'}")
+    del q, k, v, dout, qt, kt, vt, ot, dt_
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_timing(train_a: dict, train_b: dict, train_d: dict,
+                       train_e: dict, errs: dict) -> list:
     """The backward kernels at the training paths' shapes: flash
-    attention's at path A's attention layer, RG-LRU's at path B's."""
+    attention's at path A's attention layer (and at path B's, at
+    deepseek-v3's MLA layer of path D, row 2c, and at seamless's cross
+    attention of path E), RG-LRU's at path B's."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.analysis.hlo_cost import rglru_bwd_work
     from repro_torch.kernels import rglru
@@ -3397,6 +3763,38 @@ def phase_train_timing(train_a: dict, train_b: dict, errs: dict) -> list:
     log(f"timing flash_attention_bwd at path B's shape: kernel {ms_b!r} ms,"
         f" bound {bound_b_ms!r} ms, library {library_b_ms!r} ms; the "
         f"{FA_BWD_AIM_MS} ms aim at path A {aim}")
+    # row 2c: the (192, 128) instantiation at path D's attention (float32
+    # with the plain version's time, and bf16), then path E's cross
+    # attention
+    mla = _fa_bwd_timed(FA_MLA, reps=5, plain=True)
+    mla16 = _fa_bwd_timed(FA_MLA[:9] + ("bfloat16",), reps=5)
+    cross = _fa_bwd_timed(FA_BWD_SEAMLESS_CROSS, reps=10)
+    fa_entry.update({
+        "ms_mla": mla["ms"], "bound_mla_ms": mla["bound_ms"],
+        "bound_mla_by": mla["bound_by"],
+        "bound_mla_cuda_core_ms": mla["cuda_core_ms"],
+        "plain_mla_ms": mla["plain_ms"], "library_mla_ms": mla["library_ms"],
+        "max_abs_err_mla": errs[FA_MLA], "shape_mla": mla["shape"]
+        + " (path D's layer, row 2c)",
+        "ms_mla_bf16": mla16["ms"], "bound_mla_bf16_ms": mla16["bound_ms"],
+        "library_mla_bf16_ms": mla16["library_ms"],
+        "ms_seamless_cross": cross["ms"],
+        "bound_seamless_cross_ms": cross["bound_ms"],
+        "library_seamless_cross_ms": cross["library_ms"],
+        "max_abs_err_seamless_cross": errs[FA_BWD_SEAMLESS_CROSS],
+        "shape_seamless_cross": cross["shape"] + " (path E's cross "
+                                                 "attention, one step's "
+                                                 "batch)",
+        "launches_path_d": train_d["launches"]["flash_attention_bwd"],
+        "launches_path_e": train_e["launches"]["flash_attention_bwd"],
+        "launches_path_d_note": "per call of path D (its one MLA layer); "
+                                "launches_path_e over path E's 3 steps"})
+    for name, r in (("row 2c (MLA)", mla), ("row 2c bf16", mla16),
+                    ("seamless cross", cross)):
+        log(f"timing flash_attention_bwd {name} at {r['shape']}: kernel "
+            f"{r['ms']!r} ms, bound {r['bound_ms']!r} ms ({r['bound_by']}; "
+            f"on the CUDA cores {r['cuda_core_ms']!r}), plain "
+            f"{r['plain_ms']!r} ms, SDPA's backward {r['library_ms']!r} ms")
 
     B, S, D = RG_BWD
     x, a, _ = _rg_inputs(B, S, D)
@@ -3680,10 +4078,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         phase_train_cli(tmp)
     t3d = time.perf_counter()
+    train_d = phase_train_d(dsv3)
+    train_e = phase_train_e(seamless)
+    t3e = time.perf_counter()
     capture = phase_capture()
     log(f"phase seconds: 12 {t1 - t0:.1f}, 12b {t1b - t1:.1f}, 13 "
         f"{t2 - t1b:.1f}, 14 {t3 - t2:.1f}, 16 {t3c - t3:.1f}, 15 "
-        f"{t3d - t3c:.1f}, 17 {time.perf_counter() - t3d:.1f}")
+        f"{t3d - t3c:.1f}, 16d and 16e {t3e - t3d:.1f}, 17 "
+        f"{time.perf_counter() - t3e:.1f}")
     mesh = phase_mesh()
     kernels = phase_timing(runs, max_abs_err)
     kernels["kernels"][0]["launches_trace"] = trace["launches"]
@@ -3706,7 +4108,11 @@ def main() -> int:
             qwen_prefill["launches"]["flash_attention"]})
     kernels["kernels"].append(phase_rwkv_timing(rwkv_prefill, rwkv_serve,
                                                 rwkv_err))
-    kernels["kernels"] += phase_train_timing(train_a, train_b, bwd_errs)
+    t4 = time.perf_counter()
+    kernels["kernels"] += phase_train_timing(train_a, train_b, train_d,
+                                             train_e, bwd_errs)
+    log(f"phase seconds: 11 (backward timing) "
+        f"{time.perf_counter() - t4:.1f}")
     for entry in kernels["kernels"]:
         if capture["launches_step"].get(entry["name"]):
             entry["launches_capture_step"] = \

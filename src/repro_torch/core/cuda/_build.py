@@ -133,11 +133,11 @@ def load_library() -> ctypes.CDLL:
                 [vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i64, i32,
                  i32, i64, i32, f32, f32, i64, vp],
             # q, k, v, out, dout, lse, delta (scratch), dq, dk, dv, B, Sq,
-            # Sk, Hq, Hkv, D, causal, has_window, window, has_softcap,
-            # softcap, scale, q_offset, stream
+            # Sk, Hq, Hkv, Dqk, Dv, causal, has_window, window,
+            # has_softcap, softcap, scale, q_offset, stream
             ("flash_attention_bwd_f32", "flash_attention_bwd_bf16"):
-                [vp] * 10 + [i64, i64, i64, i64, i64, i64, i32, i32, i64,
-                             i32, f32, f32, i64, vp],
+                [vp] * 10 + [i64, i64, i64, i64, i64, i64, i64, i32, i32,
+                             i64, i32, f32, f32, i64, vp],
             # x, a, h0 (may be null), h, h_last, B, S, D, stream
             ("rglru_f32", "rglru_bf16"):
                 [vp, vp, vp, vp, vp, i64, i64, i64, vp],

@@ -20,12 +20,15 @@
 // with the forward's mask (j < Sk, j <= pos_i when causal, j > pos_i -
 // window when windowed, pos_i = q_offset + i), scale and softcap.  A
 // masked pair has P = 0: a row that the forward masks entirely gets a zero
-// gradient.  Tiles wholly outside the band are not visited.
+// gradient.  Tiles wholly outside the band are not visited.  q and k have
+// head dim Dqk, v, O and dO Dv: (D, D), or MLA's (192, 128), as the
+// forward.  S, dK and dQ run over Dqk; dP, D_i and dV over Dv.
 //
-// Bound.  Each unmasked pair costs five products of length D (S, dP, dV,
-// dK, dQ): 10*D operations, each product three TF32 products in float32.
-// This design forms S and dP twice (point 4), 14*D a pair, so it can reach
-// at most 10/14 of that bound.
+// Bound.  Each unmasked pair costs five products (S, dK, dQ of length Dqk;
+// dP, dV of length Dv): 6*Dqk + 4*Dv operations (10*D at equal head
+// dims), each product three TF32 products in float32.  This design forms
+// S and dP twice (point 4), 8*Dqk + 6*Dv a pair, so it can reach at most
+// 10/14 of that bound at equal head dims, 1664/2304 at MLA's.
 //
 // Design.  Three launches: delta_kernel, then one body, `bwd_kernel`, for
 // dK/dV (kDQ false) and for dQ (kDQ true).  A block owns rows of one side
@@ -36,8 +39,10 @@
 //    from shared memory in the 128-byte swizzled K-major layout:
 //      T1 = Y1 X1^T, T2 = Y2 X2^T    (S, dP or S^T, dP^T: M = the 64
 //                                     streamed rows, N = the owned rows)
-//      A1 = Y2^T P,  A2 = Y1^T dS    (dV^T, dK^T or dQ^T: M = D)
-//    with X1, X2 the owned tiles and Y1, Y2 the streamed ones.  `.tf32`
+//      A1 = Y2^T P,  A2 = Y1^T dS    (dV^T: M = Dv; dK^T or dQ^T:
+//                                     M = Dqk)
+//    with X1, X2 the owned tiles and Y1, Y2 the streamed ones (X1, Y1 the
+//    Q and K tiles, Dqk wide; X2, Y2 the dO and V tiles, Dv wide).  `.tf32`
 //    takes no transpose, so no B operand is ever a transpose: the owned
 //    tiles are B of T1/T2 as stored; P and dS are B of A1/A2, written by
 //    the warpgroup from its T accumulators with the owned index as the
@@ -45,17 +50,18 @@
 //    the streamed tiles are only ever A, read from their raw rows into
 //    registers (rows padded by 32 bytes: both fragment loads are free of
 //    bank conflicts).  No transposed copy is kept: shared memory holds per
-//    warpgroup the owned tiles' hi and lo (4 * kNo * D * 4 bytes in
-//    float32) and P and dS (hi, lo), and the ring.  Float32 is split TF32,
-//    three wgmma a product (hi.hi, hi.lo, lo.hi; hi rounded to nearest as
-//    in the forward, fa_common.cuh `split`, not the raw operand, whose
-//    truncation would double the product's error): the owned tiles are
-//    split once a block, P and dS once where they are formed, and a
-//    streamed tile once a warpgroup for each of its two products (as T's
-//    A and as A1/A2's transposed A), not once a warp.  bf16 runs natively
-//    (P and dS rounded to bf16, float32 accumulators).  --fmad=false
-//    stands; the epilogue needs no fused add (exp2 of the logit and L
-//    taken in base 2).
+//    warpgroup the owned tiles' hi and lo (2 * kNo * (Dqk + Dv) * 4 bytes
+//    in float32) and P and dS (hi, lo), and the ring, whose stages are
+//    sized per operand (a Dqk-wide stage, then a Dv-wide one).  Float32
+//    is split TF32, three wgmma a product (hi.hi, hi.lo, lo.hi; hi
+//    rounded to nearest as in the forward, fa_common.cuh `split`, not the
+//    raw operand, whose truncation would double the product's error):
+//    the owned tiles are split once a block, P and dS once where they are
+//    formed, and a streamed tile once a warpgroup for each of its two
+//    products (as T's A and as A1/A2's transposed A), not once a warp.
+//    bf16 runs natively (P and dS rounded to bf16, float32
+//    accumulators).  --fmad=false stands; the epilogue needs no fused add
+//    (exp2 of the logit and L taken in base 2).
 // 2. A producer warp streams the tiles with per-row `cp.async.bulk` copies
 //    (a [B, S, H, D] row is contiguous for D elements, so no tensor map or
 //    driver entry point is needed) into a ring of kStages stages, each
@@ -74,11 +80,13 @@
 //    whole band and group rounds away the split's small products (measured
 //    against float64: 2e-4 of max|g| at path B's shape, against 5e-6 this
 //    way).  At D = 256 float32 the two accumulators of 16 owned rows fit,
-//    and one pass forms both.
+//    and one pass forms both; at (192, 128) so do dV^T's two M blocks and
+//    dK^T's three of 32 owned rows.
 // 4. dQ: its own launch, a block per (b, q head, q tile), which forms S
-//    and dP again (14*D a pair in all); fixed-order dQ shares from the
-//    dK/dV blocks would be ~0.35 GB written and read again at path A's
-//    shape (one 64 x 64 float32 share per pair of tiles in the band).
+//    and dP again (14*D a pair in all at equal head dims); fixed-order
+//    dQ shares from the dK/dV blocks would be ~0.35 GB written and read
+//    again at path A's shape (one 64 x 64 float32 share per pair of tiles
+//    in the band).
 // 5. Longest bands first: dK/dV blocks are issued key tile by key tile
 //    (a causal band shortens as the keys move right), dQ blocks from the
 //    last q tile back.
@@ -99,13 +107,21 @@ constexpr int kRows = 64;        // streamed rows of a tile: wgmma's M
 // consumer warpgroups (each owns its rows; all read every streamed tile
 // of the one ring), kStoreTiles 2 (P and dS apart) or 1 (dS written over P
 // once A1 has read it, to save shared memory), kStages of the ring,
-// kChunk k-steps of A fragments a fence.  One block an SM.
-template <typename T, int D>
+// kChunk k-steps of A fragments a fence.  One block an SM.  The tile rules
+// read D, the wider head dim; the Q and K tiles are DQ wide, the V and dO
+// tiles DV (stage s of the ring holds a DQ-wide tile when s is even).
+// At (192, 128) in float32, 32 owned rows and two stages (one of each
+// width) take 201,792 bytes; 16 rows and four stages (230,464) were 18 %
+// slower at deepseek-v3's layer on an H100 (48.1 against 40.7 ms), and in
+// bf16 32 rows 83 % slower than 64 (19.6 against 10.7 ms).
+template <typename T, int DQ, int DV>
 struct BwdCfg {
+    static constexpr int D = DQ > DV ? DQ : DV;
     static constexpr bool kF32 = std::is_same<T, float>::value;
     static constexpr int kEs = static_cast<int>(sizeof(T));
     static constexpr int kNo =
-        kF32 ? (D <= 64 ? 48 : 4096 / D) : (D <= 128 ? 64 : 32);
+        kF32 ? (D <= 64 ? 48 : (D == 192 ? 32 : 4096 / D))
+             : (D <= 128 || D == 192 ? 64 : 32);
     static constexpr int kWG = D <= 64 ? 2 : 1;
     static constexpr int kStoreTiles = kF32 && D <= 64 ? 1 : 2;
     static constexpr int kStages =
@@ -113,25 +129,45 @@ struct BwdCfg {
     static constexpr int kChunk = kF32 && D <= 64 ? 2 : 4;
     static constexpr int kK = kF32 ? 8 : 16;           // wgmma's K
     static constexpr int kCopies = kF32 ? 2 : 1;       // hi (and lo)
-    // a streamed row: D and 32 bytes, so that the fragment loads of both
-    // products are free of bank conflicts
-    static constexpr int kLd = D + 32 / kEs;
-    static constexpr int kStage = kRows * kLd * kEs;   // bytes of a stage
-    static constexpr int kDp = D * kEs < 128 ? 128 / kEs : D;
-    static constexpr int kOwn = kNo * kDp * kEs;       // one owned copy
+    // a streamed row: its width and 32 bytes, so that the fragment loads
+    // of both products are free of bank conflicts
+    static constexpr int kLd1 = DQ + 32 / kEs;
+    static constexpr int kLd2 = DV + 32 / kEs;
+    static constexpr int kStage1 = kRows * kLd1 * kEs;   // bytes of a stage
+    static constexpr int kStage2 = kRows * kLd2 * kEs;
+    static constexpr int kDp1 = DQ * kEs < 128 ? 128 / kEs : DQ;
+    static constexpr int kDp2 = DV * kEs < 128 ? 128 / kEs : DV;
+    static constexpr int kOwn1 = kNo * kDp1 * kEs;     // one X1 copy
+    static constexpr int kOwn2 = kNo * kDp2 * kEs;     // one X2 copy
     static constexpr int kStore = kNo * kRows * kEs;   // one P or dS copy
-    static constexpr int kMb = D < 64 ? 1 : D / 64;    // M blocks of A1/A2
+    // M blocks of A1 (dV^T, DV rows) and of A2 (dK^T or dQ^T, DQ rows)
+    static constexpr int kMb1 = DV < 64 ? 1 : DV / 64;
+    static constexpr int kMb2 = DQ < 64 ? 1 : DQ / 64;
+    static constexpr int kMb = kMb1 > kMb2 ? kMb1 : kMb2;
     static constexpr int kConsumers = 128 * kWG;
     static constexpr int kThreads = kConsumers + 32;   // and the producer
     // a warpgroup's owned tiles (X1 hi, lo, X2 hi, lo) and P, dS (hi, lo),
     // then the ring and the barriers
-    static constexpr int kOffStore = 2 * kCopies * kOwn;
+    static constexpr int kOffStore = kCopies * (kOwn1 + kOwn2);
     static constexpr int kPerWG = kOffStore + kStoreTiles * kCopies * kStore;
     static constexpr int kOffRing = kWG * kPerWG;
-    static constexpr int kOffBar = kOffRing + kStages * kStage;
+    static constexpr int kRing =
+        kStages / 2 * (kStage1 + kStage2) + kStages % 2 * kStage1;
+    static constexpr int kOffBar = kOffRing + kRing;
     static constexpr int kBytes = kOffBar + 2 * kStages * 8 + 1024;
-    static_assert(kOwn % 1024 == 0 && kStore % 1024 == 0, "alignment");
-    static_assert(kStage % 16 == 0, "bulk copies need 16-byte rows");
+    // byte offset of stage s in the ring
+    __device__ __forceinline__ static int stage(int s) {
+        return s / 2 * (kStage1 + kStage2) + s % 2 * kStage1;
+    }
+    static_assert(kOwn1 % 1024 == 0 && kOwn2 % 1024 == 0 &&
+                      kStore % 1024 == 0,
+                  "alignment");
+    static_assert(kStage1 % 16 == 0 && kStage2 % 16 == 0,
+                  "bulk copies need 16-byte rows");
+    static_assert(kStages % 2 == 0 || DQ == DV,
+                  "an odd ring holds both widths in one stage size");
+    static_assert(kStoreTiles == 2 || kMb == 1,
+                  "a shared P/dS tile, one M block");
     static_assert(kBytes <= 232448, "shared memory of a block");
 };
 
@@ -149,7 +185,8 @@ __device__ __forceinline__ __nv_bfloat16 cast_out<__nv_bfloat16>(float v) {
 }
 
 // ------------------------------------------------------------------ //
-// D_i = sum_d dO_id O_id, one warp a row; delta is [B, Hq, Sq]
+// D_i = sum_d dO_id O_id over dO's D (= Dv) columns, one warp a row;
+// delta is [B, Hq, Sq]
 // ------------------------------------------------------------------ //
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
@@ -178,7 +215,7 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 }
 
 // ------------------------------------------------------------------ //
-// A fragments from a raw streamed tile (rows of kLd elements; the rows
+// A fragments from a raw streamed tile W wide (rows of LD elements; the rows
 // past the sequence's end are zero, see the loop).  rows(): A[m][k] =
 // Y[m0 + m][k0 + k], the T products, where float32 permutes k within each
 // 8 (register slot t holds k = 2t, slot t + 4 k = 2t + 1: one 8-byte load
@@ -186,14 +223,14 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 // cols(): A[m][k] = Y[k0 + k][d], the A1/A2 products, where M row slot g
 // of a warp's 16 holds d = m0 + 2g and slot g + 8 d = m0 + 2g + 1 (one
 // 8-byte load, or a 4-byte pair in bf16), which the output write undoes;
-// d >= D is zero.  Float32 comes back split into TF32 hi and lo.
+// d >= W is zero.  Float32 comes back split into TF32 hi and lo.
 // ------------------------------------------------------------------ //
-template <typename T, int D>
+template <typename T, int W, int LD>
 struct Frag;
 
-template <int D>
-struct Frag<float, D> {
-    static constexpr int kLd = BwdCfg<float, D>::kLd;
+template <int W, int LD>
+struct Frag<float, W, LD> {
+    static constexpr int kLd = LD;
     __device__ __forceinline__ static void rows(const float* y, int m0,
                                                 int k0, int g, int t,
                                                 uint32_t (&hi)[4],
@@ -213,7 +250,7 @@ struct Frag<float, D> {
         const int d = m0 + 2 * g;
         float2 x0 = make_float2(0.f, 0.f);
         float2 x1 = x0;
-        if (D >= 64 || d < D) {
+        if (W >= 64 || d < W) {
             const float* p = y + (k0 + t) * kLd + d;
             x0 = *reinterpret_cast<const float2*>(p);
             x1 = *reinterpret_cast<const float2*>(p + 4 * kLd);
@@ -225,9 +262,9 @@ struct Frag<float, D> {
     }
 };
 
-template <int D>
-struct Frag<__nv_bfloat16, D> {
-    static constexpr int kLd = BwdCfg<__nv_bfloat16, D>::kLd;
+template <int W, int LD>
+struct Frag<__nv_bfloat16, W, LD> {
+    static constexpr int kLd = LD;
     __device__ __forceinline__ static uint32_t word(const __nv_bfloat16* y,
                                                     int off) {
         return *reinterpret_cast<const uint32_t*>(y + off);
@@ -250,7 +287,7 @@ struct Frag<__nv_bfloat16, D> {
         // k, k+1), a2, a3 the same at k + 8
         const int d = m0 + 2 * g;
         a[0] = a[1] = a[2] = a[3] = 0u;
-        if (D >= 64 || d < D) {
+        if (W >= 64 || d < W) {
             const int at = (k0 + 2 * t) * kLd + d;
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
@@ -303,10 +340,9 @@ __device__ __forceinline__ void product(float (&d)[N / 2], F frag, B desc,
 }
 
 // store a value of P or dS at `at` in a swizzled tile (float32: its TF32
-// hi there, the rest lo kStore bytes on)
-template <typename T, int D>
+// hi there, the rest lo C::kStore bytes on)
+template <typename C>
 __device__ __forceinline__ void put(unsigned char* at, float x) {
-    using C = BwdCfg<T, D>;
     if constexpr (C::kF32) {
         const uint32_t hi = tf32_rna(x);
         *reinterpret_cast<uint32_t*>(at) = hi;
@@ -333,15 +369,15 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
 // The backward body: kDQ false gives dK and dV (owned K, V; streamed Q,
 // dO over the group's q heads), true gives dQ (owned Q, dO; streamed K, V)
 // ------------------------------------------------------------------ //
-template <typename T, int D, bool kDQ>
-__global__ void __launch_bounds__(BwdCfg<T, D>::kThreads, 1)
+template <typename T, int DQ, int DV, bool kDQ>
+__global__ void __launch_bounds__(BwdCfg<T, DQ, DV>::kThreads, 1)
 bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            T* __restrict__ g1, T* __restrict__ g2, int64_t Sq, int64_t Sk,
            int Hq, int Hkv, int causal, int has_window, int64_t window,
            int has_softcap, float softcap, float scale, int64_t q_offset) {
-    using C = BwdCfg<T, D>;
+    using C = BwdCfg<T, DQ, DV>;
     constexpr int kNo = C::kNo;
     constexpr int kCta = kNo * C::kWG;   // a block's owned rows
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -388,8 +424,12 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         hi_row > lo_row ? (hi_row + kRows - 1) / kRows - t_begin : 0;
     // dK/dV walk the group's q heads, dQ its one kv head
     const int64_t n_tiles = n_band * (kDQ ? 1 : groups);
-    const int64_t q_stride = static_cast<int64_t>(Hq) * D;
-    const int64_t kv_stride = static_cast<int64_t>(Hkv) * D;
+    // row strides: q (and dq) and k (and dk) are DQ wide, dout, v (and dv)
+    // DV wide
+    const int64_t q_stride = static_cast<int64_t>(Hq) * DQ;
+    const int64_t o_stride = static_cast<int64_t>(Hq) * DV;
+    const int64_t k_stride = static_cast<int64_t>(Hkv) * DQ;
+    const int64_t v_stride = static_cast<int64_t>(Hkv) * DV;
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < C::kStages; ++s) {
@@ -409,27 +449,32 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int64_t i0 = (t_begin + n % n_band) * kRows;
             const int hs = kDQ ? hx / groups
                                : hx * groups + static_cast<int>(n / n_band);
-            const int64_t stride = kDQ ? kv_stride : q_stride;
             const int rows = static_cast<int>(
                 S_str - i0 < kRows ? S_str - i0 : kRows);
-            const uint32_t bytes = static_cast<uint32_t>(rows * D * C::kEs);
             for (int y = 0; y < 2; ++y) {
+                // Y1 (q or k) is DQ wide, Y2 (dout or v) DV
+                const int width = y == 0 ? DQ : DV;
+                const int ld = y == 0 ? C::kLd1 : C::kLd2;
+                const int64_t stride = kDQ ? (y == 0 ? k_stride : v_stride)
+                                           : (y == 0 ? q_stride : o_stride);
+                const uint32_t bytes =
+                    static_cast<uint32_t>(rows * width * C::kEs);
                 const int64_t slot = 2 * n + y;
                 const int s = static_cast<int>(slot % C::kStages);
                 const uint32_t par =
                     static_cast<uint32_t>((slot / C::kStages) & 1);
                 const T* src = kDQ ? (y == 0 ? k : v) : (y == 0 ? q : dout);
                 src += (b * S_str + i0) * stride +
-                       static_cast<int64_t>(hs) * D;
+                       static_cast<int64_t>(hs) * width;
                 mbar_wait(empty(s), par ^ 1);
                 if (lane == 0) {
                     mbar_expect_tx(full(s), bytes);
                 }
                 __syncwarp();
-                const uint32_t dst = smem_u32(ring + s * C::kStage);
+                const uint32_t dst = smem_u32(ring + C::stage(s));
                 for (int r = lane; r < rows; r += 32) {
-                    bulk_g2s(dst + r * C::kLd * C::kEs, src + r * stride,
-                             D * C::kEs, full(s));
+                    bulk_g2s(dst + r * ld * C::kEs, src + r * stride,
+                             width * C::kEs, full(s));
                 }
             }
         }
@@ -455,15 +500,19 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // float32 permutes k within each 8 as Frag::rows reads it (slots 0-3
     // hold d 0, 2, 4, 6, slots 4-7 d 1, 3, 5, 7)
     {
-        const int64_t stride = kDQ ? q_stride : kv_stride;
-        constexpr int kSteps = D / 8;    // 8 elements a step
         for (int x = 0; x < 2; ++x) {
+            // X1 (q or k) is DQ wide, X2 (dout or v) DV
+            const int width = x == 0 ? DQ : DV;
+            const int64_t stride = kDQ ? (x == 0 ? q_stride : o_stride)
+                                       : (x == 0 ? k_stride : v_stride);
             const T* src = kDQ ? (x == 0 ? q : dout) : (x == 0 ? k : v);
-            src += b * S_own * stride + static_cast<int64_t>(hx) * D;
-            unsigned char* dst = own + x * C::kCopies * C::kOwn;
-            for (int i = tid; i < kNo * kSteps; i += 128) {
-                const int n = i / kSteps;
-                const int c = (i % kSteps) * 8;
+            src += b * S_own * stride + static_cast<int64_t>(hx) * width;
+            unsigned char* dst = own + x * C::kCopies * C::kOwn1;
+            const int own_bytes = x == 0 ? C::kOwn1 : C::kOwn2;
+            const int steps = width / 8;    // 8 elements a step
+            for (int i = tid; i < kNo * steps; i += 128) {
+                const int n = i / steps;
+                const int c = (i % steps) * 8;
                 uint4 raw[C::kF32 ? 2 : 1];
 #pragma unroll
                 for (int h = 0; h < (C::kF32 ? 2 : 1); ++h) {
@@ -489,9 +538,9 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         make_uint4(hi[0], hi[1], hi[2], hi[3]);
                     *reinterpret_cast<uint4*>(dst + off2) =
                         make_uint4(hi[4], hi[5], hi[6], hi[7]);
-                    *reinterpret_cast<uint4*>(dst + C::kOwn + off) =
+                    *reinterpret_cast<uint4*>(dst + own_bytes + off) =
                         make_uint4(lo[0], lo[1], lo[2], lo[3]);
-                    *reinterpret_cast<uint4*>(dst + C::kOwn + off2) =
+                    *reinterpret_cast<uint4*>(dst + own_bytes + off2) =
                         make_uint4(lo[4], lo[5], lo[6], lo[7]);
                 } else {
                     *reinterpret_cast<uint4*>(dst + off) = raw[0];
@@ -504,8 +553,9 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const uint32_t own_base = smem_u32(own);
     const uint32_t store_base = smem_u32(store);
     auto own_desc = [&](int x, int copy, int kk) {
-        return sw128_desc(own_base + (x * C::kCopies + copy) * C::kOwn, kNo,
-                          32 * kk);
+        const int at = x == 0 ? copy * C::kOwn1
+                              : C::kCopies * C::kOwn1 + copy * C::kOwn2;
+        return sw128_desc(own_base + at, kNo, 32 * kk);
     };
     // P's tile (x = 0) and dS's (x = 1; the same tile when they share)
     constexpr int kDsTile = C::kStoreTiles - 1;
@@ -546,17 +596,25 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               (m0 + g + 8 * (e >> 1)) * C::kEs);
     }
 
-    float acc1[kDQ ? 1 : C::kMb][kNo / 2];   // dV^T (dK/dV only)
-    float acc2[C::kMb][kNo / 2];             // dK^T, or dQ^T
+    constexpr int kMb1 = kDQ ? 0 : C::kMb1;   // M blocks of dV^T
+    constexpr int kMb2 = C::kMb2;             // of dK^T or dQ^T
+    constexpr int kMb = kMb1 > kMb2 ? kMb1 : kMb2;
+    float acc1[kMb1 > 0 ? kMb1 : 1][kNo / 2];   // dV^T (dK/dV only)
+    float acc2[kMb2][kNo / 2];                  // dK^T, or dQ^T
 #pragma unroll
-    for (int mb = 0; mb < C::kMb; ++mb) {
+    for (int i = 0; i < kNo / 2; ++i) {
 #pragma unroll
-        for (int i = 0; i < kNo / 2; ++i) {
-            acc1[kDQ ? 0 : mb][i] = 0.f;
+        for (int mb = 0; mb < (kMb1 > 0 ? kMb1 : 1); ++mb) {
+            acc1[mb][i] = 0.f;
+        }
+#pragma unroll
+        for (int mb = 0; mb < kMb2; ++mb) {
             acc2[mb][i] = 0.f;
         }
     }
 
+    using Frag1 = Frag<T, DQ, C::kLd1>;
+    using Frag2 = Frag<T, DV, C::kLd2>;
     for (int64_t n = 0; n < n_tiles; ++n) {
         const int64_t i0 = (t_begin + n % n_band) * kRows;
         const int nv = static_cast<int>(S_str - i0 < kRows ? S_str - i0
@@ -567,8 +625,8 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const uint32_t p1 = static_cast<uint32_t>(((2 * n) / C::kStages) & 1);
         const uint32_t p2 =
             static_cast<uint32_t>(((2 * n + 1) / C::kStages) & 1);
-        T* y1 = reinterpret_cast<T*>(ring + s1 * C::kStage);
-        T* y2 = reinterpret_cast<T*>(ring + s2 * C::kStage);
+        T* y1 = reinterpret_cast<T*>(ring + C::stage(s1));
+        T* y2 = reinterpret_cast<T*>(ring + C::stage(s2));
 
         // dK/dV: L (base 2) and D of this thread's streamed q rows
         float row_l2[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
@@ -587,29 +645,32 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mbar_wait(full(s2), p2);
         if (nv < kRows) {   // the last tile: its rows past the end are zero
             // (every warpgroup writes the same zeros, then reads)
-            for (int i = tid; i < (kRows - nv) * D; i += 128) {
-                const int at = (nv + i / D) * C::kLd + i % D;
-                y1[at] = cast_out<T>(0.f);
-                y2[at] = cast_out<T>(0.f);
+            for (int i = tid; i < (kRows - nv) * DQ; i += 128) {
+                y1[(nv + i / DQ) * C::kLd1 + i % DQ] = cast_out<T>(0.f);
+            }
+            for (int i = tid; i < (kRows - nv) * DV; i += 128) {
+                y2[(nv + i / DV) * C::kLd2 + i % DV] = cast_out<T>(0.f);
             }
             fence_proxy_async();   // before the producer's next copy here
             bar_sync(bar_id, 128);
         }
 
-        // T1 = Y1 X1^T, T2 = Y2 X2^T
-        constexpr int kTs = D / C::kK;
-        constexpr int kTc = C::kChunk < kTs ? C::kChunk : kTs;
+        // T1 = Y1 X1^T over DQ, T2 = Y2 X2^T over DV
+        constexpr int kTs1 = DQ / C::kK;
+        constexpr int kTc1 = C::kChunk < kTs1 ? C::kChunk : kTs1;
+        constexpr int kTs2 = DV / C::kK;
+        constexpr int kTc2 = C::kChunk < kTs2 ? C::kChunk : kTs2;
         float t1[kNo / 2], t2[kNo / 2];
-        product<T, kNo, kTs, kTc>(
+        product<T, kNo, kTs1, kTc1>(
             t1,
             [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-                Frag<T, D>::rows(y1, m0, kk * C::kK, g, t, hi, lo);
+                Frag1::rows(y1, m0, kk * C::kK, g, t, hi, lo);
             },
             [&](int kk, int copy) { return own_desc(0, copy, kk); }, false);
-        product<T, kNo, kTs, kTc>(
+        product<T, kNo, kTs2, kTc2>(
             t2,
             [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-                Frag<T, D>::rows(y2, m0, kk * C::kK, g, t, hi, lo);
+                Frag2::rows(y2, m0, kk * C::kK, g, t, hi, lo);
             },
             [&](int kk, int copy) { return own_desc(1, copy, kk); }, false);
         wgmma_wait<0>();
@@ -663,10 +724,10 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     }
                     t2[4 * j + e] = ds;
                     if constexpr (!kDQ) {
-                        put<T, D>(store + off[e] + 1024 * j, p);
+                        put<C>(store + off[e] + 1024 * j, p);
                     }
                     if constexpr (kDQ || kDsTile == 1) {
-                        put<T, D>(ds_tile + off[e] + 1024 * j, ds);
+                        put<C>(ds_tile + off[e] + 1024 * j, ds);
                     }
                 }
             }
@@ -692,19 +753,20 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // the sums on the CUDA cores: no tensor-core sum runs longer than
         // one tile, whose rounding would otherwise grow with the band and
         // the group.  When P and dS share a tile, dS goes in once A1 has
-        // read P.
+        // read P.  A1 has kMb1 blocks (DV rows), A2 kMb2 (DQ rows).
         constexpr int kAs = kRows / C::kK;
         constexpr int kAc = C::kChunk < kAs ? C::kChunk : kAs;
         constexpr bool kShared = !kDQ && kDsTile == 0;
-        static_assert(!kShared || C::kMb == 1, "a shared tile, one M block");
 #pragma unroll
-        for (int mb = 0; mb < C::kMb; ++mb) {
-            if constexpr (!kDQ) {
+        for (int mb = 0; mb < kMb; ++mb) {
+            const bool a1 = mb < kMb1;
+            const bool a2 = mb < kMb2;
+            if (a1) {
                 product<T, kNo, kAs, kAc>(
                     t1,
                     [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-                        Frag<T, D>::cols(y2, 64 * mb + m0, kk * C::kK, g, t,
-                                         hi, lo);
+                        Frag2::cols(y2, 64 * mb + m0, kk * C::kK, g, t, hi,
+                                    lo);
                     },
                     [&](int kk, int copy) { return store_desc(0, copy, kk); },
                     false);
@@ -720,21 +782,23 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 for (int j = 0; j < kNo / 8; ++j) {
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
-                        put<T, D>(ds_tile + off[e] + 1024 * j, t2[4 * j + e]);
+                        put<C>(ds_tile + off[e] + 1024 * j, t2[4 * j + e]);
                     }
                 }
                 fence_proxy_async();
                 bar_sync(bar_id, 128);
             }
-            product<T, kNo, kAs, kAc>(
-                t2,
-                [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-                    Frag<T, D>::cols(y1, 64 * mb + m0, kk * C::kK, g, t, hi,
-                                     lo);
-                },
-                [&](int kk, int copy) { return store_desc(1, copy, kk); },
-                false);
-            if (mb == C::kMb - 1) {
+            if (a2) {
+                product<T, kNo, kAs, kAc>(
+                    t2,
+                    [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                        Frag1::cols(y1, 64 * mb + m0, kk * C::kK, g, t, hi,
+                                    lo);
+                    },
+                    [&](int kk, int copy) { return store_desc(1, copy, kk); },
+                    false);
+            }
+            if (mb == kMb - 1) {
                 mbar_arrive(empty(s1));   // the tiles are in registers now
                 mbar_arrive(empty(s2));
             }
@@ -743,32 +807,45 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             fence_regs(t2);
 #pragma unroll
             for (int i = 0; i < kNo / 2; ++i) {
-                if constexpr (!kDQ && !kShared) {
-                    acc1[mb][i] = acc1[mb][i] + t1[i];
+                if constexpr (!kShared) {
+                    if (a1) {
+                        acc1[mb][i] = acc1[mb][i] + t1[i];
+                    }
                 }
-                acc2[mb][i] = acc2[mb][i] + t2[i];
+                if (a2) {
+                    acc2[mb][i] = acc2[mb][i] + t2[i];
+                }
             }
         }
     }
 
     // out: acc[mb][4j + e] at d = 64mb + m0 + 2g + e/2 (Frag::cols' row
-    // order), owned row c = 8j + 2t + e%2; d and d + 1 are written together
-    const int64_t stride_out = kDQ ? q_stride : kv_stride;
+    // order), owned row c = 8j + 2t + e%2; d and d + 1 are written together.
+    // g1 (dK or dQ) has DQ columns, g2 (dV) DV.
+    const int64_t stride1 = kDQ ? q_stride : k_stride;
 #pragma unroll
-    for (int mb = 0; mb < C::kMb; ++mb) {
+    for (int mb = 0; mb < kMb; ++mb) {
         const int d = 64 * mb + m0 + 2 * g;
 #pragma unroll
         for (int j = 0; j < kNo / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 const int c = 8 * j + 2 * t + e;
-                if ((D >= 64 || d < D) && c < own_valid) {
-                    const int64_t at = (b * S_own + o0 + c) * stride_out +
-                                       static_cast<int64_t>(hx) * D + d;
-                    store2<T>(g1 + at, acc2[mb][4 * j + e] * scale,
+                if (c >= own_valid) {
+                    continue;
+                }
+                const int64_t row = b * S_own + o0 + c;
+                if (mb < kMb2 && (DQ >= 64 || d < DQ)) {
+                    store2<T>(g1 + row * stride1 +
+                                  static_cast<int64_t>(hx) * DQ + d,
+                              acc2[mb][4 * j + e] * scale,
                               acc2[mb][4 * j + e + 2] * scale);
-                    if constexpr (!kDQ) {
-                        store2<T>(g2 + at, acc1[mb][4 * j + e],
+                }
+                if constexpr (!kDQ) {
+                    if (mb < kMb1 && (DV >= 64 || d < DV)) {
+                        store2<T>(g2 + row * v_stride +
+                                      static_cast<int64_t>(hx) * DV + d,
+                                  acc1[mb][4 * j + e],
                                   acc1[mb][4 * j + e + 2]);
                     }
                 }
@@ -787,17 +864,17 @@ int set_smem(K kernel, int bytes) {
     return static_cast<int>(err);
 }
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 int launch(const T* q, const T* k, const T* v, const T* out, const T* dout,
            const float* lse, float* delta, T* dq, T* dk, T* dv, int64_t B,
            int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int causal,
            int has_window, int64_t window, int has_softcap, float softcap,
            float scale, int64_t q_offset, cudaStream_t stream) {
-    using C = BwdCfg<T, D>;
+    using C = BwdCfg<T, DQ, DV>;
     const int64_t rows = B * Sq * Hq;
-    delta_kernel<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
-                         stream>>>(out, dout, delta, rows, Sq,
-                                   static_cast<int>(Hq));
+    delta_kernel<T, DV><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+                          stream>>>(out, dout, delta, rows, Sq,
+                                    static_cast<int>(Hq));
     int err = static_cast<int>(cudaGetLastError());
     if (err != 0) {
         return err;
@@ -806,23 +883,23 @@ int launch(const T* q, const T* k, const T* v, const T* out, const T* dout,
     const int hkv = static_cast<int>(Hkv);
     constexpr int kCta = C::kNo * C::kWG;    // owned rows of a block
     // dK, dV: blocks key tile by key tile (the longest causal bands first)
-    if ((err = set_smem(bwd_kernel<T, D, false>, C::kBytes))) {
+    if ((err = set_smem(bwd_kernel<T, DQ, DV, false>, C::kBytes))) {
         return err;
     }
     const dim3 kgrid(static_cast<unsigned>(B * Hkv),
                      static_cast<unsigned>((Sk + kCta - 1) / kCta));
-    bwd_kernel<T, D, false><<<kgrid, C::kThreads, C::kBytes, stream>>>(
+    bwd_kernel<T, DQ, DV, false><<<kgrid, C::kThreads, C::kBytes, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, Sq, Sk, hq, hkv, causal,
         has_window, window, has_softcap, softcap, scale, q_offset);
     if ((err = static_cast<int>(cudaGetLastError()))) {
         return err;
     }
-    if ((err = set_smem(bwd_kernel<T, D, true>, C::kBytes))) {
+    if ((err = set_smem(bwd_kernel<T, DQ, DV, true>, C::kBytes))) {
         return err;
     }
     const dim3 qgrid(static_cast<unsigned>(B * Hq),
                      static_cast<unsigned>((Sq + kCta - 1) / kCta));
-    bwd_kernel<T, D, true><<<qgrid, C::kThreads, C::kBytes, stream>>>(
+    bwd_kernel<T, DQ, DV, true><<<qgrid, C::kThreads, C::kBytes, stream>>>(
         q, k, v, dout, lse, delta, dq, nullptr, Sq, Sk, hq, hkv, causal,
         has_window, window, has_softcap, softcap, scale, q_offset);
     return static_cast<int>(cudaGetLastError());
@@ -832,21 +909,30 @@ template <typename T>
 int dispatch(const T* q, const T* k, const T* v, const T* out,
              const T* dout, const float* lse, float* delta, T* dq, T* dk,
              T* dv, int64_t B, int64_t Sq, int64_t Sk, int64_t Hq,
-             int64_t Hkv, int64_t D, int causal, int has_window,
-             int64_t window, int has_softcap, float softcap, float scale,
-             int64_t q_offset, void* stream) {
+             int64_t Hkv, int64_t Dqk, int64_t Dv, int causal,
+             int has_window, int64_t window, int has_softcap, float softcap,
+             float scale, int64_t q_offset, void* stream) {
     if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
         B * Hq > 0x7fffffff || Sq / 16 >= 65535 || Sk / 16 >= 65535) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (Dqk == 192 && Dv == 128) {   // MLA
+        return launch<T, 192, 128>(q, k, v, out, dout, lse, delta, dq, dk,
+                                   dv, B, Sq, Sk, Hq, Hkv, causal,
+                                   has_window, window, has_softcap, softcap,
+                                   scale, q_offset, s);
+    }
+    if (Dqk != Dv) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
 #define REPRO_FA_BWD_CASE(DIM)                                              \
     case DIM:                                                               \
-        return launch<T, DIM>(q, k, v, out, dout, lse, delta, dq, dk, dv,   \
-                              B, Sq, Sk, Hq, Hkv, causal, has_window,       \
-                              window, has_softcap, softcap, scale,          \
-                              q_offset, s);
-    switch (D) {
+        return launch<T, DIM, DIM>(q, k, v, out, dout, lse, delta, dq, dk,  \
+                                   dv, B, Sq, Sk, Hq, Hkv, causal,          \
+                                   has_window, window, has_softcap,         \
+                                   softcap, scale, q_offset, s);
+    switch (Dqk) {
         REPRO_FA_BWD_CASE(16)
         REPRO_FA_BWD_CASE(32)
         REPRO_FA_BWD_CASE(64)
@@ -866,17 +952,19 @@ extern "C" {
 // returns a CUDA error code: 0 when every launch was accepted.  out and
 // lse are the forward's (flash_attention_f32/bf16 with lse), dout the
 // gradient of out; delta [B, Hq, Sq] is float32 scratch; dq, dk, dv have
-// the shapes of q, k, v.  Every tensor is contiguous and 16-byte aligned.
+// the shapes of q, k, v.  q and k have head dim Dqk, v, out and dout Dv;
+// (Dqk, Dv) must be (D, D) with D 16, 32, 64, 128 or 256, or (192, 128).
+// Every tensor is contiguous and 16-byte aligned.
 int flash_attention_bwd_f32(const float* q, const float* k, const float* v,
                             const float* out, const float* dout,
                             const float* lse, float* delta, float* dq,
                             float* dk, float* dv, int64_t B, int64_t Sq,
-                            int64_t Sk, int64_t Hq, int64_t Hkv, int64_t D,
-                            int causal, int has_window, int64_t window,
-                            int has_softcap, float softcap, float scale,
-                            int64_t q_offset, void* stream) {
+                            int64_t Sk, int64_t Hq, int64_t Hkv, int64_t Dqk,
+                            int64_t Dv, int causal, int has_window,
+                            int64_t window, int has_softcap, float softcap,
+                            float scale, int64_t q_offset, void* stream) {
     return dispatch<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq,
-                           Sk, Hq, Hkv, D, causal, has_window, window,
+                           Sk, Hq, Hkv, Dqk, Dv, causal, has_window, window,
                            has_softcap, softcap, scale, q_offset, stream);
 }
 
@@ -884,11 +972,11 @@ int flash_attention_bwd_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* out, const __nv_bfloat16* dout, const float* lse,
     float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
-    int64_t B, int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int64_t D,
-    int causal, int has_window, int64_t window, int has_softcap,
+    int64_t B, int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int64_t Dqk,
+    int64_t Dv, int causal, int has_window, int64_t window, int has_softcap,
     float softcap, float scale, int64_t q_offset, void* stream) {
     return dispatch<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk,
-                                   dv, B, Sq, Sk, Hq, Hkv, D, causal,
+                                   dv, B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal,
                                    has_window, window, has_softcap, softcap,
                                    scale, q_offset, stream);
 }

@@ -26,13 +26,12 @@ dO.O, uses no atomics, and two calls give the same bits.
 
 What the kernels take: float32 or bfloat16, q, k and v of one dtype, on
 one card, contiguous and 16-byte aligned, with (Dqk, Dv) one of
-`HEAD_DIM_PAIRS` and Hq a multiple of Hkv.  The backward takes only
-Dqk == Dv: a gradient request at (192, 128) on the card raises
-NotImplementedError when the forward is called (ROADMAP.md queue 2, row
-2c).  They support the causal mask, a sliding window
-(`k_pos > q_pos - window`), a tanh logit softcap, GQA (head h reads kv
-head h // (Hq // Hkv)) and a static `q_offset` (the absolute position of
-q[:, 0]).  The gradients come back in the inputs' dtype; a row that the
+`HEAD_DIM_PAIRS` and Hq a multiple of Hkv; the forward and the backward
+have the same instantiations, MLA's (192, 128) among them (the backward's
+S, dK and dQ run over Dqk, its dP, dO.O and dV over Dv).  They support
+the causal mask, a sliding window (`k_pos > q_pos - window`), a tanh
+logit softcap, GQA (head h reads kv head h // (Hq // Hkv)) and a static
+`q_offset` (the absolute position of q[:, 0]).  The gradients come back in the inputs' dtype; a row that the
 mask hides entirely gets a zero gradient.
 
 `launches` counts the forward kernel's launches and `launches_bwd` the
@@ -159,7 +158,10 @@ def _launch_bwd(q, k, v, out, dout, lse, causal, window, softcap, scale,
         raise ValueError(f"the gradient of the output must be "
                          f"{tuple(out.shape)} and 16-byte aligned")
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if out.shape != (B, Sq, Hq, Dv):
+        raise ValueError(f"the forward's output must be {(B, Sq, Hq, Dv)}, "
+                         f"not {tuple(out.shape)}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if out.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
@@ -169,7 +171,7 @@ def _launch_bwd(q, k, v, out, dout, lse, causal, window, softcap, scale,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta,
                                          dq, dk, dv)),
-                B, Sq, Sk, Hq, Hkv, D, int(causal),
+                B, Sq, Sk, Hq, Hkv, D, Dv, int(causal),
                 int(window is not None), window or 0,
                 int(softcap is not None), float(softcap or 0.0), scale,
                 q_offset, stream)
@@ -211,8 +213,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Sq, Hq, Dv].
 
     Scale defaults to Dqk ** -0.5.  The kernel's output on a CUDA tensor
-    (differentiable through the backward kernels where Dqk == Dv), the
-    plain version's on a CPU tensor.
+    (differentiable through the backward kernels), the plain version's on
+    a CPU tensor.
     """
     _check(q, k, v, window, q_offset)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
@@ -223,11 +225,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      softcap=softcap, scale=scale,
                                      q_offset=q_offset).contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.shape[3] != v.shape[3]:
-            raise NotImplementedError(
-                f"the flash-attention backward kernel takes no value head "
-                f"dim apart from the query's (Dqk {q.shape[3]}, Dv "
-                f"{v.shape[3]}): ROADMAP.md queue 2, row 2c")
         return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
                                      q_offset)
     return _launch(q, k, v, causal, window, softcap, scale, q_offset)[0]

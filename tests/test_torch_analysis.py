@@ -204,6 +204,12 @@ def test_chip_smoke_bounds_keep_their_recorded_values():
     assert cs._fa_bwd_bound(cs.FA_BWD_A)[::2] == (0.48830277818181816,
                                                   1.2025366925373135)
     assert cs._fa_bwd_bound(cs.FA_BWD_B)[0] == 1.041458393212121
+    # row 2c at path D's layer, and the backward at path E's cross
+    # attention
+    assert cs._fa_bwd_bound(cs.FA_MLA)[::2] == (5.416905485963636,
+                                                13.340140375880598)
+    assert cs._fa_bwd_bound(cs.FA_BWD_SEAMLESS_CROSS)[::2] == (
+        0.2542002424242424, 0.6260155223880597)
     assert cs._bound(hlo_cost.rglru_work(*cs.RG_MAIN, 4), f32)[0] == \
         0.0901560167164179
     assert cs._bound(hlo_cost.rglru_bwd_work(*cs.RG_BWD, 4), f32)[0] == \

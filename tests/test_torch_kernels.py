@@ -328,6 +328,145 @@ def test_split_tf32_meets_the_float32_tolerance_where_tf32_does_not(
 
 
 # ---------------------------------------------------------------------- #
+# flash attention backward, CPU: the backward kernel's algorithm
+# ---------------------------------------------------------------------- #
+_LOG2E = np.float32(1.4426950408889634)
+
+
+def _fa_bwd_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
+                             kno, rows=64):
+    """`csrc/flash_attention_bwd.cu`'s float32 path on the CPU, in numpy
+    float32, for q [B, Sq, Hq, Dqk], k [B, Sk, Hkv, Dqk], v [B, Sk, Hkv,
+    Dv] and the forward's out [B, Sq, Hq, Dv] and lse [B, Hq, Sq].
+
+    delta_kernel: D_i = sum_d dO_id O_id.  Then two passes of one body: a
+    block owns `kno` rows of one side (K and V for dK/dV, Q and dO for
+    dQ) and streams `rows`-row tiles of the other (zero past the end) over
+    its band, for dK/dV through every q head of the kv head's group in
+    head order.  Each tile forms T1 = Y1 X1^T (S, over Dqk) and T2 = Y2
+    X2^T (dP, over Dv), then P = exp2(s log2 e - L log2 e), dS = P (dP -
+    D) (0 where masked), then A1 = Y2^T P (dV^T) and A2 = Y1^T dS (dK^T or
+    dQ^T), each in a fresh accumulator added to the block's sums in that
+    order; the dQ pass forms S and dP again.  Every product is split TF32:
+    hi rounded to nearest, lo the remainder, which the tensor core reads
+    rounded toward zero."""
+    B, Sq, Hq, Dqk = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    groups = Hq // Hkv
+    def mm(a, b):
+        """a @ b.T as the tensor cores form it from split operands."""
+        return _mm_3xtf32(a, b, _tf32_rz)
+
+    delta = np.einsum("bihd,bihd->bhi", dout, out).astype(np.float32)
+    l2 = (lse * _LOG2E).astype(np.float32)
+    s2 = np.float32(scale) * _LOG2E
+
+    def tile(x, i0):
+        """rows [i0, i0 + rows) of x [S, D], zero past its end."""
+        t = np.zeros((rows, x.shape[1]), np.float32)
+        part = x[i0:i0 + rows]
+        t[:len(part)] = part
+        return t
+
+    def p_ds(t1, t2, L2, Dl, qi, kj):
+        """P and dS of one tile: t1, t2, qi, kj [rows-or-kno, ...] laid
+        out alike."""
+        p = np.exp2((t1 * s2 - L2).astype(np.float32)).astype(np.float32)
+        ds = (p * (t2 - Dl)).astype(np.float32)
+        ok = (qi < Sq) & (kj < Sk) & ((kj <= qi) if causal else True)
+        return np.where(ok, p, 0).astype(np.float32), \
+            np.where(ok, ds, 0).astype(np.float32)
+
+    dq = np.zeros_like(q)
+    dk = np.zeros_like(k)
+    dv = np.zeros((B, Sk, Hkv, v.shape[3]), np.float32)
+    for b in range(B):
+        for hk in range(Hkv):                      # dK, dV
+            for o0 in range(0, Sk, kno):
+                kj = (o0 + np.arange(kno))[None, :]
+                X1, X2 = tile(k[b, :, hk], o0)[:kno], \
+                    tile(v[b, :, hk], o0)[:kno]
+                acc_k = np.zeros((Dqk, kno), np.float32)
+                acc_v = np.zeros((v.shape[3], kno), np.float32)
+                lo = (o0 // rows) * rows if causal else 0
+                for h in range(hk * groups, (hk + 1) * groups):
+                    for i0 in range(lo, Sq, rows):
+                        qi = (i0 + np.arange(rows))[:, None]
+                        Y1, Y2 = tile(q[b, :, h], i0), \
+                            tile(dout[b, :, h], i0)
+                        rl = np.full(rows, np.inf, np.float32)
+                        rd = np.zeros(rows, np.float32)
+                        n = min(rows, Sq - i0)
+                        rl[:n], rd[:n] = l2[b, h, i0:i0 + n], \
+                            delta[b, h, i0:i0 + n]
+                        p, ds = p_ds(mm(Y1, X1), mm(Y2, X2), rl[:, None],
+                                     rd[:, None], qi, kj)
+                        acc_v = (acc_v + mm(Y2.T, p.T)).astype(np.float32)
+                        acc_k = (acc_k + mm(Y1.T, ds.T)).astype(np.float32)
+                n = min(kno, Sk - o0)
+                dk[b, o0:o0 + n, hk] = (acc_k.T * np.float32(scale))[:n]
+                dv[b, o0:o0 + n, hk] = acc_v.T[:n]
+        for h in range(Hq):                        # dQ
+            hk = h // groups
+            for o0 in range(0, Sq, kno):
+                qi = (o0 + np.arange(kno))[None, :]
+                X1, X2 = tile(q[b, :, h], o0)[:kno], \
+                    tile(dout[b, :, h], o0)[:kno]
+                ol = np.full(kno, np.inf, np.float32)
+                od = np.zeros(kno, np.float32)
+                n = min(kno, Sq - o0)
+                ol[:n], od[:n] = l2[b, h, o0:o0 + n], delta[b, h, o0:o0 + n]
+                acc = np.zeros((Dqk, kno), np.float32)
+                hi = min(Sk, o0 + kno) if causal else Sk
+                for i0 in range(0, hi, rows):
+                    kj = (i0 + np.arange(rows))[:, None]
+                    Y1, Y2 = tile(k[b, :, hk], i0), \
+                        tile(v[b, :, hk], i0)
+                    _, ds = p_ds(mm(Y1, X1), mm(Y2, X2), ol[None, :],
+                                 od[None, :], qi, kj)
+                    acc = (acc + mm(Y1.T, ds.T)).astype(np.float32)
+                dq[b, o0:o0 + n, h] = (acc.T * np.float32(scale))[:n]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dqk,Dv,causal,kno", [
+    (1, 130, 130, 2, 1, 192, 128, True, 16),   # MLA's tile, a GQA group
+    (2, 100, 150, 2, 2, 64, 64, False, 48),    # Sq != Sk, ragged tiles
+])
+def test_fa_backward_kernel_algorithm_meets_the_tolerance(
+        B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal, kno):
+    """The backward kernel's algorithm (split TF32, 64-row streamed tiles,
+    `kno` owned rows, a fresh accumulator a tile, S and dP formed again
+    for dQ) stays within BWD_TOL["float32"] of the plain version's
+    autograd in float64, for dQ, dK and dV each; the forward's out and
+    log-sum-exp as the forward kernel writes them (float32)."""
+    rng = np.random.default_rng(Dqk + Sq)
+    q, k = (rng.standard_normal((B, S, H, Dqk)).astype(np.float32)
+            for S, H in ((Sq, Hq), (Sk, Hkv)))
+    v = rng.standard_normal((B, Sk, Hkv, Dv)).astype(np.float32)
+    dout = rng.standard_normal((B, Sq, Hq, Dv)).astype(np.float32)
+    scale = Dqk ** -0.5
+    q64, k64, v64 = (torch.from_numpy(x).double() for x in (q, k, v))
+    s = torch.einsum("bihd,bjhd->bhij", q64, k64.repeat_interleave(
+        Hq // Hkv, dim=2)) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(Sq, Sk).tril().logical_not(), -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    out = attention_ref(q64, k64, v64, causal=causal, scale=scale)
+    got = _fa_bwd_kernel_algorithm(
+        q, k, v, out.float().numpy(), lse.float().numpy(), dout,
+        causal=causal, scale=scale, kno=kno)
+    want = fa.flash_attention_bwd_plain(q64, k64, v64,
+                                        torch.from_numpy(dout).double(),
+                                        causal=causal, scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == tuple(w.shape), name
+        err = float(np.abs(g - w.numpy()).max()) / max(
+            1.0, float(w.abs().max()))
+        assert err < BWD_TOL["float32"], (name, err)
+
+
+# ---------------------------------------------------------------------- #
 # RG-LRU, CPU: the port against the Pallas kernel
 # ---------------------------------------------------------------------- #
 RGLRU_CASES = [
@@ -1059,11 +1198,16 @@ def _wrapper_calls(device):
     """Each wrapper's call, taking its inputs as a list so one of them can
     be made to require grad: (name, inputs, call)."""
     q = torch.ones((1, 4, 2, 16), device=device)
+    # MLA's head dims: q and k of 192, v of 128
+    qk = torch.full((1, 4, 2, 192), 0.1, device=device)
     x = torch.full((1, 4, 16), 0.5, device=device)
     u = torch.ones((2, 16), device=device)
     s0 = torch.ones((1, 2, 16, 16), device=device)
     return [
         ("flash_attention", [q, q.clone(), q.clone()],
+         lambda t: fa.flash_attention(*t)),
+        ("flash_attention_mla",
+         [qk, qk.clone(), torch.ones((1, 4, 2, 128), device=device)],
          lambda t: fa.flash_attention(*t)),
         ("rglru_scan", [x, x.clone(), torch.ones((1, 16), device=device)],
          lambda t: rglru.rglru_scan(*t)),
@@ -1072,8 +1216,10 @@ def _wrapper_calls(device):
     ]
 
 
-GRAD_CASES = [(w, i) for w, n in (("flash_attention", 3), ("rglru_scan", 3),
-                                  ("rwkv6_scan", 6)) for i in range(n)]
+GRAD_CASES = [(w, i) for w, n in (("flash_attention", 3),
+                                  ("flash_attention_mla", 3),
+                                  ("rglru_scan", 3), ("rwkv6_scan", 6))
+              for i in range(n)]
 
 
 def _grad_case(device, wrapper, i):
@@ -1327,11 +1473,12 @@ def test_kernel_wrappers_with_grad_return_a_grad_fn_on_the_card(
                                        if c[0] != "rwkv6_scan"])
 def test_kernel_wrappers_are_differentiable_on_the_card(wrapper, i,
                                                         cuda_device):
-    """Flash attention and RG-LRU launch their forward kernel with an
-    output autograd follows, and their backward kernel for its gradient;
-    under no_grad the forward alone."""
+    """Flash attention (at equal head dims and at MLA's) and RG-LRU launch
+    their forward kernel with an output autograd follows, and their
+    backward kernel for its gradient; under no_grad the forward alone."""
     inputs, call = _grad_case(cuda_device, wrapper, i)
-    mod = {"flash_attention": fa, "rglru_scan": rglru}[wrapper]
+    mod = {"flash_attention": fa, "flash_attention_mla": fa,
+           "rglru_scan": rglru}[wrapper]
     before, before_bwd = mod.launches, mod.launches_bwd
     out = call(inputs)
     out = out[0] if isinstance(out, tuple) else out
@@ -1354,14 +1501,20 @@ def test_kernel_wrappers_are_differentiable_on_the_card(wrapper, i,
 BWD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 # the training shapes: one smollm-360m layer (15 heads of 64 on 5 kv
 # heads, causal) and one recurrentgemma-9b attention layer (16 heads of
-# 256 on one kv head, window 2048), at shorter sequences
+# 256 on one kv head, window 2048), at shorter sequences; then
+# seamless-m4t-large-v2's (16 heads of 64 on 16): the cross attention
+# (Sq 300 by 1,000 frames) and the encoder (1,000 by itself), no mask,
+# and the decoder's self-attention, causal
 FA_BWD_CASES = FA_CASES + [
     (1, 512, 512, 15, 5, 64, True, None, None, "float32"),
     (1, 512, 512, 15, 5, 64, True, None, None, "bfloat16"),
     (1, 2304, 2304, 16, 1, 256, True, 2048, None, "float32"),
     (1, 2304, 2304, 16, 1, 256, True, 2048, None, "bfloat16"),
     (1, 70, 130, 4, 2, 128, True, 48, 30.0, "float32"),   # q_offset 60
-]
+] + [(1, Sq, Sk, 16, 16, 64, causal, None, None, dt)
+     for Sq, Sk, causal in ((300, 1000, False), (1000, 1000, False),
+                            (1000, 1000, True))
+     for dt in ("float32", "bfloat16")]
 
 
 def _grad_err(got, want) -> float:
@@ -1419,25 +1572,33 @@ def test_flash_attention_backward_is_deterministic_and_keeps_out(
 
 # FA_EDGES, then GQA groups of 3 (path A's 15 heads on 5) and 16 (MQA), at
 # lengths that are not a multiple of the backward's tiles (64 streamed
-# rows; 48, 64 or fewer owned rows a warpgroup)
+# rows; 48, 64 or fewer owned rows a warpgroup), then last 64-row tiles of
+# 2 and 3 rows, Sq != Sk without a mask
 FA_BWD_EDGES = FA_EDGES + [
     (150, 150, 15, 5, True, None, None, 0),
     (100, 100, 16, 1, True, 7, None, 0),
+    (66, 66, 4, 2, True, None, None, 0),
+    (131, 195, 2, 2, False, None, None, 0),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("edge", FA_BWD_EDGES)
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS + ((192, 128),))
 def test_flash_attention_backward_every_head_dim(D, dt, edge, cuda_device):
-    """Every instantiation of the backward against the plain version's
-    autograd in float64, and two calls bit-identical."""
+    """Every instantiation of the backward (each head dim, and MLA's
+    (Dqk, Dv) = (192, 128) with independent q, k and v) against the plain
+    version's autograd in float64, dq, dk and dv each, and two calls
+    bit-identical."""
     Sq, Sk, Hq, Hkv, causal, window, cap, q_offset = edge
-    q, k, v = (_t(a, dt, cuda_device) for a in _qkv(
-        (2, Sq, Sk, Hq, Hkv, D), seed=D))
-    dout = _t(np.random.default_rng(D + 1).standard_normal(q.shape).astype(
-        np.float32), dt, cuda_device)
+    Dqk, Dv = D if isinstance(D, tuple) else (D, D)
+    q, k, v = _qkv((2, Sq, Sk, Hq, Hkv, Dqk), seed=Dqk)
+    if Dv != Dqk:
+        v = _qkv((2, Sq, Sk, Hq, Hkv, Dv), seed=Dqk + 1)[2]
+    q, k, v = (_t(a, dt, cuda_device) for a in (q, k, v))
+    dout = _t(np.random.default_rng(Dqk + 1).standard_normal(
+        (2, Sq, Hq, Dv)).astype(np.float32), dt, cuda_device)
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
     grads = []
     for _ in range(2):

@@ -291,6 +291,103 @@ def test_loss_fn_and_its_gradients_match_jax(setup, mtp_weight, jx):
             assert float((a - b).abs().max()) <= 1e-6
 
 
+def test_mla_gradients_at_published_head_dims_match_jax(jx):
+    """Reduced deepseek-v3 with the published head dims (q/k 128 + 64, v
+    128, so flash attention runs at (192, 128)): the gradient of `loss_fn`
+    with respect to the MLA leaves only (each layer's and the MTP head's
+    `attn`: what chip_smoke.py's path D differentiates on the card),
+    through `impl="cuda"`, whose wrapper runs the plain version on a CPU
+    tensor, against `jax.grad` of the JAX package's `loss_fn` restricted
+    to the same leaves."""
+    jax, jnp = jx.jax, jx.jnp
+    jcfg, cfg = _configs(jx, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                         v_head_dim=128)
+    params = jx.models.init_params(jcfg, jax.random.PRNGKey(2))
+    model = models.from_jax_params(cfg, jax.tree.map(np.asarray, params),
+                                   device="cpu")
+    tree = models.param_tree(model)
+    is_mla = {}
+
+    def mark(path, leaf):
+        is_mla[id(leaf)] = "/attn/" in path
+        return leaf
+
+    def walk(t, path=""):
+        if isinstance(t, dict):
+            return {k: walk(x, f"{path}/{k}") for k, x in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(x, f"{path}/{i}") for i, x in enumerate(t))
+        return mark(path, t)
+
+    walk(tree)
+    leaves = [p for p in tree_leaves(tree) if is_mla[id(p)]]
+    assert len(leaves) == 8 * (cfg.n_layers + cfg.mtp_depth)
+    model.requires_grad_(False)
+    for p in leaves:
+        p.requires_grad_(True)
+    toks = _tokens(jcfg.vocab_size, seed=6).astype(np.int32)
+    before = (fa.launches, fa.launches_bwd)
+    loss = models.loss_fn(model, {"tokens": torch.as_tensor(toks)},
+                          impl="cuda")
+    grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    assert (fa.launches, fa.launches_bwd) == before   # the plain versions
+    jloss, jgrads = jax.value_and_grad(lambda p: jx.models.loss_fn(
+        jcfg, p, {"tokens": jnp.asarray(toks)}, impl="ref"))(params)
+    assert abs(float(loss.detach()) - float(jloss)) <= 1e-4 * max(
+        1.0, abs(float(jloss)))
+    # the port's gradients (zero off the MLA leaves) and a mask of the MLA
+    # leaves, both carried to the JAX tree's layout
+    gtree = models.to_jax_tree(cfg, tree_map(
+        lambda p: grads.get(id(p), torch.zeros_like(p)), tree))
+    mask = models.to_jax_tree(cfg, tree_map(
+        lambda p: torch.full_like(p, float(is_mla[id(p)])), tree))
+    got, want = _flat(gtree), _flat(jax.tree.map(np.asarray, jgrads))
+    mask = _flat(mask)
+    assert got.keys() == want.keys() == mask.keys()
+    # the JAX tree stacks the layers: one key a leaf name, and the head's
+    mla = [key for key in want if "/attn/" in key]
+    assert len(mla) == 8 * (1 + bool(cfg.mtp_depth))
+    assert all(mask[key].all() == (key in mla) and mask[key].any() ==
+               (key in mla) for key in want)
+    for key in mla:
+        assert got[key].shape == want[key].shape, key
+        assert _scaled_err(got[key], want[key]) < 1e-4, key
+        assert float(np.abs(want[key]).max()) > 0, key
+
+
+def test_dry_run_charges_the_backward_at_mla_head_dims():
+    """The dry run of a train step (fake tensors, `impl="cuda"`: each
+    kernel call one region) at the published head dims charges every
+    MLA layer's flash-attention forward and its backward at (Dqk, Dv) =
+    (192, 128) the functions' work, and nothing else as a kernel."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis import analyze_program, hlo_cost
+    cfg = dataclasses.replace(
+        reduced_config(get_config(ARCH)), qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128)
+    B, S = 2, 32
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    with fake:
+        model = models.Model(cfg, device="cpu").requires_grad_(True)
+        batch = {"tokens": torch.zeros((B, S), dtype=torch.int32)}
+    leaves = tree_leaves(models.param_tree(model))
+
+    def step():
+        loss = models.loss_fn(model, batch, impl="cuda")
+        return torch.autograd.grad(loss, leaves)
+
+    with fake:
+        cost = analyze_program(step)
+    calls = cfg.n_layers + cfg.mtp_depth
+    work = [f(B, S, S, cfg.n_heads, cfg.n_heads, 192, 128, True, None, 4)
+            for f in (hlo_cost.attention_work, hlo_cost.attention_bwd_work)]
+    assert cost.by_class["kernel"] == {
+        "count": 2 * calls,
+        "flops": float(calls * (work[0][0] + work[1][0])),
+        "bytes": float(calls * (work[0][1] + work[1][1]))}
+
+
 def test_a_tree_without_the_head_trains_without_its_term(setup, jx):
     """As in the JAX package, the MTP term needs the head's parameters:
     a tree without "mtp" gives the plain next-token loss."""
@@ -359,16 +456,19 @@ def test_wrapper_takes_mla_head_dims_and_refuses_mismatches():
                            v[:, :, :1].expand(1, 9, 3, 128).contiguous())
 
 
-def test_gradient_at_mla_head_dims_raises_off_the_cpu_before_a_launch():
-    """Off the CPU a gradient request at Dqk != Dv raises at the forward
-    call, naming ROADMAP queue 2, row 2c (a `meta` tensor reaches the
-    same test the card does); on the CPU the plain version's autograd
-    runs; without a gradient the call goes to the kernel path (here the
-    device check)."""
+def test_gradient_at_mla_head_dims_reaches_the_device_check_off_the_cpu():
+    """Off the CPU a gradient request at MLA's (Dqk, Dv) = (192, 128) goes
+    to the kernel path, as at equal head dims: a `meta` input that
+    requires grad reaches the device-type check and raises there, as it
+    does under no_grad, and nothing is launched; on the CPU the plain
+    version's autograd runs."""
     q, k, v = _mla_qkv(1, 5, 5, 2, 2, device="meta")
     before = (fa.launches, fa.launches_bwd)
-    with pytest.raises(NotImplementedError, match="queue 2, row 2c"):
-        fa.flash_attention(q.requires_grad_(True), k, v)
+    for i in range(3):
+        x = [q, k, v]
+        x[i] = x[i].clone().requires_grad_(True)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fa.flash_attention(*x)
     with torch.no_grad():
         with pytest.raises(ValueError, match="CPU or CUDA"):
             fa.flash_attention(q, k, v)
@@ -416,16 +516,47 @@ def test_kernel_refuses_other_head_dim_pairs(cuda_device):
     assert fa.launches == before
 
 
+# the plain version's gradient in float64 on the card is the reference:
+# 5e-5 (float32) and 2e-2 (bfloat16) of max(1, max|g|)
+BWD_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+
+
 @pytest.mark.cuda
-def test_gradient_at_mla_head_dims_raises_on_the_card(cuda_device):
-    q, k, v = _mla_qkv(1, 16, 16, 2, 2, device=cuda_device)
-    before = (fa.launches, fa.launches_bwd)
-    for i in range(3):
-        x = [q, k, v]
-        x[i] = x[i].clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="queue 2, row 2c"):
-            fa.flash_attention(*x)
-    assert (fa.launches, fa.launches_bwd) == before
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_backward_kernel_at_mla_head_dims_matches_plain(case, dt,
+                                                        cuda_device):
+    """The backward kernel's (192, 128) instantiation: one launch, dq, dk
+    and dv each within BWD_TOL of the plain version's float64 autograd,
+    two calls bit-identical, and the forward's output the same with and
+    without its log-sum-exp write."""
+    B, Sq, Sk, Hq, Hkv, causal, window = case
+    q, k, v = _mla_qkv(B, Sq, Sk, Hq, Hkv, dtype=getattr(torch, dt),
+                       device=cuda_device, seed=Sq + Hkv)
+    dout = _mla_qkv(B, Sq, Sq, Hq, Hq, Dqk=128, dtype=getattr(torch, dt),
+                    device=cuda_device, seed=Sq + Hkv + 1)[0]
+    kw = dict(causal=causal, window=window, scale=192 ** -0.5)
+    with torch.no_grad():
+        plain_out = fa.flash_attention(q, k, v, **kw)
+    grads = []
+    for _ in range(2):
+        qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = fa.launches_bwd
+        out = fa.flash_attention(*qkv, **kw)
+        assert torch.equal(out.detach(), plain_out)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        assert fa.launches_bwd == before + 1
+        grads.append([x.grad for x in qkv])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    want = fa.flash_attention_bwd_plain(q.double(), k.double(), v.double(),
+                                        dout.double(), **kw)
+    for name, got, w in zip(("dq", "dk", "dv"), grads[0], want):
+        assert got.dtype == q.dtype and got.shape == w.shape, name
+        err = float((got.double() - w).abs().max()) / max(
+            1.0, float(w.abs().max()))
+        assert err < BWD_TOL[dt], (case, dt, name, err)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,8 @@ spills, ptxas's notes on it (C75xx: wgmma serialized, and why), and from
 its SASS (`cuobjdump -sass`) the HGMMA (`wgmma`) instructions, those that
 close a group, and the warpgroup arrives and waits.  Then it holds the
 backward, through `flash_attention`'s autograd Function, against the
-plain version's autograd in float64 on every head dim in both dtypes over
+plain version's autograd in float64 on every head dim (MLA's (192, 128)
+pair among them) in both dtypes over
 layouts that stress its tiles (5e-5 float32, 2e-2 bf16, of max(1,
 max|g|)), each case twice, bit-identical (skipped with `--no-checks`),
 and times it with CUDA events at the two
@@ -25,7 +26,8 @@ parent's and the plain version in float32.  `--variants` builds copies
 of this source with other tile shapes for one instantiation each
 (`VARIANTS`: owned rows kNo, consumer warpgroups kWG, P/dS tiles
 kStoreTiles, ring stages kStages, k-steps a fence kChunk, of `BwdCfg`),
-holds each to the library's gradient at path A (head_dim 64) or B (256)
+holds each to the library's gradient at path A (head_dim 64), B (256)
+or deepseek-v3's MLA layer (192; q/k [2,2048,128,192], v 128, causal)
 (1e-4 of max(1, max|g|) in float32, 2e-2 in bf16) and times it there in
 turns with the library.  Every check runs even after one fails; the exit
 code is 1 if any failed.
@@ -66,21 +68,34 @@ EDGES = [
 # (B, S, Hq, Hkv, D, window): the training paths' attention layers
 PATH_A = (4, 2048, 15, 5, 64, None)
 PATH_B = (1, 3072, 16, 1, 256, 2048)
+PATH_MLA = (2, 2048, 128, 128, (192, 128), None)
+# each variant's head dim -> the shape it is timed at
+VARIANT_SHAPES = {64: PATH_A, 256: PATH_B, 192: PATH_MLA}
 # (dtype, head_dim, kNo, kWG, kStoreTiles, kStages, kChunk): other tile
-# shapes of one instantiation, timed at path A (head_dim 64) or B (256)
+# shapes of one instantiation (head_dim: the wider of Dqk and Dv), timed
+# at VARIANT_SHAPES[head_dim]
 VARIANTS = [("float32", 64, 48, 2, 1, 4, 1), ("float32", 64, 48, 2, 1, 4, 4),
             ("float32", 64, 64, 1, 2, 4, 4), ("bfloat16", 64, 64, 2, 2, 4, 2),
-            ("float32", 256, 16, 1, 1, 2, 2)]
+            ("float32", 192, 16, 1, 2, 4, 4), ("float32", 192, 16, 2, 2, 2, 4),
+            ("bfloat16", 192, 32, 1, 2, 4, 4),
+            ("bfloat16", 192, 32, 2, 2, 4, 4)]
 TUNABLES = ("kNo", "kWG", "kStoreTiles", "kStages", "kChunk")
 V = ctypes.c_void_p
 I32, I64, F32 = ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 
+def _dims(D) -> tuple[int, int]:
+    """(Dqk, Dv) of a head dim: an int, or MLA's pair."""
+    return D if isinstance(D, tuple) else (D, D)
+
+
 def _inputs(B, Sq, Sk, Hq, Hkv, D, dtype, seed=0):
+    """q, k, v and dout; D is a head dim or a (Dqk, Dv) pair."""
+    Dqk, Dv = _dims(D)
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(s, generator=g, device="cuda").to(dtype)
-            for s in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D),
-                      (B, Sq, Hq, D))]
+            for s in ((B, Sq, Hq, Dqk), (B, Sk, Hkv, Dqk), (B, Sk, Hkv, Dv),
+                      (B, Sq, Hq, Dv))]
 
 
 def _err(got, want) -> float:
@@ -91,7 +106,8 @@ def _err(got, want) -> float:
 
 def check_case(B, Sq, Sk, Hq, Hkv, D, dtype, causal, window, cap,
                q_offset) -> float:
-    q, k, v, dout = _inputs(B, Sq, Sk, Hq, Hkv, D, dtype, seed=D + Sq)
+    q, k, v, dout = _inputs(B, Sq, Sk, Hq, Hkv, D, dtype,
+                            seed=_dims(D)[0] + Sq)
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
     runs = []
     for _ in range(2):
@@ -134,17 +150,24 @@ def variant(text: str, key) -> str:
 
 def parent_entry(parent: str, tmp: str):
     """The parent checkout's backward, built alone with its headers
-    inlined: (C function, whether it takes the dk_h/dv_h scratch)."""
+    inlined: (C function taking this source's arguments, Dqk and Dv
+    included, whether it takes the dk_h/dv_h scratch)."""
     text = inlined(os.path.join(parent, "src", "repro_torch", "csrc"))
     built = build(tmp, {"parent": text}, label=str)
     if "parent" not in built:
         return None, False
     scratch = "dk_h" in text
     n_ptr = 12 if scratch else 10
+    # before (Dqk, Dv) the entry took one head dim
+    two = re.search(r"flash_attention_bwd_f32\([^)]*int64_t Dv", text) \
+        is not None
     fn = entry(built["parent"][0], "flash_attention_bwd_f32",
-               [V] * n_ptr + [I64] * 6 + [I32, I32, I64, I32, F32, F32, I64,
-                                         V])
-    return fn, scratch
+               [V] * n_ptr + [I64] * (7 if two else 6) +
+               [I32, I32, I64, I32, F32, F32, I64, V])
+    if two:
+        return fn, scratch
+    at = n_ptr + 6          # where Dv sits among this source's arguments
+    return (lambda *a: fn(*a[:at], *a[at + 1:])), scratch
 
 
 def timed(shape, dtype, parent_fn, parent_scratch) -> dict:
@@ -167,7 +190,7 @@ def timed(shape, dtype, parent_fn, parent_scratch) -> dict:
         stream = torch.cuda.current_stream().cuda_stream
 
         def parent():
-            rc = parent_fn(*ptrs, B, S, S, Hq, Hkv, D, 1,
+            rc = parent_fn(*ptrs, B, S, S, Hq, Hkv, D, D, 1,
                            int(window is not None), window or 0, 0, 0.0,
                            scale, 0, stream)
             assert rc == 0, rc
@@ -193,11 +216,11 @@ def time_variants(tmp: str) -> None:
     built = build(tmp, {key: variant(text, key) for key in VARIANTS},
                   label=str)
     for dt, dim in sorted({key[:2] for key in built}):
-        shape = PATH_A if dim == 64 else PATH_B
-        B, S, Hq, Hkv, D, window = shape
+        B, S, Hq, Hkv, D, window = VARIANT_SHAPES[dim]
+        Dqk, Dv = _dims(D)
         dtype = getattr(torch, dt)
         q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, dtype)
-        scale = D ** -0.5
+        scale = Dqk ** -0.5
         out, lse = fa._launch(q, k, v, True, window, None, scale, 0,
                               with_lse=True)
         want = fa._launch_bwd(q, k, v, out, dout, lse, True, window, None,
@@ -209,10 +232,10 @@ def time_variants(tmp: str) -> None:
         for key, (so, log) in built.items():
             if key[:2] != (dt, dim):
                 continue
-            tag = "fLi" if dt == "float32" else "__nv_bfloat16Li"
+            tag = "fLi" if dt == "float32" else "13__nv_bfloat16Li"
             lines = log.splitlines()
-            regs = [re.search(r"Used (\d+) registers",
-                              " ".join(lines[i + 1:i + 4]))
+            regs = [re.search(r"(\d+) bytes spill stores.*Used (\d+) "
+                              r"registers", " ".join(lines[i + 1:i + 4]))
                     for i, line in enumerate(lines)
                     if "Compiling entry function" in line
                     and f"bwd_kernelI{tag}{dim}E" in line]
@@ -220,14 +243,14 @@ def time_variants(tmp: str) -> None:
                          for line in lines)
             name = "flash_attention_bwd_" + ("f32" if dt == "float32"
                                              else "bf16")
-            fn = entry(so, name, [V] * 10 + [I64] * 6 + [
+            fn = entry(so, name, [V] * 10 + [I64] * 7 + [
                 I32, I32, I64, I32, F32, F32, I64, V])
             grads = [torch.empty_like(x) for x in (q, k, v)]
             ptrs = [x.data_ptr() for x in (q, k, v, out, dout, lse, delta,
                                            *grads)]
 
             def run(fn=fn, ptrs=ptrs):
-                return fn(*ptrs, B, S, S, Hq, Hkv, D, 1,
+                return fn(*ptrs, B, S, S, Hq, Hkv, Dqk, Dv, 1,
                           int(window is not None), window or 0, 0, 0.0,
                           scale, 0, stream)
             label = str(dict(zip(TUNABLES, key[2:])))
@@ -241,7 +264,9 @@ def time_variants(tmp: str) -> None:
                 continue
             err = max(_err(a, b) for a, b in zip(grads, want))
             print(f"variant {dt} D={dim} {label}: registers "
-                  f"{[r.group(1) if r else '?' for r in regs]}, "
+                  f"{[r.group(2) if r else '?' for r in regs]}, spill "
+                  f"stores {[r.group(1) if r else '?' for r in regs]} "
+                  f"bytes, "
                   f"serialization notes {serial}, against the library "
                   f"{err!r}", flush=True)
             if err <= (1e-4 if dt == "float32" else 2e-2):
@@ -329,7 +354,7 @@ def errors(shape, parent_fn, scratch) -> None:
         grads = [torch.empty_like(x) for x in (q, k, v)]
         rc = parent_fn(*[x.data_ptr() for x in (q, k, v, out, dout, lse,
                                                 delta, *extra, *grads)],
-                       B, S, S, Hq, Hkv, D, 1, int(window is not None),
+                       B, S, S, Hq, Hkv, D, D, 1, int(window is not None),
                        window or 0, 0, 0.0, scale, 0,
                        torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
@@ -380,7 +405,7 @@ def main() -> int:
     print("sass wgmma:", wgmma_counts(so), flush=True)
 
     failed = 0
-    for D in ([] if args.no_checks else fa.HEAD_DIMS):
+    for D in ([] if args.no_checks else fa.HEAD_DIMS + ((192, 128),)):
         for dtype in (torch.float32, torch.bfloat16):
             for B, Sq, Sk, Hq, Hkv, causal, window, cap, off in EDGES:
                 case = (B, Sq, Sk, Hq, Hkv, D, str(dtype)[6:], causal,
