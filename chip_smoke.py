@@ -2261,12 +2261,14 @@ def _profile(label: str, run, top: int = 10,
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     # the port's kernels are in their sources' anonymous namespaces (the
-    # flash-attention backward: delta_kernel, then bwd_kernel for dK/dV
-    # and for dQ); PyTorch's own kernels are not
+    # flash-attention backward: delta_kernel, then bwd_kernel, or bf16's
+    # (192, 128) mla_bwd_kernel, for dK/dV and for dQ); PyTorch's own
+    # kernels are not
     ours = "(anonymous namespace)::"
     fa_fwd = sum(r[2] for r in rows if ours + "fa_kernel" in r[0])
     fa_bwd = sum(r[2] for r in rows if any(
-        ours + k in r[0] for k in ("bwd_kernel<", "delta_kernel<")))
+        ours + k in r[0]
+        for k in ("bwd_kernel<", "mla_bwd_kernel<", "delta_kernel<")))
     # cuBLAS's and CUTLASS's matrix products name themselves *gemm*
     gemm = sum(r[2] for r in rows if "gemm" in r[0].lower())
     log(f"{label}: wall {wall_ms:.3f} ms, device "
@@ -2641,8 +2643,11 @@ def phase_train_d(cfg) -> dict:
             "path D: a loss or gradient not finite")
         del grads
     peak = torch.cuda.max_memory_allocated()
+    # the FA backward's two launches apart: path D's layer is FA_MLA's shape
     prof = _profile(f"path D profile {cfg.name} B={PATH_D_B}",
-                    lambda: _mla_grad(model, batch, "auto"))
+                    lambda: _mla_grad(model, batch, "auto"),
+                    groups={"dkdv": ("bwd_kernel<float, 192, 128, false>",),
+                            "dq": ("bwd_kernel<float, 192, 128, true>",)})
     check(prof["fa_bwd_ms"] > 0, "path D's profile finds no flash-attention "
           "backward kernel by name, though the backward launched")
     log(f"path D {cfg.name} B={PATH_D_B} S={PATH_D_S} (q/k [{PATH_D_B},"
@@ -2655,9 +2660,16 @@ def phase_train_d(cfg) -> dict:
         f" of the profiled call's device time")
     del model, batch, tokens, one, loss
     torch.cuda.empty_cache()
+    # row 2c's launches one by one at this layer's shape, both dtypes
+    # (None: the profiler saw no device time, so not measured)
+    split = {"float32": {"dkdv": prof["dkdv"] or None,
+                         "dq": prof["dq"] or None},
+             "bfloat16": _fa_bwd_mla_bf16_launches()}
+    log(f"row 2c at {FA_MLA[:6]}, each launch's device ms (one profiled "
+        f"call; null: not measured): {json.dumps(split)}")
     log(f"phase seconds: 16d {time.perf_counter() - t_start:.1f}")
     return {"launches": launches, "seconds": seconds, "peak_gb": peak / 1e9,
-            "profile": prof}
+            "profile": prof, "split": split}
 
 
 # ---------------------------------------------------------------------- #
@@ -3635,6 +3647,39 @@ def _fa_bwd_bound(case) -> tuple[float, str, float]:
                               dt)
 
 
+def _fa_bwd_mla_bf16_launches() -> dict:
+    """Row 2c's bf16 launches at path D's layer shape, one by one: the
+    device ms of the dK/dV and dQ kernels in one autograd call of
+    `flash_attention` (bf16, FA_MLA's shape) under `torch.profiler`, or
+    None where it saw none.  The window opens and closes on a PyTorch
+    kernel: late in this run, a window that held only the port's kernels
+    showed no device time at all (phase 16d of two runs on an H100),
+    while path D's profile, PyTorch's kernels among them, showed them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention as fa
+    case = FA_MLA[:9] + ("bfloat16",)
+    q, k, v = (x.requires_grad_(True) for x in _fa_inputs(case))
+    dout = torch.randn(q.shape[:3] + v.shape[3:], device="cuda").to(q.dtype)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dout.mul_(1.0)
+        out = fa.flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        grads[0].mul_(1.0)
+        torch.cuda.synchronize()
+    ms = {"dkdv": 0.0, "dq": 0.0}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == DeviceType.CUDA and "mla_bwd_kernel<" in ev.key:
+            ms["dq" if "<true>" in ev.key else "dkdv"] += us / 1e3
+    del q, k, v, dout, out, grads
+    torch.cuda.empty_cache()
+    return {key: (v if v > 0 else None) for key, v in ms.items()}
+
+
 def _fa_bwd_timed(case, reps: int, plain: bool = False) -> dict:
     """The flash-attention backward kernel at `case` (no window) on the
     card's clock beside its bound and the backward of one
@@ -3776,8 +3821,19 @@ def phase_train_timing(train_a: dict, train_b: dict, train_d: dict,
         "plain_mla_ms": mla["plain_ms"], "library_mla_ms": mla["library_ms"],
         "max_abs_err_mla": errs[FA_MLA], "shape_mla": mla["shape"]
         + " (path D's layer, row 2c)",
+        "ms_mla_dkdv": train_d["split"]["float32"]["dkdv"],
+        "ms_mla_dq": train_d["split"]["float32"]["dq"],
         "ms_mla_bf16": mla16["ms"], "bound_mla_bf16_ms": mla16["bound_ms"],
         "library_mla_bf16_ms": mla16["library_ms"],
+        "ms_mla_bf16_dkdv": train_d["split"]["bfloat16"]["dkdv"],
+        "ms_mla_bf16_dq": train_d["split"]["bfloat16"]["dq"],
+        "source_mla_bf16": "src/repro_torch/csrc/"
+                           "flash_attention_bwd_mla.cuh (mla_bwd_kernel)",
+        "ms_mla_split_note": "each launch's device time in one call under "
+                             "torch.profiler, phase 16d (float32: path D's "
+                             "profiled call, bwd_kernel; bf16: "
+                             "mla_bwd_kernel); null: the profiler saw no "
+                             "device time, not measured",
         "ms_seamless_cross": cross["ms"],
         "bound_seamless_cross_ms": cross["bound_ms"],
         "library_seamless_cross_ms": cross["library_ms"],

@@ -30,9 +30,13 @@
 // S and dP twice (point 4), 8*Dqk + 6*Dv a pair, so it can reach at most
 // 10/14 of that bound at equal head dims, 1664/2304 at MLA's.
 //
-// Design.  Three launches: delta_kernel, then one body, `bwd_kernel`, for
-// dK/dV (kDQ false) and for dQ (kDQ true).  A block owns rows of one side
-// (K and V of a key tile, or Q and dO of a q tile), one warpgroup per kNo
+// Design.  bf16 at (192, 128) runs a body of its own,
+// flash_attention_bwd_mla.cuh (FlashAttention-3's operand roles: the owned
+// rows as M, P and dS kept in registers); every (D, D), and float32 at
+// (192, 128), run the one below.  Three launches: delta_kernel, then one
+// body, `bwd_kernel`, for dK/dV (kDQ false) and for dQ (kDQ true).  A
+// block owns rows of one side (K and V of a key tile, or Q and dO of a q
+// tile), one warpgroup per kNo
 // owned rows (`BwdCfg`), and streams 64-row tiles of the other side
 // (Q and dO, or K and V).  In the words of the five bottlenecks:
 // 1. Every product is a `wgmma` (hopper_common.cuh), A from registers, B
@@ -71,6 +75,14 @@
 //    288-thread block to 168 registers a thread; `setmaxnreg` with a
 //    producer warpgroup did not lift that (measured: the same spills and
 //    4 % slower), so the producer is one warp and no registers move.
+//    At Dqk != Dv (float32 (192, 128), whose two stages hold one tile:
+//    the owned hi/lo copies fill shared memory) the Dv-wide tile streams
+//    first, T2 runs before T1, dV^T's M blocks run before dK^T's, and the
+//    Dv-wide stage is freed once its last product has its fragments (dQ:
+//    T2; dK/dV: dV^T's last block), so that the next tile's copies
+//    overlap this tile's products: at deepseek-v3's layer on an H100
+//    30.75 ms against 40.37, the same bits (a timing-only copy that
+//    streams nothing at all took 25.1).
 // 3. dK/dV: a block per (b, kv head, key tile) walks the q heads of the
 //    kv head's group in head order, and for each the q tiles of the band;
 //    dK and dV are summed in registers over the whole group in that one
@@ -97,6 +109,7 @@
 
 #include "fa_common.cuh"
 #include "hopper_common.cuh"
+#include "flash_attention_bwd_mla.cuh"
 
 namespace {
 
@@ -109,11 +122,12 @@ constexpr int kRows = 64;        // streamed rows of a tile: wgmma's M
 // once A1 has read it, to save shared memory), kStages of the ring,
 // kChunk k-steps of A fragments a fence.  One block an SM.  The tile rules
 // read D, the wider head dim; the Q and K tiles are DQ wide, the V and dO
-// tiles DV (stage s of the ring holds a DQ-wide tile when s is even).
-// At (192, 128) in float32, 32 owned rows and two stages (one of each
-// width) take 201,792 bytes; 16 rows and four stages (230,464) were 18 %
-// slower at deepseek-v3's layer on an H100 (48.1 against 40.7 ms), and in
-// bf16 32 rows 83 % slower than 64 (19.6 against 10.7 ms).
+// tiles DV (stage s of the ring holds the tile that streams first when s
+// is even: the DQ-wide one, or at Dqk != Dv the DV-wide one).
+// At (192, 128) (float32 only: bf16 runs flash_attention_bwd_mla.cuh),
+// 32 owned rows and two stages (one of each width) take 201,792 bytes; 16
+// rows and four stages (230,464) were 18 % slower at deepseek-v3's layer
+// on an H100 (48.1 against 40.7 ms).
 template <typename T, int DQ, int DV>
 struct BwdCfg {
     static constexpr int D = DQ > DV ? DQ : DV;
@@ -121,7 +135,7 @@ struct BwdCfg {
     static constexpr int kEs = static_cast<int>(sizeof(T));
     static constexpr int kNo =
         kF32 ? (D <= 64 ? 48 : (D == 192 ? 32 : 4096 / D))
-             : (D <= 128 || D == 192 ? 64 : 32);
+             : (D <= 128 ? 64 : 32);
     static constexpr int kWG = D <= 64 ? 2 : 1;
     static constexpr int kStoreTiles = kF32 && D <= 64 ? 1 : 2;
     static constexpr int kStages =
@@ -135,6 +149,10 @@ struct BwdCfg {
     static constexpr int kLd2 = DV + 32 / kEs;
     static constexpr int kStage1 = kRows * kLd1 * kEs;   // bytes of a stage
     static constexpr int kStage2 = kRows * kLd2 * kEs;
+    // at Dqk != Dv the Dv-wide tile (dO or V) streams first (point 2)
+    static constexpr bool kY2First = DQ != DV;
+    static constexpr int kStageA = kY2First ? kStage2 : kStage1;
+    static constexpr int kStageB = kY2First ? kStage1 : kStage2;
     static constexpr int kDp1 = DQ * kEs < 128 ? 128 / kEs : DQ;
     static constexpr int kDp2 = DV * kEs < 128 ? 128 / kEs : DV;
     static constexpr int kOwn1 = kNo * kDp1 * kEs;     // one X1 copy
@@ -152,12 +170,12 @@ struct BwdCfg {
     static constexpr int kPerWG = kOffStore + kStoreTiles * kCopies * kStore;
     static constexpr int kOffRing = kWG * kPerWG;
     static constexpr int kRing =
-        kStages / 2 * (kStage1 + kStage2) + kStages % 2 * kStage1;
+        kStages / 2 * (kStageA + kStageB) + kStages % 2 * kStageA;
     static constexpr int kOffBar = kOffRing + kRing;
     static constexpr int kBytes = kOffBar + 2 * kStages * 8 + 1024;
     // byte offset of stage s in the ring
     __device__ __forceinline__ static int stage(int s) {
-        return s / 2 * (kStage1 + kStage2) + s % 2 * kStage1;
+        return s / 2 * (kStageA + kStageB) + s % 2 * kStageA;
     }
     static_assert(kOwn1 % 1024 == 0 && kOwn2 % 1024 == 0 &&
                       kStore % 1024 == 0,
@@ -451,15 +469,16 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                : hx * groups + static_cast<int>(n / n_band);
             const int rows = static_cast<int>(
                 S_str - i0 < kRows ? S_str - i0 : kRows);
-            for (int y = 0; y < 2; ++y) {
+            for (int yy = 0; yy < 2; ++yy) {
                 // Y1 (q or k) is DQ wide, Y2 (dout or v) DV
+                const int y = C::kY2First ? 1 - yy : yy;
                 const int width = y == 0 ? DQ : DV;
                 const int ld = y == 0 ? C::kLd1 : C::kLd2;
                 const int64_t stride = kDQ ? (y == 0 ? k_stride : v_stride)
                                            : (y == 0 ? q_stride : o_stride);
                 const uint32_t bytes =
                     static_cast<uint32_t>(rows * width * C::kEs);
-                const int64_t slot = 2 * n + y;
+                const int64_t slot = 2 * n + yy;
                 const int s = static_cast<int>(slot % C::kStages);
                 const uint32_t par =
                     static_cast<uint32_t>((slot / C::kStages) & 1);
@@ -620,11 +639,12 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int nv = static_cast<int>(S_str - i0 < kRows ? S_str - i0
                                                             : kRows);
         const int hq = kDQ ? hx : hx * groups + static_cast<int>(n / n_band);
-        const int s1 = static_cast<int>((2 * n) % C::kStages);
-        const int s2 = static_cast<int>((2 * n + 1) % C::kStages);
-        const uint32_t p1 = static_cast<uint32_t>(((2 * n) / C::kStages) & 1);
-        const uint32_t p2 =
-            static_cast<uint32_t>(((2 * n + 1) / C::kStages) & 1);
+        const int64_t slot1 = 2 * n + (C::kY2First ? 1 : 0);
+        const int64_t slot2 = 2 * n + (C::kY2First ? 0 : 1);
+        const int s1 = static_cast<int>(slot1 % C::kStages);
+        const int s2 = static_cast<int>(slot2 % C::kStages);
+        const uint32_t p1 = static_cast<uint32_t>((slot1 / C::kStages) & 1);
+        const uint32_t p2 = static_cast<uint32_t>((slot2 / C::kStages) & 1);
         T* y1 = reinterpret_cast<T*>(ring + C::stage(s1));
         T* y2 = reinterpret_cast<T*>(ring + C::stage(s2));
 
@@ -641,38 +661,77 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             }
         }
 
-        mbar_wait(full(s1), p1);
-        mbar_wait(full(s2), p2);
-        if (nv < kRows) {   // the last tile: its rows past the end are zero
-            // (every warpgroup writes the same zeros, then reads)
-            for (int i = tid; i < (kRows - nv) * DQ; i += 128) {
-                y1[(nv + i / DQ) * C::kLd1 + i % DQ] = cast_out<T>(0.f);
-            }
-            for (int i = tid; i < (kRows - nv) * DV; i += 128) {
-                y2[(nv + i / DV) * C::kLd2 + i % DV] = cast_out<T>(0.f);
-            }
-            fence_proxy_async();   // before the producer's next copy here
-            bar_sync(bar_id, 128);
-        }
-
-        // T1 = Y1 X1^T over DQ, T2 = Y2 X2^T over DV
+        // T1 = Y1 X1^T over DQ, T2 = Y2 X2^T over DV (at Dqk != Dv T2 first,
+        // while Y1 lands; dQ frees V's stage as soon as T2 has it)
         constexpr int kTs1 = DQ / C::kK;
         constexpr int kTc1 = C::kChunk < kTs1 ? C::kChunk : kTs1;
         constexpr int kTs2 = DV / C::kK;
         constexpr int kTc2 = C::kChunk < kTs2 ? C::kChunk : kTs2;
         float t1[kNo / 2], t2[kNo / 2];
-        product<T, kNo, kTs1, kTc1>(
-            t1,
-            [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-                Frag1::rows(y1, m0, kk * C::kK, g, t, hi, lo);
-            },
-            [&](int kk, int copy) { return own_desc(0, copy, kk); }, false);
-        product<T, kNo, kTs2, kTc2>(
-            t2,
-            [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-                Frag2::rows(y2, m0, kk * C::kK, g, t, hi, lo);
-            },
-            [&](int kk, int copy) { return own_desc(1, copy, kk); }, false);
+        if constexpr (C::kY2First) {
+            mbar_wait(full(s2), p2);
+            if (nv < kRows) {   // the last tile: rows past the end are zero
+                for (int i = tid; i < (kRows - nv) * DV; i += 128) {
+                    y2[(nv + i / DV) * C::kLd2 + i % DV] = cast_out<T>(0.f);
+                }
+                fence_proxy_async();   // before the producer's next copy
+                bar_sync(bar_id, 128);
+            }
+            product<T, kNo, kTs2, kTc2>(
+                t2,
+                [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                    Frag2::rows(y2, m0, kk * C::kK, g, t, hi, lo);
+                },
+                [&](int kk, int copy) { return own_desc(1, copy, kk); },
+                false);
+            if constexpr (kDQ) {
+                mbar_arrive(empty(s2));
+            }
+            mbar_wait(full(s1), p1);
+            if (nv < kRows) {
+                for (int i = tid; i < (kRows - nv) * DQ; i += 128) {
+                    y1[(nv + i / DQ) * C::kLd1 + i % DQ] = cast_out<T>(0.f);
+                }
+                fence_proxy_async();
+                bar_sync(bar_id, 128);
+            }
+            product<T, kNo, kTs1, kTc1>(
+                t1,
+                [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                    Frag1::rows(y1, m0, kk * C::kK, g, t, hi, lo);
+                },
+                [&](int kk, int copy) { return own_desc(0, copy, kk); },
+                false);
+        } else {
+            mbar_wait(full(s1), p1);
+            mbar_wait(full(s2), p2);
+            if (nv < kRows) {   // the last tile: rows past the end are zero
+                // (every warpgroup writes the same zeros, then reads)
+                for (int i = tid; i < (kRows - nv) * DQ; i += 128) {
+                    y1[(nv + i / DQ) * C::kLd1 + i % DQ] = cast_out<T>(0.f);
+                }
+                for (int i = tid; i < (kRows - nv) * DV; i += 128) {
+                    y2[(nv + i / DV) * C::kLd2 + i % DV] = cast_out<T>(0.f);
+                }
+                fence_proxy_async();   // before the producer's next copy
+                bar_sync(bar_id, 128);
+            }
+
+            product<T, kNo, kTs1, kTc1>(
+                t1,
+                [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                    Frag1::rows(y1, m0, kk * C::kK, g, t, hi, lo);
+                },
+                [&](int kk, int copy) { return own_desc(0, copy, kk); },
+                false);
+            product<T, kNo, kTs2, kTc2>(
+                t2,
+                [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                    Frag2::rows(y2, m0, kk * C::kK, g, t, hi, lo);
+                },
+                [&](int kk, int copy) { return own_desc(1, copy, kk); },
+                false);
+        }
         wgmma_wait<0>();
         fence_regs(t1);
         fence_regs(t2);
@@ -757,6 +816,52 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         constexpr int kAs = kRows / C::kK;
         constexpr int kAc = C::kChunk < kAs ? C::kChunk : kAs;
         constexpr bool kShared = !kDQ && kDsTile == 0;
+        if constexpr (C::kY2First) {
+            // dV^T's blocks first, then the Dv-wide stage is free while
+            // dK^T's (or dQ^T's) run
+            static_assert(!kShared, "P and dS apart");
+#pragma unroll
+            for (int mb = 0; mb < kMb1; ++mb) {
+                product<T, kNo, kAs, kAc>(
+                    t1,
+                    [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                        Frag2::cols(y2, 64 * mb + m0, kk * C::kK, g, t, hi,
+                                    lo);
+                    },
+                    [&](int kk, int copy) { return store_desc(0, copy, kk); },
+                    false);
+                if (mb == kMb1 - 1) {
+                    mbar_arrive(empty(s2));   // dO's last fragments are in
+                }
+                wgmma_wait<0>();
+                fence_regs(t1);
+#pragma unroll
+                for (int i = 0; i < kNo / 2; ++i) {
+                    acc1[mb][i] = acc1[mb][i] + t1[i];
+                }
+            }
+#pragma unroll
+            for (int mb = 0; mb < kMb2; ++mb) {
+                product<T, kNo, kAs, kAc>(
+                    t2,
+                    [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                        Frag1::cols(y1, 64 * mb + m0, kk * C::kK, g, t, hi,
+                                    lo);
+                    },
+                    [&](int kk, int copy) { return store_desc(1, copy, kk); },
+                    false);
+                if (mb == kMb2 - 1) {
+                    mbar_arrive(empty(s1));
+                }
+                wgmma_wait<0>();
+                fence_regs(t2);
+#pragma unroll
+                for (int i = 0; i < kNo / 2; ++i) {
+                    acc2[mb][i] = acc2[mb][i] + t2[i];
+                }
+            }
+            continue;
+        }
 #pragma unroll
         for (int mb = 0; mb < kMb; ++mb) {
             const bool a1 = mb < kMb1;
@@ -905,6 +1010,50 @@ int launch(const T* q, const T* k, const T* v, const T* out, const T* dout,
     return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at (192, 128): delta_kernel, then flash_attention_bwd_mla.cuh's body
+// for dK/dV (a block per (b, kv head, 128 keys), key tile by key tile) and
+// for dQ (a block per (b, q head, 128 q rows), from the last back)
+int launch_mla(const bf16_t* q, const bf16_t* k, const bf16_t* v,
+               const bf16_t* out, const bf16_t* dout, const float* lse,
+               float* delta, bf16_t* dq, bf16_t* dk, bf16_t* dv, int64_t B,
+               int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int causal,
+               int has_window, int64_t window, int has_softcap,
+               float softcap, float scale, int64_t q_offset,
+               cudaStream_t stream) {
+    using KV = MlaCfg<false>;
+    using QC = MlaCfg<true>;
+    const int64_t rows = B * Sq * Hq;
+    delta_kernel<bf16_t, 128><<<static_cast<unsigned>((rows + 7) / 8), 256,
+                                0, stream>>>(out, dout, delta, rows, Sq,
+                                             static_cast<int>(Hq));
+    int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) {
+        return err;
+    }
+    const int hq = static_cast<int>(Hq);
+    const int hkv = static_cast<int>(Hkv);
+    if ((err = set_smem(mla_bwd_kernel<false>, KV::kBytes))) {
+        return err;
+    }
+    const dim3 kgrid(static_cast<unsigned>(B * Hkv),
+                     static_cast<unsigned>((Sk + KV::kCta - 1) / KV::kCta));
+    mla_bwd_kernel<false><<<kgrid, KV::kThreads, KV::kBytes, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, Sq, Sk, hq, hkv, causal,
+        has_window, window, has_softcap, softcap, scale, q_offset);
+    if ((err = static_cast<int>(cudaGetLastError()))) {
+        return err;
+    }
+    if ((err = set_smem(mla_bwd_kernel<true>, QC::kBytes))) {
+        return err;
+    }
+    const dim3 qgrid(static_cast<unsigned>(B * Hq),
+                     static_cast<unsigned>((Sq + QC::kCta - 1) / QC::kCta));
+    mla_bwd_kernel<true><<<qgrid, QC::kThreads, QC::kBytes, stream>>>(
+        q, k, v, dout, lse, delta, dq, nullptr, Sq, Sk, hq, hkv, causal,
+        has_window, window, has_softcap, softcap, scale, q_offset);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch(const T* q, const T* k, const T* v, const T* out,
              const T* dout, const float* lse, float* delta, T* dq, T* dk,
@@ -918,10 +1067,16 @@ int dispatch(const T* q, const T* k, const T* v, const T* out,
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (Dqk == 192 && Dv == 128) {   // MLA
-        return launch<T, 192, 128>(q, k, v, out, dout, lse, delta, dq, dk,
-                                   dv, B, Sq, Sk, Hq, Hkv, causal,
-                                   has_window, window, has_softcap, softcap,
-                                   scale, q_offset, s);
+        if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+            return launch_mla(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
+                              Sq, Sk, Hq, Hkv, causal, has_window, window,
+                              has_softcap, softcap, scale, q_offset, s);
+        } else {
+            return launch<T, 192, 128>(q, k, v, out, dout, lse, delta, dq,
+                                       dk, dv, B, Sq, Sk, Hq, Hkv, causal,
+                                       has_window, window, has_softcap,
+                                       softcap, scale, q_offset, s);
+        }
     }
     if (Dqk != Dv) {
         return static_cast<int>(cudaErrorInvalidValue);

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the flash-attention backward
-// (flash_attention_bwd.cu): mbarriers, the bulk async copy that completes
-// on one, the async-proxy fence, named barriers, and warpgroup products
-// (`wgmma`) with A in registers and B in shared memory, in the 128-byte
-// swizzled K-major layout that `sw128_offset` writes and `sw128_desc`
-// describes.
+// (flash_attention_bwd.cu, flash_attention_bwd_mla.cuh): mbarriers, the
+// bulk async copy that completes on one, the async-proxy fence, named
+// barriers, and warpgroup products (`wgmma`) with A in registers and B in
+// shared memory, in the 128-byte swizzled K-major layout that
+// `sw128_offset` writes and `sw128_desc` describes; for bf16 also with A in
+// shared memory and with B transposed (MN-major).
 #pragma once
 
 #include <cstdint>
@@ -119,6 +120,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t base, int rows,
            (static_cast<uint64_t>(1) << 16) |
            (static_cast<uint64_t>(1024 >> 4) << 32) |
            (static_cast<uint64_t>(1) << 62);
+}
+
+// `sw128_desc(base, rows, kb)` from `sw128_desc(base, rows, 0)`: the
+// start address moved on in its 16-byte units (no carry out of the field:
+// shared memory is below 256 KB)
+__device__ __forceinline__ uint64_t sw128_step(uint64_t desc0, int rows,
+                                               int kb) {
+    return desc0 +
+           static_cast<uint64_t>(((kb >> 7) * rows * 128 + (kb & 127)) >> 4);
 }
 
 // ------------------------------------------------------------------ //
@@ -282,5 +292,172 @@ struct Wgmma<__nv_bfloat16, 64> {
 #undef REPRO_WGMMA_64
 #undef REPRO_WG_TAIL_TF32
 #undef REPRO_WG_TAIL_BF16
+
+// ------------------------------------------------------------------ //
+// bf16 wgmma with both operands in shared memory, and with B transposed.
+// WgmmaSS<N>: D[64 x N] = A[64 x K] B[N x K]^T (+ D), A and B K-major
+// (both `sw128_desc`).  WgmmaRT<N>: A in registers as for `Wgmma`, B
+// MN-major (the transpose immediate set): B[n][k] is element n of row k of
+// a tile stored in the 128-byte swizzled layout with n along the row
+// (`sw128_desc_mn`).  D's layout is Wgmma's.
+// ------------------------------------------------------------------ //
+template <int N>
+struct WgmmaSS;
+template <int N>
+struct WgmmaRT;
+
+template <>
+struct WgmmaSS<32> {
+    __device__ __forceinline__ static void mma(float (&d)[16],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+            "%13, %14, %15"
+            "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15])
+            : "l"(desc_a), "l"(desc_b), "r"(acc));
+    }
+};
+template <>
+struct WgmmaSS<64> {
+    __device__ __forceinline__ static void mma(float (&d)[32],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+            "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31"
+            "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+              "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+              "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31])
+            : "l"(desc_a), "l"(desc_b), "r"(acc));
+    }
+};
+template <>
+struct WgmmaRT<128> {
+    __device__ __forceinline__ static void mma(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+            "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+            "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+            "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+            "%57, %58, %59, %60, %61, %62, %63"
+            "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+              "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+              "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+              "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+              "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+              "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+              "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+              "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+              "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+              "r"(acc));
+    }
+};
+template <>
+struct WgmmaRT<192> {
+    __device__ __forceinline__ static void mma(float (&d)[96],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+            "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+            "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+            "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+            "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, "
+            "%68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "
+            "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+            "%90, %91, %92, %93, %94, %95"
+            "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+              "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+              "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+              "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+              "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+              "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+              "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+              "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+              "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+              "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+              "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+              "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+              "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+              "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+              "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]),
+              "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+              "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+              "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]),
+              "+f"(d[94]), "+f"(d[95])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+              "r"(acc));
+    }
+};
+
+
+// the wgmma descriptor of an MN-major operand at shared address `base`:
+// rows of the tile are k, 8 rows (1024 bytes) a swizzle atom along k, and
+// each 64 bf16 columns (one 128-byte column block of the tile) `lbo`
+// bytes after the one before, as `sw128_offset` lays out a tile of
+// lbo / 128 rows
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t base,
+                                                  uint32_t lbo) {
+    return static_cast<uint64_t>((base & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>(lbo >> 4) << 16) |
+           (static_cast<uint64_t>(1024 >> 4) << 32) |
+           (static_cast<uint64_t>(1) << 62);
+}
+
+// 4 bytes from global to shared memory, zeros when !valid (cp.async.ca)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+// the barrier's pending count falls by one once every cp.async this
+// thread issued before has landed (the count is not raised first)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                     "r"(bar)
+                 : "memory");
+}
+
 
 }  // namespace

@@ -20,9 +20,15 @@ forward).  Otherwise the forward launches without the log-sum-exp, and
 its output is the same.  The backward is three launches on `wgmma`: each
 row's dO.O, then one block per key tile that walks every q head of its
 kv head's group and writes dK and dV once, then one block per q tile for
-dQ; a producer warp streams 64-row tiles into a ring of shared memory
-with bulk copies.  It needs no scratch beyond the [B, Hq, Sq] float32
-dO.O, uses no atomics, and two calls give the same bits.
+dQ; a producer streams 64-row tiles into a ring of shared memory.  Two
+bodies: `bwd_kernel` (every (D, D), and float32 at (192, 128)), with the
+owned rows as N of each product and a producer warp's bulk copies, and,
+for bf16 at MLA's (192, 128), `mla_bwd_kernel`
+(`csrc/flash_attention_bwd_mla.cuh`, FlashAttention-3's operand roles:
+128 owned rows in two consumer warpgroups as M, P and dS kept in
+registers, a producer warpgroup's `cp.async` into the swizzled layout).
+It needs no scratch beyond the [B, Hq, Sq] float32 dO.O, uses no
+atomics, and two calls give the same bits.
 
 What the kernels take: float32 or bfloat16, q, k and v of one dtype, on
 one card, contiguous and 16-byte aligned, with (Dqk, Dv) one of
@@ -151,7 +157,9 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset,
 
 def _launch_bwd(q, k, v, out, dout, lse, causal, window, softcap, scale,
                 q_offset):
-    """The backward kernels: (dq, dk, dv) in the inputs' dtype."""
+    """The backward kernels: (dq, dk, dv) in the inputs' dtype.  The
+    library's `dispatch` picks the body: `mla_bwd_kernel` for bf16 at
+    (192, 128), `bwd_kernel` otherwise; the only scratch is dO.O."""
     global launches_bwd
     dout = dout.to(q.dtype).contiguous()
     if dout.shape != out.shape or dout.data_ptr() % 16:

@@ -429,22 +429,156 @@ def _fa_bwd_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
     return dq, dk, dv
 
 
+def _bf16(x):
+    """x (float32) rounded to the nearest bfloat16, ties to even, as
+    float32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7fff) + ((u >> 16) & 1)) & np.uint32(0xffff0000)
+    return u.view(np.float32)
+
+
+def _fa_bwd_mla_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
+                                 own=64, wgs=2, rows_kv=32, rows_q=64):
+    """`csrc/flash_attention_bwd_mla.cuh`'s bf16 body on the CPU, in numpy
+    float32, for q, k [B, S, H, 192], v [B, Sk, Hkv, 128] (every input
+    already bfloat16 values) and the forward's out and lse.
+
+    delta_kernel: D_i = sum_d dO_id O_id.  Then two launches of one body:
+    a block owns `wgs` x `own` rows of one side (K and V for dK/dV, Q and
+    dO for dQ), `own` a consumer warpgroup, and streams tiles of the other
+    (`rows_kv` rows for dK/dV, `rows_q` for dQ, zero past the end) over
+    the block's band, for dK/dV through every q head of the group in head
+    order.  A warpgroup skips a
+    tile its mask hides wholly.  Each tile forms S^T = K Q^T and dP^T = V
+    dO^T (or S = Q K^T, dP = dO V^T) on bf16 operands with float32 sums,
+    then P = exp2(s log2 e - L log2 e) (0 where masked) rounded to bf16,
+    dS = P (dP - D) from that P, then adds P^T dO to dV and dS^T Q to dK
+    (dS K to dQ) with dS rounded to bf16, into float32 sums that run over
+    the whole band and group in that order; the dQ launch forms S and dP
+    again.  The outputs are rounded to bf16 (dK and dQ after the scale)."""
+    B, Sq, Hq, Dqk = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    groups = Hq // Hkv
+    cta = own * wgs
+    f32 = np.float32
+
+    def mm(a, b):
+        return (a.astype(f32) @ b.T.astype(f32)).astype(f32)
+
+    delta = np.einsum("bihd,bihd->bhi", dout, out).astype(f32)
+    l2 = (lse * _LOG2E).astype(f32)
+    s2 = f32(scale) * _LOG2E
+
+    def tile(x, i0, n):
+        t = np.zeros((n, x.shape[1]), f32)
+        part = x[i0:i0 + n]
+        t[:len(part)] = part
+        return t
+
+    def p_ds(t1, t2, L2, Dl, qi, kj):
+        """P rounded to bf16 (0 where masked), and dS from it"""
+        p = np.exp2((t1 * s2 - L2).astype(f32)).astype(f32)
+        ok = (qi < Sq) & (kj < Sk) & ((kj <= qi) if causal else True)
+        p = _bf16(np.where(ok, p, 0).astype(f32))
+        return p, (p * (t2 - Dl)).astype(f32)
+
+    def band(o_cta, n_own, S_str, dq_pass, rows):
+        """the block's streamed tiles' first rows"""
+        lo, hi = 0, S_str
+        valid = min(n_own - o_cta, cta)
+        if causal and dq_pass:
+            hi = min(hi, o_cta + valid)
+        if causal and not dq_pass:
+            lo = max(lo, o_cta)
+        return range((lo // rows) * rows, hi, rows) if hi > lo else ()
+
+    def hidden(q_lo, q_hi, k_lo):
+        return causal and k_lo > q_hi
+
+    dq = np.zeros_like(q)
+    dk = np.zeros_like(k)
+    dv = np.zeros((B, Sk, Hkv, v.shape[3]), f32)
+    for b in range(B):
+        for hk in range(Hkv):                      # dK, dV
+            for o_cta in range(0, Sk, cta):
+                rows = rows_kv
+                tiles = band(o_cta, Sk, Sq, False, rows)
+                for o0 in range(o_cta, min(o_cta + cta, Sk), own):
+                    kj = (o0 + np.arange(own))[:, None]
+                    X1, X2 = tile(k[b, :, hk], o0, own), \
+                        tile(v[b, :, hk], o0, own)
+                    acc_k = np.zeros((own, Dqk), f32)
+                    acc_v = np.zeros((own, v.shape[3]), f32)
+                    for h in range(hk * groups, (hk + 1) * groups):
+                        for i0 in tiles:
+                            if hidden(i0, i0 + rows - 1, o0):
+                                continue
+                            qi = (i0 + np.arange(rows))[None, :]
+                            Y1, Y2 = tile(q[b, :, h], i0, rows), \
+                                tile(dout[b, :, h], i0, rows)
+                            rl = tile(l2[b, h][:, None], i0, rows)[:, 0]
+                            rd = tile(delta[b, h][:, None], i0, rows)[:, 0]
+                            p, ds = p_ds(mm(X1, Y1), mm(X2, Y2),
+                                         rl[None, :], rd[None, :], qi, kj)
+                            acc_v = (acc_v + mm(p, Y2.T)).astype(f32)
+                            acc_k = (acc_k + mm(_bf16(ds), Y1.T)).astype(f32)
+                    n = min(own, Sk - o0)
+                    dk[b, o0:o0 + n, hk] = _bf16(acc_k * f32(scale))[:n]
+                    dv[b, o0:o0 + n, hk] = _bf16(acc_v)[:n]
+        for h in range(Hq):                        # dQ
+            hk = h // groups
+            for o_cta in range(0, Sq, cta):
+                rows = rows_q
+                tiles = band(o_cta, Sq, Sk, True, rows)
+                for o0 in range(o_cta, min(o_cta + cta, Sq), own):
+                    qi = (o0 + np.arange(own))[:, None]
+                    X1, X2 = tile(q[b, :, h], o0, own), \
+                        tile(dout[b, :, h], o0, own)
+                    ol = tile(l2[b, h][:, None], o0, own)
+                    od = tile(delta[b, h][:, None], o0, own)
+                    acc = np.zeros((own, Dqk), f32)
+                    for i0 in tiles:
+                        if hidden(o0, o0 + own - 1, i0):
+                            continue
+                        kj = (i0 + np.arange(rows))[None, :]
+                        Y1, Y2 = tile(k[b, :, hk], i0, rows), \
+                            tile(v[b, :, hk], i0, rows)
+                        _, ds = p_ds(mm(X1, Y1), mm(X2, Y2), ol, od, qi, kj)
+                        acc = (acc + mm(_bf16(ds), Y1.T)).astype(f32)
+                    n = min(own, Sq - o0)
+                    dq[b, o0:o0 + n, h] = _bf16(acc * f32(scale))[:n]
+    return dq, dk, dv
+
+
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dqk,Dv,causal,kno", [
     (1, 130, 130, 2, 1, 192, 128, True, 16),   # MLA's tile, a GQA group
     (2, 100, 150, 2, 2, 64, 64, False, 48),    # Sq != Sk, ragged tiles
+    # the bf16 (192, 128) body: a GQA group and ragged 64- and 128-row
+    # tiles, causal; Sq != Sk without a mask
+    (1, 200, 200, 4, 2, 192, 128, True, "mla"),
+    (1, 100, 150, 2, 2, 192, 128, False, "mla"),
 ])
 def test_fa_backward_kernel_algorithm_meets_the_tolerance(
         B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal, kno):
-    """The backward kernel's algorithm (split TF32, 64-row streamed tiles,
-    `kno` owned rows, a fresh accumulator a tile, S and dP formed again
-    for dQ) stays within BWD_TOL["float32"] of the plain version's
-    autograd in float64, for dQ, dK and dV each; the forward's out and
-    log-sum-exp as the forward kernel writes them (float32)."""
+    """The backward kernels' algorithms stay within BWD_TOL of the plain
+    version's autograd in float64, for dQ, dK and dV each; the forward's
+    out and log-sum-exp as the forward kernel writes them.  An int `kno`:
+    `bwd_kernel`'s float32 path (split TF32, 64-row streamed tiles, `kno`
+    owned rows, a fresh accumulator a tile, S and dP formed again for dQ)
+    against BWD_TOL["float32"].  "mla": the bf16 (192, 128) body
+    (bfloat16 inputs, 64 owned rows a warpgroup and two a block, 32-row
+    streamed tiles for dK/dV and 64-row for dQ, P and dS rounded to bf16,
+    float32 sums over the band)
+    against BWD_TOL["bfloat16"], the reference taking the same bfloat16
+    inputs."""
+    mla = kno == "mla"
     rng = np.random.default_rng(Dqk + Sq)
     q, k = (rng.standard_normal((B, S, H, Dqk)).astype(np.float32)
             for S, H in ((Sq, Hq), (Sk, Hkv)))
     v = rng.standard_normal((B, Sk, Hkv, Dv)).astype(np.float32)
     dout = rng.standard_normal((B, Sq, Hq, Dv)).astype(np.float32)
+    if mla:
+        q, k, v, dout = (_bf16(x) for x in (q, k, v, dout))
     scale = Dqk ** -0.5
     q64, k64, v64 = (torch.from_numpy(x).double() for x in (q, k, v))
     s = torch.einsum("bihd,bjhd->bhij", q64, k64.repeat_interleave(
@@ -453,17 +587,24 @@ def test_fa_backward_kernel_algorithm_meets_the_tolerance(
         s = s.masked_fill(torch.ones(Sq, Sk).tril().logical_not(), -1e30)
     lse = torch.logsumexp(s, dim=-1)
     out = attention_ref(q64, k64, v64, causal=causal, scale=scale)
-    got = _fa_bwd_kernel_algorithm(
-        q, k, v, out.float().numpy(), lse.float().numpy(), dout,
-        causal=causal, scale=scale, kno=kno)
+    out32 = out.float().numpy()
+    if mla:
+        got = _fa_bwd_mla_kernel_algorithm(
+            q, k, v, _bf16(out32), lse.float().numpy(), dout,
+            causal=causal, scale=scale)
+    else:
+        got = _fa_bwd_kernel_algorithm(
+            q, k, v, out32, lse.float().numpy(), dout, causal=causal,
+            scale=scale, kno=kno)
     want = fa.flash_attention_bwd_plain(q64, k64, v64,
                                         torch.from_numpy(dout).double(),
                                         causal=causal, scale=scale)
+    tol = BWD_TOL["bfloat16" if mla else "float32"]
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == tuple(w.shape), name
         err = float(np.abs(g - w.numpy()).max()) / max(
             1.0, float(w.abs().max()))
-        assert err < BWD_TOL["float32"], (name, err)
+        assert err < tol, (name, err)
 
 
 # ---------------------------------------------------------------------- #
@@ -1548,14 +1689,21 @@ def test_flash_attention_backward_kernel_matches_plain(case, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, (192, 128)])
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_flash_attention_backward_is_deterministic_and_keeps_out(
-        dt, cuda_device):
+        dt, D, cuda_device):
     """Two backward calls give the same bits (no atomics), and the forward
-    output is the same with and without the log-sum-exp write."""
-    case = (2, 384, 384, 15, 5, 64, True, None, None, dt)
-    q, k, v = (_t(a, dt, cuda_device) for a in _qkv(case))
-    dout = torch.randn_like(q)
+    output is the same with and without the log-sum-exp write: at head
+    dim 64 (15 heads on 5) and at MLA's (192, 128) (8 heads on 2)."""
+    Dqk, Dv = D if isinstance(D, tuple) else (D, D)
+    Hq, Hkv = (15, 5) if Dqk == Dv else (8, 2)
+    case = (2, 384, 384, Hq, Hkv, Dqk, True, None, None, dt)
+    q, k, v = _qkv(case)
+    if Dv != Dqk:
+        v = _qkv(case[:5] + (Dv,) + case[6:], seed=1)[2]
+    q, k, v = (_t(a, dt, cuda_device) for a in (q, k, v))
+    dout = torch.randn(q.shape[:3] + (Dv,), device=q.device).to(q.dtype)
     with torch.no_grad():
         plain_out = fa.flash_attention(q, k, v)
     grads = []
@@ -1573,12 +1721,16 @@ def test_flash_attention_backward_is_deterministic_and_keeps_out(
 # FA_EDGES, then GQA groups of 3 (path A's 15 heads on 5) and 16 (MQA), at
 # lengths that are not a multiple of the backward's tiles (64 streamed
 # rows; 48, 64 or fewer owned rows a warpgroup), then last 64-row tiles of
-# 2 and 3 rows, Sq != Sk without a mask
+# 2 and 3 rows, Sq != Sk without a mask, then lengths around the bf16
+# (192, 128) body's 128 owned rows a block (127, 129, 200)
 FA_BWD_EDGES = FA_EDGES + [
     (150, 150, 15, 5, True, None, None, 0),
     (100, 100, 16, 1, True, 7, None, 0),
     (66, 66, 4, 2, True, None, None, 0),
     (131, 195, 2, 2, False, None, None, 0),
+    (127, 127, 4, 2, True, None, None, 0),
+    (129, 200, 2, 2, False, None, None, 0),
+    (200, 200, 8, 2, True, 64, None, 0),
 ]
 
 

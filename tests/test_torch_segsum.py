@@ -213,7 +213,8 @@ def test_build_flags_keep_ieee_adds():
         "flash_attention.cu", "flash_attention_bwd.cu", "rglru.cu",
         "rglru_bwd.cu", "rwkv6.cu", "rwkv6_bwd.cu", "segsum.cu"]
     assert [s.rsplit("/", 1)[-1] for s in _build.headers()] == [
-        "fa_common.cuh", "hopper_common.cuh", "rwkv6_common.cuh"]
+        "fa_common.cuh", "flash_attention_bwd_mla.cuh", "hopper_common.cuh",
+        "rwkv6_common.cuh"]
 
 
 # deeper randomized search when the [test] extra is installed ----------- #

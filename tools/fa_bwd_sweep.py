@@ -1,36 +1,43 @@
 """Check and time the flash-attention backward kernel on one NVIDIA GPU.
 
-    python3 tools/fa_bwd_sweep.py [--parent DIR] [--no-checks]
-                                  [--errors] [--variants]
+    python3 tools/fa_bwd_sweep.py [--parent DIR] [--no-checks] [--errors]
+                                  [--variants] [--mla-variants] [--apart]
 
 Builds the kernel library (`src/repro_torch/csrc/*.cu`) and prints, for
-each instantiation of the backward's `bwd_kernel`, its registers and
-spills, ptxas's notes on it (C75xx: wgmma serialized, and why), and from
-its SASS (`cuobjdump -sass`) the HGMMA (`wgmma`) instructions, those that
-close a group, and the warpgroup arrives and waits.  Then it holds the
-backward, through `flash_attention`'s autograd Function, against the
-plain version's autograd in float64 on every head dim (MLA's (192, 128)
-pair among them) in both dtypes over
-layouts that stress its tiles (5e-5 float32, 2e-2 bf16, of max(1,
-max|g|)), each case twice, bit-identical (skipped with `--no-checks`),
-and times it with CUDA events at the two
-training paths' attention shapes (path A: q, dout [4,2048,15,64], k/v
-[4,2048,5,64], causal; path B: [1,3072,16,256] on one kv head, causal,
-window 2048), float32 and bfloat16, with each kernel's device time from
-`torch.profiler`.  With `--parent DIR`, a checkout of an earlier commit
-(for example unpacked from `git archive`), that checkout's
-`flash_attention_bwd.cu` is built beside it and timed at the same shapes
-in turns (parent, this, this, parent).  `--errors` prints dq, dk and dv's
-errors against float64 at path A's and B's shapes for this kernel, the
-parent's and the plain version in float32.  `--variants` builds copies
-of this source with other tile shapes for one instantiation each
-(`VARIANTS`: owned rows kNo, consumer warpgroups kWG, P/dS tiles
-kStoreTiles, ring stages kStages, k-steps a fence kChunk, of `BwdCfg`),
-holds each to the library's gradient at path A (head_dim 64), B (256)
-or deepseek-v3's MLA layer (192; q/k [2,2048,128,192], v 128, causal)
-(1e-4 of max(1, max|g|) in float32, 2e-2 in bf16) and times it there in
-turns with the library.  Every check runs even after one fails; the exit
-code is 1 if any failed.
+each backward kernel (`bwd_kernel`'s instantiations and the bf16 (192,
+128) body `mla_bwd_kernel`), its registers and spills, ptxas's notes on
+it (C75xx: wgmma serialized, and why), and from its SASS (`cuobjdump
+-sass`) the HGMMA (`wgmma`) instructions, those that close a group, and
+the warpgroup arrives and waits.  Then it holds the backward, through
+`flash_attention`'s autograd Function, against the plain version's
+autograd in float64 on every head dim (MLA's (192, 128) pair among them)
+in both dtypes over layouts that stress its tiles (5e-5 float32, 2e-2
+bf16, of max(1, max|g|)), each case twice, bit-identical (skipped with
+`--no-checks`), and times it with CUDA events at the training paths'
+attention shapes (path A: q, dout [4,2048,15,64], k/v [4,2048,5,64],
+causal; path B: [1,3072,16,256] on one kv head, causal, window 2048;
+MLA: deepseek-v3's q/k [2,2048,128,192], v 128, causal), float32 and
+bfloat16, with each launch's device time from `torch.profiler` (path A
+and B in float32, MLA in both).  With `--parent DIR`, a checkout of an
+earlier commit (for example unpacked from `git archive`), that
+checkout's `flash_attention_bwd.cu` is built beside it and timed at the
+same shapes in both dtypes in turns (parent, this, this, parent).
+`--errors` prints dq, dk and dv's errors against float64 at path A's and
+B's shapes for this kernel, the parent's and the plain version in
+float32.  `--variants` builds copies of this source with other tile
+shapes for one instantiation each (`VARIANTS`: owned rows kNo, consumer
+warpgroups kWG, P/dS tiles kStoreTiles, ring stages kStages, k-steps a
+fence kChunk, of `BwdCfg`), holds each to the library's gradient at path
+A (head_dim 64), B (256) or MLA's (192, float32) (1e-4 of max(1,
+max|g|) in float32, 2e-2 in bf16) and times it there in turns with the
+library; then, as `--mla-variants` alone does, the bf16 (192, 128)
+body's (`MLA_VARIANTS` of `MlaCfg`) at MLA's shape.  `--apart` times
+copies of the (192, 128) bodies that each leave one cost out (`APART`:
+in float32 the band's streaming, the split of the streamed tiles, the dQ
+launch; in bf16 the exp, the streaming, the mask's element tests, the
+dK/dQ products) at MLA's shape in turns with the library, never
+checked: their gradients are wrong by design.  Every check runs even
+after one fails; the exit code is 1 if any failed.
 """
 from __future__ import annotations
 
@@ -64,6 +71,9 @@ EDGES = [
     (1, 100, 100, 16, 1, True, 7, None, 0),
     (2, 20, 9, 3, 1, False, None, None, 0),
     (1, 70, 130, 4, 2, True, 48, 30.0, 60),
+    (1, 127, 127, 4, 2, True, None, None, 0),
+    (1, 129, 200, 2, 2, False, None, None, 0),
+    (1, 200, 200, 8, 2, True, 64, None, 0),
 ]
 # (B, S, Hq, Hkv, D, window): the training paths' attention layers
 PATH_A = (4, 2048, 15, 5, 64, None)
@@ -76,10 +86,67 @@ VARIANT_SHAPES = {64: PATH_A, 256: PATH_B, 192: PATH_MLA}
 # at VARIANT_SHAPES[head_dim]
 VARIANTS = [("float32", 64, 48, 2, 1, 4, 1), ("float32", 64, 48, 2, 1, 4, 4),
             ("float32", 64, 64, 1, 2, 4, 4), ("bfloat16", 64, 64, 2, 2, 4, 2),
-            ("float32", 192, 16, 1, 2, 4, 4), ("float32", 192, 16, 2, 2, 2, 4),
-            ("bfloat16", 192, 32, 1, 2, 4, 4),
-            ("bfloat16", 192, 32, 2, 2, 4, 4)]
+            ("float32", 192, 32, 1, 2, 2, 2), ("float32", 192, 32, 1, 2, 2, 8)]
 TUNABLES = ("kNo", "kWG", "kStoreTiles", "kStages", "kChunk")
+# bf16 (192, 128), flash_attention_bwd_mla.cuh's `MlaCfg`: (streamed rows
+# kBs, ring stages kStages and tiles read ahead kAhead of the dK/dV launch,
+# the same of the dQ launch), timed at PATH_MLA
+MLA_VARIANTS = [(32, 4, 3, 64, 3, 2), (32, 6, 4, 64, 3, 1),
+                (32, 5, 3, 64, 2, 1)]
+MLA_TUNABLES = ("kBs dK/dV", "kStages dK/dV", "kAhead dK/dV", "kBs dQ",
+                "kStages dQ", "kAhead dQ")
+# timing-only copies of the (192, 128) bodies, whose gradients are wrong
+# by design and never checked: name -> (dtype, (old, new) replacements in
+# the inlined source).  float32 (`bwd_kernel`): one_tile streams the
+# band's first tile over and over (L2-hot: no band to fetch); no_copy
+# fills each stage once and then only completes its barrier (no streaming
+# at all); no_split takes a streamed element as its TF32 hi with a zero lo
+# (no split's arithmetic; the products stay three); dkdv_only skips the dQ
+# launch.  bf16 (`mla_bwd_kernel`): without the exp, without streaming
+# (each stage filled once), without the mask's element tests, without the
+# dK/dQ products.
+APART = {
+    "one_tile": ("float32", [
+        ("const int64_t i0 = (t_begin + n % n_band) * kRows;",
+         "const int64_t i0 = (t_begin + (DQ == 192 ? 0 : n % n_band)) * "
+         "kRows;")]),
+    "no_copy": ("float32", [
+        ("                if (lane == 0) {\n"
+         "                    mbar_expect_tx(full(s), bytes);",
+         "                if (DQ == 192 && slot >= C::kStages) {\n"
+         "                    if (lane == 0) {\n"
+         "                        mbar_arrive(full(s));\n"
+         "                    }\n"
+         "                    continue;\n"
+         "                }\n"
+         "                if (lane == 0) {\n"
+         "                    mbar_expect_tx(full(s), bytes);")]),
+    "no_split": ("float32", [
+        ("struct Frag<float, W, LD> {",
+         "struct Frag<float, W, LD> {\n"
+         "    __device__ __forceinline__ static void split("
+         "float x, uint32_t& hi, uint32_t& lo) {\n"
+         "        hi = __float_as_uint(x);\n"
+         "        lo = 0u;\n"
+         "    }")]),
+    "dkdv_only": ("float32", [
+        ("    if ((err = set_smem(bwd_kernel<T, DQ, DV, true>, "
+         "C::kBytes))) {",
+         "    if (DQ == 192) {\n        return 0;\n    }\n"
+         "    if ((err = set_smem(bwd_kernel<T, DQ, DV, true>, "
+         "C::kBytes))) {")]),
+    "mla_no_exp": ("bfloat16", [("float p = ex2_approx(x2 - L2(j, e));",
+                                 "float p = x2 - L2(j, e);")]),
+    "mla_no_copy": ("bfloat16", [
+        ("        mla_copy<DQ, kBs, C::kThreads>(",
+         "        if (m < C::kStages) mla_copy<DQ, kBs, C::kThreads>("),
+        ("        mla_copy<DV, kBs, C::kThreads>(",
+         "        if (m < C::kStages) mla_copy<DV, kBs, C::kThreads>(")]),
+    "mla_no_mask": ("bfloat16", [("        const bool inside =\n",
+                                  "        const bool inside = true ||\n")]),
+    "mla_no_dkdq": ("bfloat16", [("WgmmaRT<DQ>::mma(",
+                                  "if (false) WgmmaRT<DQ>::mma(")]),
+}
 V = ctypes.c_void_p
 I32, I64, F32 = ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
@@ -129,10 +196,18 @@ def inlined(csrc: str) -> str:
     inlined, so that a copy builds anywhere."""
     with open(os.path.join(csrc, "flash_attention_bwd.cu")) as f:
         text = f.read()
-    for name in re.findall(r'#include "(\w+\.cuh)"', text):
-        with open(os.path.join(csrc, name)) as f:
-            text = text.replace(f'#include "{name}"', f.read())
-    return text
+    done = set()
+    while True:
+        m = re.search(r'#include "(\w+\.cuh)"', text)
+        if not m:
+            return text
+        name = m.group(1)
+        body = ""
+        if name not in done:     # each header once, where first included
+            done.add(name)
+            with open(os.path.join(csrc, name)) as f:
+                body = f.read()
+        text = text[:m.start()] + body + text[m.end():]
 
 
 def variant(text: str, key) -> str:
@@ -140,18 +215,21 @@ def variant(text: str, key) -> str:
     dtype and head dim, and left as it is elsewhere."""
     dt, dim, *values = key
     cond = f"(kF32 == {str(dt == 'float32').lower()} && D == {dim})"
+    at = text.index("struct BwdCfg {")
+    end = text.index("};", at)
+    cfg = text[at:end]
     for name, value in zip(TUNABLES, values):
-        m = re.search(rf"static constexpr int {name} =\s*(.+?);", text,
+        m = re.search(rf"static constexpr int {name} =\s*(.+?);", cfg,
                       re.S)
-        text = text.replace(m.group(0), f"static constexpr int {name} = "
-                            f"{cond} ? {value} : ({m.group(1)});")
-    return text
+        cfg = cfg.replace(m.group(0), f"static constexpr int {name} = "
+                          f"{cond} ? {value} : ({m.group(1)});")
+    return text[:at] + cfg + text[end:]
 
 
 def parent_entry(parent: str, tmp: str):
     """The parent checkout's backward, built alone with its headers
-    inlined: (C function taking this source's arguments, Dqk and Dv
-    included, whether it takes the dk_h/dv_h scratch)."""
+    inlined: ({dtype: C function taking this source's arguments, Dqk and
+    Dv included}, whether it takes the dk_h/dv_h scratch)."""
     text = inlined(os.path.join(parent, "src", "repro_torch", "csrc"))
     built = build(tmp, {"parent": text}, label=str)
     if "parent" not in built:
@@ -161,28 +239,36 @@ def parent_entry(parent: str, tmp: str):
     # before (Dqk, Dv) the entry took one head dim
     two = re.search(r"flash_attention_bwd_f32\([^)]*int64_t Dv", text) \
         is not None
-    fn = entry(built["parent"][0], "flash_attention_bwd_f32",
-               [V] * n_ptr + [I64] * (7 if two else 6) +
-               [I32, I32, I64, I32, F32, F32, I64, V])
-    if two:
-        return fn, scratch
-    at = n_ptr + 6          # where Dv sits among this source's arguments
-    return (lambda *a: fn(*a[:at], *a[at + 1:])), scratch
+    fns = {}
+    for dtype, name in ((torch.float32, "flash_attention_bwd_f32"),
+                        (torch.bfloat16, "flash_attention_bwd_bf16")):
+        fn = entry(built["parent"][0], name,
+                   [V] * n_ptr + [I64] * (7 if two else 6) +
+                   [I32, I32, I64, I32, F32, F32, I64, V])
+        at = n_ptr + 6      # where Dv sits among this source's arguments
+        fns[dtype] = fn if two else (
+            lambda *a, fn=fn: fn(*a[:at], *a[at + 1:]))
+    return fns, scratch
 
 
-def timed(shape, dtype, parent_fn, parent_scratch) -> dict:
+def timed(shape, dtype, parent_fns, parent_scratch) -> dict:
+    """This backward at `shape`, and the parent's in turns (parent, this,
+    this, parent) when given, with the largest scaled difference of the
+    two's gradients."""
     B, S, Hq, Hkv, D, window = shape
+    Dqk, Dv = _dims(D)
     q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, dtype)
-    scale = D ** -0.5
+    scale = Dqk ** -0.5
     out, lse = fa._launch(q, k, v, True, window, None, scale, 0,
                           with_lse=True)
     this = lambda: fa._launch_bwd(q, k, v, out, dout, lse, True, window,  # noqa
                                   None, scale, 0)
     res = {}
-    if parent_fn is not None and dtype == torch.float32:
+    parent_fn = (parent_fns or {}).get(dtype)
+    if parent_fn is not None:
         f32 = dict(dtype=torch.float32, device="cuda")
         delta = torch.empty((B, Hq, S), **f32)
-        extra = ([torch.empty((B, S, Hq, D), **f32) for _ in range(2)]
+        extra = ([torch.empty((B, S, Hq, Dqk), **f32) for _ in range(2)]
                  if parent_scratch else [])
         grads = [torch.empty_like(x) for x in (q, k, v)]
         ptrs = [x.data_ptr() for x in [q, k, v, out, dout, lse, delta,
@@ -190,7 +276,7 @@ def timed(shape, dtype, parent_fn, parent_scratch) -> dict:
         stream = torch.cuda.current_stream().cuda_stream
 
         def parent():
-            rc = parent_fn(*ptrs, B, S, S, Hq, Hkv, D, D, 1,
+            rc = parent_fn(*ptrs, B, S, S, Hq, Hkv, Dqk, Dv, 1,
                            int(window is not None), window or 0, 0, 0.0,
                            scale, 0, stream)
             assert rc == 0, rc
@@ -281,7 +367,136 @@ def time_variants(tmp: str) -> None:
         torch.cuda.empty_cache()
 
 
-def wgmma_counts(so: str) -> str:
+def mla_variant(text: str, key) -> str:
+    """`text` with `MlaCfg`'s tunables set as `key` (MLA_TUNABLES) says."""
+    kbs_kv, st_kv, ahead_kv, kbs_q, st_q, ahead_q = key
+    at = text.index("struct MlaCfg {")
+    end = text.index("};", at)
+    cfg = text[at:end]
+    for name, value in (("kBs", f"kDQ ? {kbs_q} : {kbs_kv}"),
+                        ("kStages", f"kDQ ? {st_q} : {st_kv}"),
+                        ("kAhead", f"kDQ ? {ahead_q} : {ahead_kv}")):
+        cfg = re.sub(rf"static constexpr int {name} = [^;]+;",
+                     f"static constexpr int {name} = {value};", cfg)
+    return text[:at] + cfg + text[end:]
+
+
+def _ptxas_lines(log: str, part: str) -> list:
+    """(registers, spill bytes) of each kernel whose mangled name holds
+    `part`, from `-Xptxas -v`."""
+    lines = log.splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and part in line:
+            rest = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", rest)
+            spill = re.search(r"(\d+) bytes spill stores", rest)
+            found.append((regs.group(1) if regs else "?",
+                          spill.group(1) if spill else "?"))
+    return found
+
+
+def _mla_path(dtype):
+    """Inputs, forward and a library backward call at PATH_MLA."""
+    B, S, Hq, Hkv, D, window = PATH_MLA
+    Dqk, Dv = _dims(D)
+    q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, dtype)
+    scale = Dqk ** -0.5
+    out, lse = fa._launch(q, k, v, True, window, None, scale, 0,
+                          with_lse=True)
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_entry(fn, grads):
+        return fn(*[x.data_ptr() for x in (q, k, v, out, dout, lse, delta,
+                                           *grads)],
+                  B, S, S, Hq, Hkv, Dqk, Dv, 1, int(window is not None),
+                  window or 0, 0, 0.0, scale, 0, stream)
+    library = lambda: fa._launch_bwd(q, k, v, out, dout, lse, True,  # noqa
+                                     window, None, scale, 0)
+    return (q, k, v), library, run_entry
+
+
+def _in_turns(runs: dict, label: str) -> None:
+    order = list(runs) + list(runs)[::-1]
+    ms = {name: [] for name in runs}
+    for name in order:
+        ms[name].append(cuda_ms(runs[name], 10))
+    for name, t in ms.items():
+        print(f"time {label} {name}: {t} ms", flush=True)
+
+
+def time_apart(tmp: str) -> None:
+    """Each APART copy timed at PATH_MLA in its dtype in turns with the
+    library (never checked: wrong by design), with the registers, spills
+    and HGMMA counts of the (192, 128) kernels it changes."""
+    text = inlined(os.path.join(HERE, "..", "src", "repro_torch", "csrc"))
+    sources = {}
+    for name, (_, edits) in APART.items():
+        t = text
+        for old, new in edits:
+            assert old in t, (name, old)
+            t = t.replace(old, new)
+        sources[name] = t
+    built = build(tmp, sources, label=str)
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        qkv, library, run_entry = _mla_path(dtype)
+        part = "bwd_kernelIfLi192ELi128E" if dt == "float32" \
+            else "mla_bwd_kernel"
+        runs = {"library": library}
+        for name, (so, log) in built.items():
+            if APART[name][0] != dt:
+                continue
+            fn = entry(so, "flash_attention_bwd_" + (
+                "f32" if dt == "float32" else "bf16"), [V] * 10 + [I64] * 7
+                + [I32, I32, I64, I32, F32, F32, I64, V])
+            grads = [torch.empty_like(x) for x in qkv]
+            rc = run_entry(fn, grads)
+            torch.cuda.synchronize()
+            print(f"apart {name}: (192, 128) {dt} (dQ, dK/dV) registers "
+                  f"and spill bytes {_ptxas_lines(log, part)}; "
+                  f"{wgmma_counts(so, 'fLi192' if dt == 'float32' else 'mla')}"
+                  f"; launch rc {rc}", flush=True)
+            if rc == 0:
+                runs[name] = lambda fn=fn, grads=grads: run_entry(fn, grads)
+        _in_turns(runs, f"apart {dt} PATH_MLA")
+        del qkv
+        torch.cuda.empty_cache()
+
+
+def time_mla_variants(tmp: str) -> None:
+    """Each MLA_VARIANTS copy of the bf16 (192, 128) body held to the
+    library's gradient (2e-2 of max(1, max|g|)) and timed beside it at
+    PATH_MLA in turns."""
+    text = inlined(os.path.join(HERE, "..", "src", "repro_torch", "csrc"))
+    built = build(tmp, {key: mla_variant(text, key)
+                        for key in MLA_VARIANTS}, label=str)
+    qkv, library, run_entry = _mla_path(torch.bfloat16)
+    want = library()
+    runs = {"library": library}
+    for key, (so, log) in built.items():
+        fn = entry(so, "flash_attention_bwd_bf16", [V] * 10 + [I64] * 7 + [
+            I32, I32, I64, I32, F32, F32, I64, V])
+        grads = [torch.empty_like(x) for x in qkv]
+        rc = run_entry(fn, grads)
+        torch.cuda.synchronize()
+        label = str(dict(zip(MLA_TUNABLES, key)))
+        err = (max(_err(a, b) for a, b in zip(grads, want)) if rc == 0
+               else float("nan"))
+        notes = sum("C75" in line and "mla_bwd" in line
+                    for line in log.splitlines())
+        print(f"mla variant {label}: registers and spill bytes (dQ, "
+              f"dK/dV) {_ptxas_lines(log, 'mla_bwd_kernel')}, ptxas notes "
+              f"{notes}; {wgmma_counts(so, 'mla')}; launch rc {rc}; "
+              f"against the library {err!r}", flush=True)
+        if rc == 0 and err <= 2e-2:
+            runs[label] = lambda fn=fn, grads=grads: run_entry(fn, grads)
+    _in_turns(runs, "mla bfloat16 PATH_MLA")
+    torch.cuda.empty_cache()
+
+
+def wgmma_counts(so: str, part: str = "") -> str:
     """For each backward kernel: its HGMMA (wgmma) instructions, those that
     close a group (`gsb0`), and the warpgroup arrives and waits
     (`WARPGROUP.ARRIVE`, `WARPGROUP.DEPBAR`) in its SASS."""
@@ -294,7 +509,7 @@ def wgmma_counts(so: str) -> str:
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = func.split("\n", 1)[0].strip()
         m = re.search(r"bwd_kernelI(\w+?)EEv", name)
-        if not m:
+        if not m or part not in name:
             continue
         out.append(f"{m.group(1)}: HGMMA {func.count('HGMMA')}, gsb0 "
                    f"{len(re.findall(r'HGMMA[^;]*gsb0', func))}, ARRIVE "
@@ -309,7 +524,7 @@ def profile_split(shape, dtype) -> str:
     from torch.profiler import ProfilerActivity, profile
     B, S, Hq, Hkv, D, window = shape
     q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, dtype)
-    scale = D ** -0.5
+    scale = _dims(D)[0] ** -0.5
     out, lse = fa._launch(q, k, v, True, window, None, scale, 0,
                           with_lse=True)
     fa._launch_bwd(q, k, v, out, dout, lse, True, window, None, scale, 0)
@@ -371,6 +586,8 @@ def main() -> int:
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--no-checks", action="store_true")
     ap.add_argument("--errors", action="store_true")
+    ap.add_argument("--apart", action="store_true")
+    ap.add_argument("--mla-variants", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fa_bwd_sweep: no CUDA device", file=sys.stderr)
@@ -388,7 +605,7 @@ def main() -> int:
         print(f"ptxas note {code} x{count} in {name}", flush=True)
     for code in sorted({code for _, code in notes}):
         text = next(line for line in log.splitlines() if f"({code})" in line)
-        print(f"ptxas {code}: {text.split('in the function')[0][-160:]}",
+        print(f"ptxas {code}: {text.split(' for the function')[0][-200:]}",
               flush=True)
     lines = log.splitlines()
     for i, line in enumerate(lines):
@@ -424,23 +641,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         os.makedirs(os.path.join(tmp, "parent"))
         os.makedirs(os.path.join(tmp, "variants"))
-        parent_fn, scratch = (
+        os.makedirs(os.path.join(tmp, "apart"))
+        parent_fns, scratch = (
             parent_entry(args.parent, os.path.join(tmp, "parent"))
             if args.parent else (None, False))
         if args.errors:
             for shape in (PATH_A, (1, 2304, 16, 1, 256, 2048), PATH_B):
-                errors(shape, parent_fn, scratch)
+                errors(shape, (parent_fns or {}).get(torch.float32),
+                       scratch)
         if args.variants:
             time_variants(os.path.join(tmp, "variants"))
-        return _timing(parent_fn, scratch, failed)
+        if args.variants or args.mla_variants:
+            time_mla_variants(os.path.join(tmp, "variants"))
+        if args.apart:
+            time_apart(os.path.join(tmp, "apart"))
+        return _timing(parent_fns, scratch, failed)
 
 
-def _timing(parent_fn, scratch, failed) -> int:
-    for label, shape in (("A", PATH_A), ("B", PATH_B)):
-        print(f"profile path {label} float32: "
-              f"{profile_split(shape, torch.float32)}", flush=True)
+def _timing(parent_fns, scratch, failed) -> int:
+    for label, shape in (("A", PATH_A), ("B", PATH_B), ("MLA", PATH_MLA)):
         for dtype in (torch.float32, torch.bfloat16):
-            res = timed(shape, dtype, parent_fn, scratch)
+            if label == "MLA" or dtype == torch.float32:
+                print(f"profile path {label} {str(dtype)[6:]}: "
+                      f"{profile_split(shape, dtype)}", flush=True)
+            res = timed(shape, dtype, parent_fns, scratch)
             print(f"time path {label} {shape} {str(dtype)[6:]}: "
                   f"{ {k: v for k, v in res.items()} }", flush=True)
             torch.cuda.empty_cache()
