@@ -176,7 +176,12 @@ Phases, each reported on its own line(s):
    the launcher makes 2,048 times; flash attention also at dbrx-132b's
    shape as `ms_dbrx`, at deepseek-v3's MLA prefill shape as `ms_mla`,
    and at seamless's encoder shape as `ms_seamless`, each beside its
-   bound and SDPA's time); then one JSON
+   bound and SDPA's time, the four also in bf16 as `ms_bf16`,
+   `ms_dbrx_bf16`, `ms_mla_bf16` and `ms_seamless_bf16`, and in float32
+   at training path A's layer as `ms_path_a` and at seamless's decode
+   cross attention (Sq = 1 by 1,000 keys) as `ms_decode`, each held
+   against the plain version and beside its bound and SDPA's time on the
+   same inputs); then one JSON
    line `{"kernels": [...]}` with all four kernels (flash attention's
    bound on the tensor cores, and on the CUDA cores as
    `bound_cuda_core_ms`; the dbrx and deepseek-v3 prefills' and the
@@ -194,7 +199,9 @@ Phases, each reported on its own line(s):
    aim at path A stated as met or missed; its (192, 128) instantiation,
    row 2c, at path D's MLA layer as `ms_mla` beside `bound_mla_ms`,
    `plain_mla_ms` and SDPA's `library_mla_ms` (and in bf16 as
-   `ms_mla_bf16`), and at path E's cross attention as
+   `ms_mla_bf16`; each launch apart as `ms_mla_dkdv`, `ms_mla_dq` from
+   path D's profile and `ms_mla_bf16_dkdv`, `ms_mla_bf16_dq` from a
+   profiled call in a fresh process), and at path E's cross attention as
    `ms_seamless_cross` with its bound and SDPA's time; its launches in
    paths D and E as `launches_path_d` and `launches_path_e`; RG-LRU's
    at path B's layer
@@ -478,6 +485,12 @@ FA_PATH_SHAPES = (
     # 10h: qwen2-vl-2b's prefill
     (QWEN_B, QWEN_S, QWEN_S, 12, 2, 128, True),
 )
+# timed on the kernels line too: training path A's layer (smollm-360m, 15
+# heads on 5 of 64, one microbatch of 4 x 2,048) and seamless's decode
+# cross attention (one query against 1,000 frames, batch 4)
+FA_PATH_A = (4, 2048, 2048, 15, 5, 64, True, None, None, "float32")
+FA_DECODE = (SEAMLESS_DEC_B, 1, SEAMLESS_SE, 16, 16, 64, False, None, None,
+             "float32")
 # then a cross attention at Sq = 2,048 by Se = 1,000 and ragged Sq != Sk
 # without a mask, GQA groups of 1 and 2
 FA_PATH_CASES = [
@@ -2261,11 +2274,13 @@ def _profile(label: str, run, top: int = 10,
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     # the port's kernels are in their sources' anonymous namespaces (the
-    # flash-attention backward: delta_kernel, then bwd_kernel, or bf16's
-    # (192, 128) mla_bwd_kernel, for dK/dV and for dQ); PyTorch's own
-    # kernels are not
+    # flash-attention forward: fa_fwd_kernel, or float32 (256, 256)'s
+    # fa_mma_kernel; the backward: delta_kernel, then bwd_kernel, or
+    # bf16's (192, 128) mla_bwd_kernel, for dK/dV and for dQ); PyTorch's
+    # own kernels are not
     ours = "(anonymous namespace)::"
-    fa_fwd = sum(r[2] for r in rows if ours + "fa_kernel" in r[0])
+    fa_fwd = sum(r[2] for r in rows if any(
+        ours + k in r[0] for k in ("fa_fwd_kernel<", "fa_mma_kernel<")))
     fa_bwd = sum(r[2] for r in rows if any(
         ours + k in r[0]
         for k in ("bwd_kernel<", "mla_bwd_kernel<", "delta_kernel<")))
@@ -2665,6 +2680,9 @@ def phase_train_d(cfg) -> dict:
     split = {"float32": {"dkdv": prof["dkdv"] or None,
                          "dq": prof["dq"] or None},
              "bfloat16": _fa_bwd_mla_bf16_launches()}
+    check(all(split["bfloat16"][key] is not None
+              and split["bfloat16"][key] > 0 for key in ("dkdv", "dq")),
+          f"row 2c's bf16 launches not measured: {split['bfloat16']}")
     log(f"row 2c at {FA_MLA[:6]}, each launch's device ms (one profiled "
         f"call; null: not measured): {json.dumps(split)}")
     log(f"phase seconds: 16d {time.perf_counter() - t_start:.1f}")
@@ -3508,6 +3526,50 @@ def _tensor_core_bound(work: tuple, dt: str) -> tuple[float, str, float]:
     return bound_ms, by, ops / PEAK_F32_OPS_PER_S * 1e3
 
 
+def _fa_timed(case, reps: int = 10) -> dict:
+    """The forward kernel at `case` on the card's clock, held against the
+    plain version (FA_TOL), beside its bound and one
+    `scaled_dot_product_attention` call on the same inputs (an explicit
+    mask with a window, `is_causal` without, `enable_gqa` for a GQA
+    group)."""
+    from repro_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+    B, Sq, Sk, Hq, Hkv, D, causal, window, cap, dt = case
+    q, k, v = _fa_inputs(case)
+
+    def call():
+        return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=cap)
+    err = float((call().float() - fa.flash_attention_plain(
+        q, k, v, causal=causal, window=window, softcap=cap).float()
+    ).abs().max())
+    check(err < FA_TOL[dt], f"flash_attention at {case}: error {err!r}")
+    ms = _cuda_ms(call, reps=reps)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = {"enable_gqa": Hq != Hkv}
+    if window is not None:
+        pos_q = torch.arange(Sq, device="cuda")[:, None]
+        pos_k = torch.arange(Sk, device="cuda")[None, :]
+        kw["attn_mask"] = (pos_k <= pos_q) & (pos_k > pos_q - window)
+    elif causal:
+        kw["is_causal"] = True
+    library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, **kw), reps=reps)
+    bound_ms, by, _ = _fa_bound(case)
+    Dqk, Dv = _head_dims(D)
+    shape = (f"q [{B},{Sq},{Hq},{Dqk}] k [{B},{Sk},{Hkv},{Dqk}] v "
+             f"[{B},{Sk},{Hkv},{Dv}] {dt}, "
+             + ("causal" if causal else "no mask")
+             + (f", window {window}" if window is not None else ""))
+    log(f"timing flash_attention at {shape}: kernel {ms!r} ms, bound "
+        f"{bound_ms!r} ms ({by}), library {library_ms!r} ms, max abs "
+        f"error {err!r}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": library_ms, "max_abs_err": err, "shape": shape}
+
+
 def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
     from repro_torch.analysis.hlo_cost import rglru_work
     from repro_torch.kernels import flash_attention as fa
@@ -3532,6 +3594,9 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
     fa_entry = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
+        "body": "fa_fwd_kernel (wgmma) at every instantiation but float32 "
+                "(256, 256), which keeps the previous mma.sync fa_mma_kernel "
+                "(the faster there: ms at this shape)",
         "replaces": "src/repro/kernels/flash_attention.py:29",
         "launches": prefill["launches"]["flash_attention"],
         "max_abs_err": errs["flash_attention"], "ms": ms,
@@ -3605,6 +3670,21 @@ def phase_model_timing(prefill: dict, errs: dict) -> list[dict]:
         f"{cuda_core_sm!r}), library {library_sm!r} ms")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    # the four shapes in bf16, then training path A's layer and seamless's
+    # decode cross attention (Sq = 1) in float32, each with its bound and
+    # one scaled_dot_product_attention call on the same inputs
+    for suffix, case in (("bf16", FA_MAIN), ("dbrx_bf16", FA_DBRX),
+                         ("mla_bf16", FA_MLA), ("seamless_bf16", FA_SEAMLESS),
+                         ("path_a", FA_PATH_A), ("decode", FA_DECODE)):
+        if suffix.endswith("bf16"):
+            case = case[:9] + ("bfloat16",)
+        r = _fa_timed(case)
+        fa_entry.update({
+            f"ms_{suffix}": r["ms"], f"bound_{suffix}_ms": r["bound_ms"],
+            f"bound_{suffix}_by": r["bound_by"],
+            f"library_{suffix}_ms": r["library_ms"],
+            f"max_abs_err_{suffix}": r["max_abs_err"],
+            f"shape_{suffix}": r["shape"]})
 
     B, S, D = RG_MAIN
     x, a, h0 = _rg_inputs(B, S, D)
@@ -3647,36 +3727,53 @@ def _fa_bwd_bound(case) -> tuple[float, str, float]:
                               dt)
 
 
+_MLA_BF16_LAUNCHES = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import flash_attention as fa
+B, S, H = (int(x) for x in sys.argv[1:4])
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k = (torch.randn((B, S, H, 192), generator=g, device="cuda")
+        .bfloat16().requires_grad_(True) for _ in range(2))
+v = torch.randn((B, S, H, 128), generator=g, device="cuda").bfloat16()
+v.requires_grad_(True)
+dout = torch.randn((B, S, H, 128), generator=g, device="cuda").bfloat16()
+out = fa.flash_attention(q, k, v, causal=True)   # builds and warms up
+torch.autograd.grad(out, (q, k, v), dout)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+ms = {"dkdv": 0.0, "dq": 0.0}
+for ev in prof.key_averages():
+    us = getattr(ev, "self_device_time_total",
+                 getattr(ev, "self_cuda_time_total", 0.0))
+    if ev.device_type == DeviceType.CUDA and "mla_bwd_kernel<" in ev.key:
+        ms["dq" if "<true>" in ev.key else "dkdv"] += us / 1e3
+print(json.dumps(ms))
+"""
+
+
 def _fa_bwd_mla_bf16_launches() -> dict:
     """Row 2c's bf16 launches at path D's layer shape, one by one: the
     device ms of the dK/dV and dQ kernels in one autograd call of
-    `flash_attention` (bf16, FA_MLA's shape) under `torch.profiler`, or
-    None where it saw none.  The window opens and closes on a PyTorch
-    kernel: late in this run, a window that held only the port's kernels
-    showed no device time at all (phase 16d of two runs on an H100),
-    while path D's profile, PyTorch's kernels among them, showed them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import flash_attention as fa
-    case = FA_MLA[:9] + ("bfloat16",)
-    q, k, v = (x.requires_grad_(True) for x in _fa_inputs(case))
-    dout = torch.randn(q.shape[:3] + v.shape[3:], device="cuda").to(q.dtype)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dout.mul_(1.0)
-        out = fa.flash_attention(q, k, v, causal=True)
-        grads = torch.autograd.grad(out, (q, k, v), dout)
-        grads[0].mul_(1.0)
-        torch.cuda.synchronize()
-    ms = {"dkdv": 0.0, "dq": 0.0}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if ev.device_type == DeviceType.CUDA and "mla_bwd_kernel<" in ev.key:
-            ms["dq" if "<true>" in ev.key else "dkdv"] += us / 1e3
-    del q, k, v, dout, out, grads
-    torch.cuda.empty_cache()
+    `flash_attention` (bf16, FA_MLA's shape) under `torch.profiler`, in a
+    fresh process (as tools/fa_bwd_sweep.py measures them): late in this
+    run a window that held only the port's kernels showed no device time
+    at all (phase 16d of two runs on an H100), where a fresh process sees
+    them.  None where it saw none."""
+    B, S, _, H = FA_MLA[:4]
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+    proc = subprocess.run([sys.executable, "-c", _MLA_BF16_LAUNCHES,
+                           str(B), str(S), str(H)], env=env, cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"row 2c's bf16 launches: exit "
+          f"{proc.returncode}: {(proc.stdout + proc.stderr)[-2000:]}")
+    ms = json.loads(proc.stdout.strip().splitlines()[-1])
     return {key: (v if v > 0 else None) for key, v in ms.items()}
 
 
@@ -3832,7 +3929,8 @@ def phase_train_timing(train_a: dict, train_b: dict, train_d: dict,
         "ms_mla_split_note": "each launch's device time in one call under "
                              "torch.profiler, phase 16d (float32: path D's "
                              "profiled call, bwd_kernel; bf16: "
-                             "mla_bwd_kernel); null: the profiler saw no "
+                             "mla_bwd_kernel, one call in a fresh "
+                             "process); null: the profiler saw no "
                              "device time, not measured",
         "ms_seamless_cross": cross["ms"],
         "bound_seamless_cross_ms": cross["bound_ms"],

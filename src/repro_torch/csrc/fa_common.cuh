@@ -1,9 +1,11 @@
 // Shared pieces of the flash-attention kernels (flash_attention.cu, the
 // forward, and flash_attention_bwd.cu, the backward): cp.async and mma.sync
-// wrappers, the split-TF32 operands, the m16n8 fragment products of a
-// warp's 16 rows against a 16-row tile (`Mma<T>::scores`, a product over
-// head_dim, and `Mma<T>::pv`, a product over the tile's 16 rows) and the
-// tile loads.  The design notes are in flash_attention.cu.
+// wrappers, the split-TF32 operands, 2^x on the MUFU, and for the
+// forward's kept mma.sync body (float32 at head dim 256) the m16n8
+// fragment products of a warp's 16 rows against a 16-row tile
+// (`Mma<T>::scores`, a product over head_dim, and `Mma<T>::pv`, a product
+// over the tile's 16 rows) and its tile loads.  The design notes are in
+// flash_attention.cu.
 #pragma once
 
 #include <cstdint>
@@ -40,6 +42,12 @@ __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// returns once at most N of this thread's cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
@@ -61,6 +69,14 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
     hi = tf32_rna(x);
     lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 2^x to about 2 ulp (the MUFU's own), denormal results flushed to zero:
+// enough for P, which is rounded to bf16
+__device__ __forceinline__ float ex2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],

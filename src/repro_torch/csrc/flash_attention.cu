@@ -15,99 +15,724 @@
 // pos_i = q_offset + i.  A masked score is -1e30, not -inf, as in the TPU
 // kernel; the softmax is the online one (running max m, running sum l and
 // the accumulator, all float32), and a row whose sum is 0 divides by 1.
-// k tiles wholly outside the causal / window band of a q tile are not
-// visited: the TPU kernel visits them, and its rescale
+// k tiles wholly outside the causal / window band of a warpgroup's rows
+// are not visited: the TPU kernel visits them, and its rescale
 // alpha = exp(m_prev - m_new) wipes what they added (or they add exactly
 // 0), so the result is the same.  Rows of the k and v tiles past Sk are
 // zeros (0 * garbage would be NaN).  float32 or bfloat16 in, float32
-// inside, out in the input's type.
+// inside, out in the input's type.  With `lse` it also writes each row's
+// log-sum-exp m + log(l) (+inf where l = 0) for the backward
+// (flash_attention_bwd.cu); `out` is the same either way.
 //
-// Bound.  Every unmasked (query, key) pair costs 2*(Dqk + Dv) operations
-// (4*D when the two are equal: a product of length Dqk and one of length
-// Dv).  On the tensor cores that is, at the serving
-// shape (B=2, S=3072, 16 heads, 1 kv head, head_dim 256, window 2048),
-// 1.4e11 operations; float32 needs three TF32 products for each (below),
-// so 4.1e11 over 495 TFLOP/s = 0.83 ms.  On the CUDA cores (the previous
-// design) the same work is 2.05 ms at 67 TFLOP/s.
+// Bound.  Every unmasked (query, key) pair costs 2*(Dqk + Dv) operations.
+// float32 runs as split TF32, three TF32 products for each: at
+// recurrentgemma-9b's serving shape (B=2, S=3072, 16 heads, 1 kv head,
+// head_dim 256, window 2048) 4.1e11 operations over 495 TFLOP/s = 0.83 ms;
+// bf16 at the bf16 rate, a sixth of that.
 //
-// Previous design (CUDA cores): 256 threads per (batch, head, 64-row q
-// tile), float32 FMAs on the CUDA cores limited by shared-memory
-// bandwidth, synchronous K/V loads and three __syncthreads per 32-key
-// tile, 142 KB of shared memory at head_dim 256: 6.85 ms at the serving
-// shape (H100 80GB HBM3, 700 W; PERF.md).
+// Previous design: mma.sync m16n8, 8 warps of 16 q rows and
+// 16-key tiles, where every warp split every K and V element it read into
+// TF32 hi and lo (most of its instructions), 237 registers at D = 256:
+// 3.31 ms at the serving shape, 25 % of its bound, and 3.2-3.6 % slower
+// than SDPA at MLA's (192, 128) (H100 80GB HBM3, 700 W; PERF.md).
 //
-// This design:
-// - Tensor cores through mma.sync.  A warp owns 16 q rows; S = Q K^T and
-//   O += P V are m16n8 tiles.  bfloat16: m16n8k16 with float32
-//   accumulators.  float32: split TF32 ("3xTF32"): each operand x is
-//   split into hi = cvt.rna.tf32(x) (two integer operations) and lo =
-//   x - hi, which the tensor core reads rounded toward zero, and a
-//   product is hi*hi + hi*lo + lo*hi (m16n8k8), which keeps errors near
-//   float32's (plain TF32 misses the 2e-5 tolerance at head_dim 256;
-//   tests/test_torch_kernels.py emulates both) at a third of the TF32
-//   rate.  The splits, not the mma, are most of the instructions: every
-//   warp splits every K and V element it reads.  S's hi*hi terms and
-//   its two small terms go to separate accumulators, so the three
-//   products of a tile do not wait on each other.
-// - Fragments without shuffles.  The order of the contraction index
-//   inside one mma is free, so it is permuted to suit the loads: for
-//   S = Q K^T, float32 k index t <-> d 2t and t+4 <-> 2t+1 (bf16:
-//   (2t, 2t+1) <-> (4t, 4t+1) and (2t+8, 2t+9) <-> (4t+2, 4t+3)), so the
-//   Q and K fragments are single 8-byte shared loads; for O += P V,
-//   float32 k index t <-> key 2t and t+4 <-> key 2t+1, so S's accumulator
-//   fragment is P's operand fragment as it stands (bf16: the standard
-//   pairing).  The output columns of two neighbouring n tiles interleave
-//   (tile 2c column g <-> d 16c+2g, tile 2c+1 <-> 16c+2g+1), so one
-//   8-byte (4-byte in bf16) load of a V row serves both, and each thread
-//   ends up owning 4 consecutive output columns: one 16-byte store.
-// - Shared-memory rows are padded so that every fragment load of a warp
-//   touches 32 distinct banks: Q and K rows by 32 bytes (a word stride
-//   of 8 mod 32), V rows by 16 bytes (4 mod 32).
-// - Asynchronous copies.  The block's Q tile and K/V tiles come in with
-//   cp.async (16 bytes per copy, zero-filled past Sq or Sk); K/V tiles are
-//   double-buffered: after the one __syncthreads of a tile, tile t+1 is
-//   requested into the other buffer and tile t is computed while it
-//   loads.
-// - Masks only where needed: a k tile inside the band for all of a warp's
-//   rows skips the per-score position tests.
-// - q tiles are walked last to first, so the causal tiles with the most
-//   keys start first and the short ones fill the tail.
-// - Warp layout, decided at head_dim 256 in float32 (the pinch) by
-//   tools/fa_sweep.py (PERF.md has its table): 8 warps of 16 rows (a
-//   128-row q tile) and 16-key tiles.  The 16 x 256 accumulator is 128 of
-//   a thread's 237 registers; Q (132 KB) and two K/V buffers (66 KB) take
-//   198 KB of shared memory, so one block of 8 warps per SM: two warps
-//   per scheduler hide more of the mma and load latency than 4 warps
-//   with 32-key tiles (one per scheduler), which in turn beat 2 warps.
-//   The loop over head_dim that forms S is unrolled 8 times: faster than
-//   2 or 4 in the same sweep, level with 32 at fewer registers.
-// - Two head dims.  Everything the block reads of q and k (their tiles,
-//   row pitch and strides, the loop that forms S) is sized by Dqk, and
-//   everything of v and the output (the V tile, the accumulator, the
-//   store) by Dv.  The instantiations are (D, D) for D in 16, 32, 64,
-//   128 and 256, and (192, 128), MLA's (DeepSeek-V3: a 128-wide latent
-//   part and a 64-wide rotary part in q and k, 128 in v).  At (192, 128)
-//   a block takes 144,896 bytes of shared memory in float32 (Q 102,400,
-//   two K/V stages of 12,800 + 8,448) and 75,264 in bfloat16, so one
-//   block of 8 warps an SM, as at 256; the accumulator is 64 registers.
+// This design (warpgroup products, `wgmma`, hopper_common.cuh), timed
+// part by part with tools/fa_sweep.py --apart (PERF.md):
+// - A block is kWG consumer warpgroups of 64 q rows each (`wgmma`'s M)
+//   and no producer: ptxas holds a block of 288 or more threads to 168
+//   registers (PERF.md), and 256 get 255.  Each warpgroup forms
+//   S = Q K^T (N = kNk keys) and O += P V (N = Dv) for its own rows.
+// - bf16 (FlashAttention-3's operand roles): Q in shared memory in the
+//   128-byte swizzled K-major layout, S with A and B in shared memory
+//   (`WgmmaSS`); P goes from S's accumulator into A registers as it stands
+//   (the accumulator's layout is A's), and V is read MN-major as it lands
+//   (`WgmmaRT`: B transposed), so nothing is re-laid by the threads.
+// - float32: `.tf32` takes only K-major operands and no transpose, so
+//   each tile is split once by the block when it lands, and no warp
+//   splits what another has split: K lands in the swizzled layout and is
+//   split in place (its TF32 hi written over it, lo beside it); V lands
+//   as rows and is written transposed (keys along the row) as hi and lo
+//   tiles, in the key order that makes S's accumulator fragment P's A
+//   fragment without a shuffle (within 8 keys, k index t <-> key 2t,
+//   t + 4 <-> key 2t + 1).  Q stays in shared memory as float32 with the
+//   contraction index permuted within each 8 (d t and t + 4 side by side,
+//   one 8-byte load for both A registers of a row) and is split into A
+//   registers a chunk of k-steps ahead of its products (`product`): Q's
+//   hi and lo for 64 rows at D = 256 would take 128 KB, and as A
+//   registers 256 registers a thread.  Each product is hi.hi, hi.lo,
+//   lo.hi (hi rounded to nearest, lo passed whole: the tensor core reads
+//   it rounded toward zero), into one float32 accumulator.  The splits
+//   run while the tensor cores work: V(i)'s while S(i) runs, K(i+1)'s
+//   while O(i) runs (the split took 25-29 % of the time before).
+// - No product sits in a branch: a tile that hides all of a warpgroup's
+//   rows still runs its products, with P = 0 and the softmax state left
+//   as it is; otherwise ptxas serializes every wgmma (C7518).  The mask
+//   and the softcap are decided once a tile (`body`): a tile inside the
+//   band for all of a warpgroup's rows skips the element tests, which take
+//   int32 offsets from the warpgroup's first position.
+// - Copies: a ring of kStages stages filled with 16-byte cp.async (zeros
+//   past Sk, and past the head dim where a row is padded to 128 bytes)
+//   by every thread, each a fixed chunk of a 128-byte row block in rows
+//   a fixed step apart (`copy_tile`: an add and a compare a copy; the
+//   copies' address arithmetic had cost 15-28 %); one __syncthreads a
+//   tile keeps the warpgroups in step (three in float32, around the
+//   splits).  q tiles are walked last to first, so the causal tiles with
+//   the most keys start first.
+// - Tile shapes (`Tune`, timed by tools/fa_sweep.py --variants): float32
+//   two warpgroups, 64-key tiles below D = 128, 32 at 128, 16 at (192,
+//   128) (the Q rows of two warpgroups take 100 KB there); bf16 two
+//   warpgroups and 128 keys (64 at D = 256, where O takes 128
+//   registers).  float32 at D = 256 keeps the previous body (`kMma`,
+//   `fa_mma_kernel` below): Q for two warpgroups (132 KB) leaves no room
+//   for the split tiles, and one warpgroup with 16-key tiles, its S on
+//   m64n16 products, was 14 % slower than it.
+// Every sum has one order, so two calls give the same bits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -Xcompiler -fPIC -c, then linked -shared (see
 //        core/cuda/_build.py).
+#include <type_traits>
+
 #include "fa_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;               // warps per block, 16 q rows each
-constexpr int kBlockQ = 16 * kWarps;    // q rows per block
-constexpr int kThreads = 32 * kWarps;
+// A launch's tile shape: kWG warpgroups of 64 q rows, kNk keys a tile,
+// kStages stages of the ring; kMma 1 keeps the previous body (mma.sync,
+// `fa_mma_kernel`) where it is the faster: float32 at D = 256,
+// where two warpgroups of 64 rows do not fit shared memory beside the
+// split tiles and one warpgroup with 16-key tiles (S on m64n16 products)
+// took 3.77 ms against its 3.30 at recurrentgemma-9b's shape (PERF.md)
+template <bool kF32, int DQ, int DV>
+struct Tune;
+#define REPRO_FA_TUNE(F32, DQ, DV, WG, NK, STAGES, MMA)                      \
+    template <>                                                               \
+    struct Tune<F32, DQ, DV> {                                                \
+        static constexpr int kWG = WG, kNk = NK, kStages = STAGES;            \
+        static constexpr bool kMma = MMA;                                     \
+    };
+REPRO_FA_TUNE(true, 16, 16, 2, 64, 2, 0)
+REPRO_FA_TUNE(true, 32, 32, 2, 64, 2, 0)
+REPRO_FA_TUNE(true, 64, 64, 2, 64, 2, 0)
+REPRO_FA_TUNE(true, 128, 128, 2, 32, 2, 0)
+REPRO_FA_TUNE(true, 192, 128, 2, 16, 2, 0)
+REPRO_FA_TUNE(true, 256, 256, 1, 16, 2, 1)
+REPRO_FA_TUNE(false, 16, 16, 2, 128, 2, 0)
+REPRO_FA_TUNE(false, 32, 32, 2, 128, 2, 0)
+REPRO_FA_TUNE(false, 64, 64, 2, 128, 2, 0)
+REPRO_FA_TUNE(false, 128, 128, 2, 128, 2, 0)
+REPRO_FA_TUNE(false, 192, 128, 2, 128, 2, 0)
+REPRO_FA_TUNE(false, 256, 256, 2, 64, 2, 0)
+#undef REPRO_FA_TUNE
+
+template <typename T, int DQ, int DV>
+struct FwdCfg {
+    static constexpr bool kF32 = std::is_same<T, float>::value;
+    using Tn = Tune<kF32, DQ, DV>;
+    static constexpr int kWG = Tn::kWG;
+    static constexpr int kNk = Tn::kNk;
+    static constexpr int kStages = Tn::kStages;
+    static constexpr int kEs = static_cast<int>(sizeof(T));
+    static constexpr int kThreads = 128 * kWG;
+    static constexpr int kBlockQ = 64 * kWG;
+    // a swizzled row is at least 128 bytes: Q and K are padded with zeros
+    // to kDq columns, bf16 V to kDvp (O's extra columns are not stored)
+    static constexpr int kRow = 128 / kEs;
+    static constexpr int kDq = DQ < kRow ? kRow : DQ;
+    static constexpr int kDvp = kF32 ? DV : (DV < kRow ? kRow : DV);
+    // O's products: pieces of kPn columns (float32 Wgmma up to 64, bf16
+    // WgmmaRT 64 or 128)
+    static constexpr int kPn = kF32 ? (DV < 64 ? DV : 64)
+                                    : (kDvp < 128 ? kDvp : 128);
+    static constexpr int kPieces = kDvp / kPn;
+    static constexpr int kK = kF32 ? 8 : 16;      // wgmma's K
+    static constexpr int kChunk = kDq / kK < 4 ? kDq / kK : 4;
+    // float32 Q rows: kDq and 8 floats (fragment loads free of conflicts)
+    static constexpr int kLdQ = kDq + 8;
+    static constexpr int kQBytes =
+        kF32 ? kBlockQ * kLdQ * 4 : kBlockQ * kDq * kEs;
+    static constexpr int kKBytes = kNk * kDq * kEs;      // a stage's K
+    static constexpr int kVBytes = kNk * kDvp * kEs;     // and its V
+    static constexpr int kStage = kKBytes + kVBytes;
+    // float32: K's lo tile and V^T's hi and lo (DV rows of kNkp keys, at
+    // least 32: one 128-byte row)
+    static constexpr int kNkp = kNk < 32 ? 32 : kNk;
+    static constexpr int kVtBytes = DV * kNkp * 4;
+    static constexpr int kOffStages = (kQBytes + 1023) / 1024 * 1024;
+    static constexpr int kOffKlo = kOffStages + kStages * kStage;
+    static constexpr int kOffVt = kOffKlo + (kF32 ? kKBytes : 0);
+    static constexpr int kBytes =
+        kOffVt + (kF32 ? 2 * kVtBytes : 0) + 1024;   // and the alignment
+    static_assert(kKBytes % 1024 == 0 && kVBytes % 1024 == 0 &&
+                      kVtBytes % 1024 == 0,
+                  "swizzled tiles start on 1024 bytes");
+    static_assert(kNk % 16 == 0 && kNk <= (kF32 ? 64 : 128), "N of S");
+    static_assert(kStages >= 2, "a tile loads while another is computed");
+    static_assert((kDq / kK) % kChunk == 0, "chunks of whole k-steps");
+    static_assert(kBytes <= 232448, "shared memory of a block");
+};
+
+// rows [row0, row0 + Rows) of a head (row stride `stride` elements) into
+// shared memory at `dst`, Wp >= W columns a row: in the 128-byte swizzled
+// layout (column blocks of Rows x 128 bytes), or as plain rows of Wp; zeros
+// past column W and from row `valid` on (no address past it is formed).
+// 16 bytes a copy: a thread keeps one 16-byte chunk of a 128-byte row
+// block and takes rows Threads / 8 apart (a multiple of 8, so its
+// swizzled chunk is the same in every row), so a copy costs an add and a
+// compare besides the cp.async
+template <typename T, int W, int Wp, int Rows, int Threads, bool kSwizzle>
+__device__ __forceinline__ void copy_tile(unsigned char* dst, const T* head,
+                                          int64_t stride, int64_t row0,
+                                          int64_t valid) {
+    constexpr int kEs = static_cast<int>(sizeof(T));
+    constexpr int kPer = 16 / kEs;
+    constexpr int kRowBytes = Wp * kEs;
+    constexpr int kCpb = kRowBytes < 128 ? kRowBytes / 16 : 8;
+    constexpr int kBlocks = kRowBytes < 128 ? 1 : kRowBytes / 128;
+    constexpr int kStep = Threads / kCpb;
+    static_assert(!kSwizzle || (kRowBytes % 128 == 0 && kStep % 8 == 0),
+                  "swizzled rows of whole 128-byte blocks");
+    const int xc = static_cast<int>(threadIdx.x) % kCpb;
+    const int r0 = static_cast<int>(threadIdx.x) / kCpb;
+    const uint32_t chunk = kSwizzle ? ((xc ^ (r0 & 7)) << 4) : (xc << 4);
+    const int64_t left = valid - row0 - r0;   // rows of this thread's own
+    const T* src = head + (row0 + r0) * stride + xc * kPer;
+    const int64_t step = static_cast<int64_t>(kStep) * stride;
+#pragma unroll
+    for (int pass = 0; pass < (Rows + kStep - 1) / kStep; ++pass) {
+        const int r = r0 + pass * kStep;
+        if (Rows % kStep != 0 && r >= Rows) {
+            break;
+        }
+        const bool row_ok = pass * kStep < left;
+#pragma unroll
+        for (int cb = 0; cb < kBlocks; ++cb) {
+            const bool ok = row_ok && (cb * 8 + xc) * kPer < W;
+            const uint32_t off =
+                kSwizzle ? cb * Rows * 128 + r * 128 + chunk
+                         : r * kRowBytes + cb * 128 + chunk;
+            cp_async16(dst + off,
+                       ok ? src + pass * step + cb * (128 / kEs) : head, ok);
+        }
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float a, float b) {
+    // round to nearest even, as astype does
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T, int DQ, int DV>
+__global__ void __launch_bounds__(FwdCfg<T, DQ, DV>::kThreads, 1)
+fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ out,
+              float* __restrict__ lse, int64_t Sq, int64_t Sk, int Hq,
+              int Hkv, int causal, int has_window, int64_t window,
+              int has_softcap, float softcap, float scale,
+              int64_t q_offset) {
+    using C = FwdCfg<T, DQ, DV>;
+    constexpr int kNk = C::kNk, kStages = C::kStages, kDq = C::kDq;
+    constexpr int kPn = C::kPn, kPieces = C::kPieces;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    unsigned char* stages = smem + C::kOffStages;
+
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) >> 5;   // within the warpgroup
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // the last q tile first: under a causal mask it has the most keys
+    const int64_t q0 =
+        static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * C::kBlockQ;
+    const int h = blockIdx.y;
+    const int64_t b = blockIdx.z;
+    const int hk = h / (Hq / Hkv);
+    // per position: q and k rows are DQ wide, v and out rows DV
+    const int64_t q_stride = static_cast<int64_t>(Hq) * DQ;
+    const int64_t k_stride = static_cast<int64_t>(Hkv) * DQ;
+    const int64_t v_stride = static_cast<int64_t>(Hkv) * DV;
+    const int64_t o_stride = static_cast<int64_t>(Hq) * DV;
+    const T* qb = q + (b * Sq * Hq + h) * DQ;
+    const T* kb = k + (b * Sk * Hkv + hk) * DQ;
+    const T* vb = v + (b * Sk * Hkv + hk) * DV;
+    T* ob = out + (b * Sq * Hq + h) * DV;
+
+    // the k tiles the block's rows can see
+    const int64_t rows = (Sq - q0 < C::kBlockQ) ? (Sq - q0) : C::kBlockQ;
+    const int64_t pos_lo = q_offset + q0;
+    const int64_t pos_hi = pos_lo + rows - 1;
+    int64_t k_begin = 0;
+    int64_t k_end = Sk;
+    if (causal && pos_hi + 1 < k_end) {
+        k_end = pos_hi + 1;
+    }
+    if (has_window && pos_lo - window + 1 > k_begin) {
+        k_begin = pos_lo - window + 1;
+    }
+    const int64_t t_begin = k_begin / kNk;
+    const int64_t n_tiles =
+        k_end > k_begin ? (k_end + kNk - 1) / kNk - t_begin : 0;
+
+    // tile m of the band into stage m % kStages: K swizzled, V swizzled
+    // (bf16, read MN-major) or as rows (float32, transposed by the split)
+    auto fill = [&](int64_t m) {
+        const int64_t k0 = (t_begin + m) * kNk;
+        unsigned char* st = stages + (m % kStages) * C::kStage;
+        copy_tile<T, DQ, kDq, kNk, C::kThreads, true>(st, kb, k_stride, k0,
+                                                      Sk);
+        if constexpr (C::kF32) {
+            copy_tile<T, DV, DV, kNk, C::kThreads, false>(
+                st + C::kKBytes, vb, v_stride, k0, Sk);
+        } else {
+            copy_tile<T, DV, C::kDvp, kNk, C::kThreads, true>(
+                st + C::kKBytes, vb, v_stride, k0, Sk);
+        }
+    };
+
+    // Q of the block's rows (zeros past Sq and past DQ)
+    if constexpr (C::kF32) {
+        // 8 floats a thread: d 8s..8s+7 of a row stored as d 8s, 8s+4,
+        // 8s+1, 8s+5, 8s+2, 8s+6, 8s+3, 8s+7
+        float* qs = reinterpret_cast<float*>(smem);
+        for (int i = threadIdx.x; i < C::kBlockQ * (kDq / 8);
+             i += C::kThreads) {
+            const int r = i / (kDq / 8);
+            const int s = i % (kDq / 8);
+            float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+            if (q0 + r < Sq && 8 * s < DQ) {
+                const float* src = reinterpret_cast<const float*>(qb) +
+                                   (q0 + r) * q_stride + 8 * s;
+                x0 = *reinterpret_cast<const float4*>(src);
+                x1 = *reinterpret_cast<const float4*>(src + 4);
+            }
+            float* dst = qs + r * C::kLdQ + 8 * s;
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(x0.x, x1.x, x0.y, x1.y);
+            *reinterpret_cast<float4*>(dst + 4) =
+                make_float4(x0.z, x1.z, x0.w, x1.w);
+        }
+    } else {
+        for (int w = 0; w < C::kWG; ++w) {
+            copy_tile<T, DQ, kDq, 64, C::kThreads, true>(
+                smem + w * 64 * kDq * C::kEs, qb, q_stride, q0 + 64 * w, Sq);
+        }
+    }
+    // the ring's first tiles: bf16 refills a stage at the top of the next
+    // tile, float32 once the tile's S and split are past it
+    constexpr int kAhead = C::kF32 ? kStages : kStages - 1;
+    for (int64_t m = 0; m < kAhead; ++m) {
+        if (m < n_tiles) {
+            fill(m);
+        }
+        cp_async_commit();   // one group a tile, empty or not
+    }
+
+    // this warpgroup's rows [wq0, wq0 + 64), of which wrows < Sq; this
+    // thread's are 16 * warp + g and that + 8
+    const int64_t wq0 = q0 + 64 * wg;
+    const int64_t wrows = Sq - wq0 < 64 ? (Sq > wq0 ? Sq - wq0 : 0) : 64;
+    const int64_t wpos_lo = q_offset + wq0;
+    const int64_t wpos_hi = wpos_lo + (wrows > 0 ? wrows : 1) - 1;
+    const int64_t my_pos[2] = {wpos_lo + 16 * warp + g,
+                               wpos_lo + 16 * warp + g + 8};
+
+    float o[kPieces][kPn / 2];
+#pragma unroll
+    for (int c = 0; c < kPieces; ++c) {
+#pragma unroll
+        for (int i = 0; i < kPn / 2; ++i) {
+            o[c][i] = 0.f;
+        }
+    }
+    float m_run[2] = {kNegInf, kNegInf};
+    float l_run[2] = {0.f, 0.f};
+    constexpr float kLog2e = 1.4426950408889634f;
+
+    const uint32_t q_addr = smem_u32(smem);
+    const float* qw = reinterpret_cast<const float*>(smem) +
+                      (64 * wg + 16 * warp) * C::kLdQ;
+    const uint32_t klo_addr = smem_u32(smem + C::kOffKlo);
+    const uint32_t vt_addr = smem_u32(smem + C::kOffVt);
+
+    // float32's split of a tile, by every thread: K in place (its TF32 hi
+    // over the raw value, lo in its own tile), and V into V^T's hi and lo
+    // tiles, thread item (key group kg, parity p, column d) taking keys
+    // 8kg + p + 2j, j < 4, which sit side by side in V^T's key order
+    auto split_k = [&](int64_t m) {
+        uint32_t* kh = reinterpret_cast<uint32_t*>(
+            stages + (m % kStages) * C::kStage);
+        uint32_t* kl = reinterpret_cast<uint32_t*>(smem + C::kOffKlo);
+        static_assert(C::kKBytes / 16 % C::kThreads == 0, "whole rounds");
+#pragma unroll
+        for (int it = 0; it < C::kKBytes / 16 / C::kThreads; ++it) {
+            const int x = threadIdx.x + it * C::kThreads;
+            const float4 raw = reinterpret_cast<const float4*>(kh)[x];
+            uint4 hi;
+            uint4 lo;
+            split(raw.x, hi.x, lo.x);
+            split(raw.y, hi.y, lo.y);
+            split(raw.z, hi.z, lo.z);
+            split(raw.w, hi.w, lo.w);
+            reinterpret_cast<uint4*>(kh)[x] = hi;
+            reinterpret_cast<uint4*>(kl)[x] = lo;
+        }
+    };
+    auto split_v = [&](int64_t m) {
+        const float* vr = reinterpret_cast<const float*>(
+            stages + (m % kStages) * C::kStage + C::kKBytes);
+        unsigned char* vt = smem + C::kOffVt;
+        static_assert(kNk / 8 * 2 * DV % C::kThreads == 0, "whole rounds");
+#pragma unroll
+        for (int it = 0; it < kNk / 8 * 2 * DV / C::kThreads; ++it) {
+            const int x = threadIdx.x + it * C::kThreads;
+            const int d = x % DV;
+            const int p = (x / DV) & 1;
+            const int kg = x / (2 * DV);
+            uint4 hi;
+            uint4 lo;
+            const float* src = vr + (8 * kg + p) * DV + d;
+            split(src[0], hi.x, lo.x);
+            split(src[2 * DV], hi.y, lo.y);
+            split(src[4 * DV], hi.z, lo.z);
+            split(src[6 * DV], hi.w, lo.w);
+            const uint32_t off = sw128_offset(DV, d, 32 * kg + 16 * p);
+            *reinterpret_cast<uint4*>(vt + off) = hi;
+            *reinterpret_cast<uint4*>(vt + C::kVtBytes + off) = lo;
+        }
+    };
+    if constexpr (C::kF32) {
+        if (n_tiles > 0) {   // tile 0's K, published by the loop's barrier
+            cp_async_wait<kStages - 1>();
+            __syncthreads();
+            split_k(0);
+            fence_proxy_async();
+        }
+    }
+
+    // P's A registers: float32 hi and lo a k-step of 8 keys, bf16 pairs a
+    // k-step of 16
+    uint32_t ph[C::kF32 ? kNk / 8 : 1][4], pl[C::kF32 ? kNk / 8 : 1][4];
+    uint32_t pa[C::kF32 ? 1 : kNk / 16][4];
+    const uint64_t dq = sw128_desc(q_addr + wg * 64 * kDq * C::kEs, 64, 0);
+    for (int64_t i = 0; i < n_tiles; ++i) {
+        const int64_t k0 = (t_begin + i) * kNk;
+        unsigned char* st = stages + (i % kStages) * C::kStage;
+        const uint32_t k_addr = smem_u32(st);
+        if constexpr (C::kF32) {
+            __syncthreads();   // K(i) is split; tile i-1 is done everywhere
+        } else {
+            cp_async_wait<kStages - 2>();   // this thread's copies of tile i
+            fence_proxy_async();   // before the tensor cores read them
+            __syncthreads();   // every copy of tile i is in; tile i-1 is done
+            if (i + kStages - 1 < n_tiles) {   // into the stage tile i-1 held
+                fill(i + kStages - 1);
+            }
+            cp_async_commit();
+        }
+
+        // the tile against this warpgroup's rows: hidden (its products
+        // still run, with P = 0, so that no product sits in a branch),
+        // inside, or masked element by element
+        const bool hidden = wrows == 0 || (causal && k0 > wpos_hi) ||
+                            (has_window && k0 + kNk - 1 <= wpos_lo - window);
+        const bool inside =
+            k0 + kNk <= Sk && (!causal || k0 + kNk - 1 <= wpos_lo) &&
+            (!has_window || k0 > wpos_lo + 63 - window);
+
+        // S = Q K^T over kDq; float32: while the block splits V(i) (V^T is
+        // free: O(i-1) is done everywhere), after which the stage of tile
+        // i is free and takes tile i + kStages
+        float s[kNk / 2];
+        if constexpr (C::kF32) {
+            const uint64_t dkh = sw128_desc(k_addr, kNk, 0);
+            const uint64_t dkl = sw128_desc(klo_addr, kNk, 0);
+            product<float, kNk, kDq / 8, C::kChunk>(
+                s,
+                [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                    const float2 r0 = *reinterpret_cast<const float2*>(
+                        qw + g * C::kLdQ + 8 * kk + 2 * t);
+                    const float2 r1 = *reinterpret_cast<const float2*>(
+                        qw + (g + 8) * C::kLdQ + 8 * kk + 2 * t);
+                    split(r0.x, hi[0], lo[0]);
+                    split(r1.x, hi[1], lo[1]);
+                    split(r0.y, hi[2], lo[2]);
+                    split(r1.y, hi[3], lo[3]);
+                },
+                [&](int kk, int copy) {
+                    return sw128_step(copy ? dkl : dkh, kNk, 32 * kk);
+                },
+                false);
+            split_v(i);
+            wgmma_wait<0>();
+            fence_regs(s);
+            fence_proxy_async();
+            __syncthreads();   // V^T is in; S(i) is done everywhere
+            if (i + kStages < n_tiles) {
+                fill(i + kStages);
+            }
+            cp_async_commit();
+        } else {
+            const uint64_t dk = sw128_desc(k_addr, kNk, 0);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kDq / 16; ++kk) {
+                WgmmaSS<kNk>::mma(s, sw128_step(dq, 64, 32 * kk),
+                                  sw128_step(dk, kNk, 32 * kk),
+                                  kk > 0 ? 1 : 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(s);
+        }
+
+        // the mask of element (row r of this thread's two, key k0 + c):
+        // its key minus its position is d0 + c - 8r, visible when c <
+        // k_valid, d <= 0 (causal) and d > -window
+        constexpr int64_t kLim = int64_t(1) << 30;
+        auto clamp = [](int64_t x) {
+            return static_cast<int>(x < -kLim ? -kLim
+                                              : (x > kLim ? kLim : x));
+        };
+        const int d0 = clamp(k0 - my_pos[0]);
+        const int k_valid = clamp(Sk - k0);
+        const int d_lo = has_window ? clamp(-window)
+                                    : -2 * static_cast<int>(kLim);
+
+        // scale, softcap and mask, then the online softmax, O's rescale
+        // and P in A registers; the mask and the softcap are decided once
+        // a tile
+        auto body = [&](auto masked, auto capped) {
+            constexpr bool kMasked = decltype(masked)::value;
+            constexpr bool kCapped = decltype(capped)::value;
+            // element 4j + e is row e / 2 of this thread's two, key
+            // k0 + 8j + 2t + e % 2
+#pragma unroll
+            for (int j = 0; j < kNk / 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float val = s[4 * j + e] * scale;
+                    if constexpr (kCapped) {
+                        val = tanhf(val / softcap) * softcap;
+                    }
+                    if constexpr (kMasked) {
+                        const int c = 8 * j + 2 * t + (e & 1);
+                        const int d = d0 + c - 8 * (e >> 1);
+                        const bool ok = c < k_valid &&
+                                        (!causal || d <= 0) && d > d_lo;
+                        val = ok ? val : kNegInf;
+                    }
+                    s[4 * j + e] = val;
+                }
+            }
+            // the two rows, each spread over the 4 threads of a quad
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                float mx = kNegInf;
+#pragma unroll
+                for (int j = 0; j < kNk / 8; ++j) {
+                    mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r],
+                                         s[4 * j + 2 * r + 1]));
+                }
+                mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1));
+                mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 2));
+                const float m_new = fmaxf(m_run[r], mx);
+                float sum = 0.f;
+#pragma unroll
+                for (int j = 0; j < kNk / 8; ++j) {
+#pragma unroll
+                    for (int e = 2 * r; e < 2 * r + 2; ++e) {
+                        const float x = s[4 * j + e] - m_new;
+                        s[4 * j + e] =
+                            C::kF32 ? expf(x) : ex2_approx(x * kLog2e);
+                        sum += s[4 * j + e];
+                    }
+                }
+                sum += __shfl_xor_sync(kFullMask, sum, 1);
+                sum += __shfl_xor_sync(kFullMask, sum, 2);
+                const float dm = m_run[r] - m_new;
+                const float alpha =
+                    C::kF32 ? expf(dm) : ex2_approx(dm * kLog2e);
+                l_run[r] = alpha * l_run[r] + sum;
+                m_run[r] = m_new;
+#pragma unroll
+                for (int c = 0; c < kPieces; ++c) {
+#pragma unroll
+                    for (int j = 0; j < kPn / 8; ++j) {
+                        o[c][4 * j + 2 * r] *= alpha;
+                        o[c][4 * j + 2 * r + 1] *= alpha;
+                    }
+                }
+            }
+        };
+        if (hidden) {
+#pragma unroll
+            for (int i2 = 0; i2 < kNk / 2; ++i2) {
+                s[i2] = 0.f;
+            }
+        } else if (inside) {
+            if (has_softcap) {
+                body(std::false_type{}, std::true_type{});
+            } else {
+                body(std::false_type{}, std::false_type{});
+            }
+        } else {
+            if (has_softcap) {
+                body(std::true_type{}, std::true_type{});
+            } else {
+                body(std::true_type{}, std::false_type{});
+            }
+        }
+
+        // O += P V over the tile's keys
+#pragma unroll
+        for (int c = 0; c < kPieces; ++c) {
+            fence_regs(o[c]);
+        }
+        if constexpr (C::kF32) {
+            // k-step j is keys 8j..8j+7, k index t <-> key 8j + 2t and
+            // t + 4 <-> 8j + 2t + 1: S's fragment as it stands
+#pragma unroll
+            for (int j = 0; j < kNk / 8; ++j) {
+                split(s[4 * j], ph[j][0], pl[j][0]);
+                split(s[4 * j + 2], ph[j][1], pl[j][1]);
+                split(s[4 * j + 1], ph[j][2], pl[j][2]);
+                split(s[4 * j + 3], ph[j][3], pl[j][3]);
+                fence_regs(ph[j]);
+                fence_regs(pl[j]);
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < kNk / 8; ++j) {
+#pragma unroll
+                for (int c = 0; c < kPieces; ++c) {
+                    // V^T rows (d) kPn c.., keys 8j..: hi, then lo
+                    const uint64_t dh =
+                        sw128_desc(vt_addr + c * kPn * 128, DV, 32 * j);
+                    const uint64_t dl = sw128_desc(
+                        vt_addr + C::kVtBytes + c * kPn * 128, DV, 32 * j);
+                    Wgmma<float, kPn>::mma(o[c], ph[j], dh, 1);
+                    Wgmma<float, kPn>::mma(o[c], ph[j], dl, 1);
+                    Wgmma<float, kPn>::mma(o[c], pl[j], dh, 1);
+                }
+            }
+            wgmma_commit();
+            // O(i) runs while the block splits K(i+1)
+            if (i + 1 < n_tiles) {
+                cp_async_wait<kStages - 1>();   // this thread's tile i+1
+                __syncthreads();   // every copy of tile i+1 is in
+                split_k(i + 1);
+                fence_proxy_async();
+            }
+            wgmma_wait<0>();
+#pragma unroll
+            for (int j = 0; j < kNk / 8; ++j) {
+                fence_regs(ph[j]);
+                fence_regs(pl[j]);
+            }
+        } else {
+            // k-step kk is keys 16kk..16kk+15: a0, a1 keys 2t, 2t+1 of
+            // rows g, g + 8, a2, a3 the same 8 keys on
+#pragma unroll
+            for (int j = 0; j < kNk / 8; ++j) {
+                pa[j >> 1][2 * (j & 1)] = pack_bf16(s[4 * j], s[4 * j + 1]);
+                pa[j >> 1][2 * (j & 1) + 1] =
+                    pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+            }
+#pragma unroll
+            for (int kk = 0; kk < kNk / 16; ++kk) {
+                fence_regs(pa[kk]);
+            }
+            // V's tile MN-major: 64 columns a block of kNk x 128 bytes,
+            // k-step kk its rows 16kk.. (2048 bytes, 128 units, on)
+            const uint64_t dv =
+                sw128_desc_mn(k_addr + C::kKBytes, kNk * 128);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kNk / 16; ++kk) {
+#pragma unroll
+                for (int c = 0; c < kPieces; ++c) {
+                    WgmmaRT<kPn>::mma(
+                        o[c], pa[kk],
+                        dv + 128 * kk + c * (kPn / 64) * kNk * 8, 1);
+                }
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+#pragma unroll
+            for (int kk = 0; kk < kNk / 16; ++kk) {
+                fence_regs(pa[kk]);
+            }
+        }
+#pragma unroll
+        for (int c = 0; c < kPieces; ++c) {
+            fence_regs(o[c]);
+        }
+    }
+    cp_async_wait<0>();   // no copy outlives the block
+
+    // o[c][4j + e]: row e / 2 of this thread's two, column kPn c + 8j +
+    // 2t + e % 2
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int64_t row = wq0 + 16 * warp + g + 8 * r;
+        if (row >= Sq) {
+            continue;
+        }
+        if (lse != nullptr && t == 0) {
+            // log of the row's softmax denominator, for the backward; +inf
+            // where no key was visited (the row's P is 0 there)
+            lse[(b * Hq + h) * Sq + row] =
+                l_run[r] == 0.f ? __int_as_float(0x7f800000)
+                                : m_run[r] + logf(l_run[r]);
+        }
+        const float denom = (l_run[r] == 0.f) ? 1.f : l_run[r];
+        T* dst = ob + row * o_stride;
+#pragma unroll
+        for (int c = 0; c < kPieces; ++c) {
+#pragma unroll
+            for (int j = 0; j < kPn / 8; ++j) {
+                const int col = c * kPn + 8 * j + 2 * t;
+                if (col < DV) {
+                    store2<T>(dst + col, o[c][4 * j + 2 * r] / denom,
+                              o[c][4 * j + 2 * r + 1] / denom);
+                }
+            }
+        }
+    }
+}
+
+// ------------------------------------------------------------------ //
+// The previous body, kept where `Tune` says kMma: mma.sync m16n8
+// on the tensor cores, 8 warps of 16 q rows (a 128-row q tile) and 16-key
+// tiles double-buffered by cp.async; float32 as split TF32 with every
+// warp splitting the K and V elements it reads (fa_common.cuh `Mma`), the
+// contraction index permuted so that each fragment is one 8-byte shared
+// load and S's accumulator is P's operand as it stands; shared-memory
+// rows padded so that a warp's fragment loads touch 32 distinct banks.
+// At D = 256 in float32 it takes 237 registers and 198 KB: one block an
+// SM.
+// ------------------------------------------------------------------ //
+constexpr int kMmaWarps = 8;               // warps per block, 16 q rows each
+constexpr int kMmaBlockQ = 16 * kMmaWarps;    // q rows per block
+constexpr int kMmaThreads = 32 * kMmaWarps;
 
 // Shared-memory layout of one block (elements of T).
 template <typename T, int Dqk, int Dv>
-struct Tiles {
+struct MmaTiles {
     static constexpr int kLdQK = Dqk + 32 / static_cast<int>(sizeof(T));
     static constexpr int kLdV = Dv + 16 / static_cast<int>(sizeof(T));
-    static constexpr int kQ = kBlockQ * kLdQK;
+    static constexpr int kQ = kMmaBlockQ * kLdQK;
     static constexpr int kK = kBlockK * kLdQK;
     static constexpr int kStage = kK + kBlockK * kLdV;   // one K and one V
     static constexpr int kBytes =
@@ -116,14 +741,14 @@ struct Tiles {
 
 
 template <typename T, int Dqk, int Dv>
-__global__ void __launch_bounds__(kThreads, 1)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
+__global__ void __launch_bounds__(kMmaThreads, 1)
+fa_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
           float* __restrict__ lse, int64_t Sq,
           int64_t Sk, int Hq, int Hkv, int causal, int has_window,
           int64_t window, int has_softcap, float softcap, float scale,
           int64_t q_offset) {
-    using L = Tiles<T, Dqk, Dv>;
+    using L = MmaTiles<T, Dqk, Dv>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* qs = reinterpret_cast<T*>(smem_raw);
     T* stages = qs + L::kQ;
@@ -134,7 +759,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = lane & 3;
     // the last q tile first: under a causal mask it has the most keys
     const int64_t q0 =
-        static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kBlockQ;
+        static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kMmaBlockQ;
     const int h = blockIdx.y;
     const int64_t b = blockIdx.z;
     const int hk = h / (Hq / Hkv);
@@ -149,7 +774,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* ob = out + (b * Sq * Hq + h) * Dv;
 
     // the k tiles this q tile can see
-    const int64_t rows = (Sq - q0 < kBlockQ) ? (Sq - q0) : kBlockQ;
+    const int64_t rows = (Sq - q0 < kMmaBlockQ) ? (Sq - q0) : kMmaBlockQ;
     const int64_t pos_lo = q_offset + q0;
     const int64_t pos_hi = pos_lo + rows - 1;
     int64_t k_begin = 0;
@@ -163,13 +788,13 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t t_begin = k_begin / kBlockK;
     const int64_t t_end = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
 
-    load_rows<T, Dqk, kBlockQ, L::kLdQK, kThreads>(qs, qb, q_stride, q0,
+    load_rows<T, Dqk, kMmaBlockQ, L::kLdQK, kMmaThreads>(qs, qb, q_stride, q0,
                                                    Sq);
     if (t_begin < t_end) {
         const int64_t k0 = t_begin * kBlockK;
-        load_rows<T, Dqk, kBlockK, L::kLdQK, kThreads>(stages, kb, k_stride,
+        load_rows<T, Dqk, kBlockK, L::kLdQK, kMmaThreads>(stages, kb, k_stride,
                                                        k0, Sk);
-        load_rows<T, Dv, kBlockK, L::kLdV, kThreads>(stages + L::kK, vb,
+        load_rows<T, Dv, kBlockK, L::kLdV, kMmaThreads>(stages + L::kK, vb,
                                                      v_stride, k0, Sk);
     }
     cp_async_commit();
@@ -197,9 +822,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();   // tile kt is in; every warp is done with kt-1
         if (kt + 1 < t_end) {   // tile kt+1 loads while kt is computed
             T* nxt = stages + ((kt + 1 - t_begin) & 1) * L::kStage;
-            load_rows<T, Dqk, kBlockK, L::kLdQK, kThreads>(
+            load_rows<T, Dqk, kBlockK, L::kLdQK, kMmaThreads>(
                 nxt, kb, k_stride, k0 + kBlockK, Sk);
-            load_rows<T, Dv, kBlockK, L::kLdV, kThreads>(
+            load_rows<T, Dv, kBlockK, L::kLdV, kMmaThreads>(
                 nxt + L::kK, vb, v_stride, k0 + kBlockK, Sk);
             cp_async_commit();
         }
@@ -297,27 +922,57 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int Dqk, int Dv>
-int launch(const T* q, const T* k, const T* v, T* out, float* lse, int64_t B,
-           int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int causal,
-           int has_window,
-           int64_t window, int has_softcap, float softcap, float scale,
-           int64_t q_offset, void* stream) {
-    const int smem = Tiles<T, Dqk, Dv>::kBytes;
+int launch_mma(const T* q, const T* k, const T* v, T* out, float* lse,
+               int64_t B, int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv,
+               int causal, int has_window, int64_t window, int has_softcap,
+               float softcap, float scale, int64_t q_offset, void* stream) {
+    const int smem = MmaTiles<T, Dqk, Dv>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
-        fa_kernel<T, Dqk, Dv>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fa_mma_kernel<T, Dqk, Dv>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) {   // returned here, so cleared for later calls
         cudaGetLastError();
         return static_cast<int>(err);
     }
-    const dim3 grid(static_cast<unsigned>((Sq + kBlockQ - 1) / kBlockQ),
+    const dim3 grid(static_cast<unsigned>((Sq + kMmaBlockQ - 1) / kMmaBlockQ),
                     static_cast<unsigned>(Hq), static_cast<unsigned>(B));
-    fa_kernel<T, Dqk, Dv><<<grid, kThreads, smem,
+    fa_mma_kernel<T, Dqk, Dv><<<grid, kMmaThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
         q, k, v, out, lse, Sq, Sk, static_cast<int>(Hq),
         static_cast<int>(Hkv), causal, has_window, window, has_softcap,
         softcap, scale, q_offset);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DQ, int DV>
+int launch(const T* q, const T* k, const T* v, T* out, float* lse, int64_t B,
+           int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int causal,
+           int has_window, int64_t window, int has_softcap, float softcap,
+           float scale, int64_t q_offset, void* stream) {
+    if constexpr (Tune<std::is_same<T, float>::value, DQ, DV>::kMma) {
+        return launch_mma<T, DQ, DV>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
+                                     causal, has_window, window, has_softcap,
+                                     softcap, scale, q_offset, stream);
+    } else {
+        using C = FwdCfg<T, DQ, DV>;
+        const int smem = C::kBytes;
+        cudaError_t err = cudaFuncSetAttribute(
+            fa_fwd_kernel<T, DQ, DV>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) {   // returned here, so cleared for later
+            cudaGetLastError();
+            return static_cast<int>(err);
+        }
+        const dim3 grid(
+            static_cast<unsigned>((Sq + C::kBlockQ - 1) / C::kBlockQ),
+            static_cast<unsigned>(Hq), static_cast<unsigned>(B));
+        fa_fwd_kernel<T, DQ, DV><<<grid, C::kThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+            q, k, v, out, lse, Sq, Sk, static_cast<int>(Hq),
+            static_cast<int>(Hkv), causal, has_window, window, has_softcap,
+            softcap, scale, q_offset);
+        return static_cast<int>(cudaGetLastError());
+    }
 }
 
 template <typename T>

@@ -318,45 +318,6 @@ struct Frag<__nv_bfloat16, W, LD> {
     }
 };
 
-// d (=, or += when `acc`) A B^T over the k-steps [0, KS) on the tensor
-// cores, split TF32 (hi.hi, hi.lo, lo.hi) or bf16: the A fragments of
-// KC k-steps go to registers first (`frag(kk, hi, lo)`), then one fence
-// and their wgmma (B from `desc(kk, copy)`), then a commit; so no
-// instruction defines a running wgmma's registers.  The next chunk's
-// fragments load while this chunk's products run, and at most two
-// chunks are in flight, so their registers stay few.
-template <typename T, int N, int KS, int KC, typename F, typename B>
-__device__ __forceinline__ void product(float (&d)[N / 2], F frag, B desc,
-                                        bool acc) {
-    static_assert(KS % KC == 0, "chunks of whole k-steps");
-#pragma unroll
-    for (int c0 = 0; c0 < KS; c0 += KC) {
-        uint32_t hi[KC][4], lo[KC][4];
-#pragma unroll
-        for (int i = 0; i < KC; ++i) {
-            frag(c0 + i, hi[i], lo[i]);
-            fence_regs(hi[i]);
-            if constexpr (std::is_same<T, float>::value) {
-                fence_regs(lo[i]);
-            }
-        }
-        fence_regs(d);
-        wgmma_fence();
-#pragma unroll
-        for (int i = 0; i < KC; ++i) {
-            const int first = (acc || c0 + i > 0) ? 1 : 0;
-            Wgmma<T, N>::mma(d, hi[i], desc(c0 + i, 0), first);
-            if constexpr (std::is_same<T, float>::value) {
-                Wgmma<T, N>::mma(d, hi[i], desc(c0 + i, 1), 1);
-                Wgmma<T, N>::mma(d, lo[i], desc(c0 + i, 0), 1);
-            }
-        }
-        wgmma_commit();
-        fence_regs(d);
-        wgmma_wait<1>();   // the chunk before is done: its registers free
-    }
-}
-
 // store a value of P or dS at `at` in a swizzled tile (float32: its TF32
 // hi there, the rest lo C::kStore bytes on)
 template <typename C>

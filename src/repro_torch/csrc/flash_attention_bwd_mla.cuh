@@ -71,14 +71,6 @@ namespace {
 
 using bf16_t = __nv_bfloat16;
 
-// 2^x to about 2 ulp (the MUFU's own), denormal results flushed to zero:
-// enough for P, which is rounded to bf16
-__device__ __forceinline__ float ex2_approx(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
 // A launch's tile shape.  Tunables (tools/fa_bwd_sweep.py times others):
 // kBs streamed rows a tile (N of S and dP), kStages of the ring and kAhead
 // tiles read ahead (kStages - 2: a tile's stage is filled once both

@@ -1,13 +1,15 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward
-// (flash_attention_bwd.cu, flash_attention_bwd_mla.cuh): mbarriers, the
-// bulk async copy that completes on one, the async-proxy fence, named
-// barriers, and warpgroup products (`wgmma`) with A in registers and B in
-// shared memory, in the 128-byte swizzled K-major layout that
-// `sw128_offset` writes and `sw128_desc` describes; for bf16 also with A in
-// shared memory and with B transposed (MN-major).
+// Hopper (sm_90a) building blocks of the flash-attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu, flash_attention_bwd_mla.cuh):
+// mbarriers, the bulk async copy that completes on one, the async-proxy
+// fence, named barriers, and warpgroup products (`wgmma`) with A in
+// registers and B in shared memory, in the 128-byte swizzled K-major layout
+// that `sw128_offset` writes and `sw128_desc` describes; for bf16 also with
+// A in shared memory and with B transposed (MN-major); and `product`, a
+// split-TF32 or bf16 product over k-steps with A fragments a chunk ahead.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -348,6 +350,60 @@ struct WgmmaSS<64> {
     }
 };
 template <>
+struct WgmmaSS<128> {
+    __device__ __forceinline__ static void mma(float (&d)[64],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+            "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+            "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+            "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+            "%57, %58, %59, %60, %61, %62, %63"
+            "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+              "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+              "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+              "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+              "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+              "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+              "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+              "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "l"(desc_a), "l"(desc_b), "r"(acc));
+    }
+};
+template <>
+struct WgmmaRT<64> {
+    __device__ __forceinline__ static void mma(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b, int acc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+            "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31"
+            "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+              "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+              "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+              "r"(acc));
+    }
+};
+template <>
 struct WgmmaRT<128> {
     __device__ __forceinline__ static void mma(float (&d)[64],
                                                const uint32_t (&a)[4],
@@ -459,5 +515,43 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
                  : "memory");
 }
 
+// d (=, or += when `acc`) A B^T over the k-steps [0, KS) on the tensor
+// cores, split TF32 (hi.hi, hi.lo, lo.hi) or bf16: the A fragments of
+// KC k-steps go to registers first (`frag(kk, hi, lo)`), then one fence
+// and their wgmma (B from `desc(kk, copy)`), then a commit; so no
+// instruction defines a running wgmma's registers.  The next chunk's
+// fragments load while this chunk's products run, and at most two
+// chunks are in flight, so their registers stay few.
+template <typename T, int N, int KS, int KC, typename F, typename B>
+__device__ __forceinline__ void product(float (&d)[N / 2], F frag, B desc,
+                                        bool acc) {
+    static_assert(KS % KC == 0, "chunks of whole k-steps");
+#pragma unroll
+    for (int c0 = 0; c0 < KS; c0 += KC) {
+        uint32_t hi[KC][4], lo[KC][4];
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+            frag(c0 + i, hi[i], lo[i]);
+            fence_regs(hi[i]);
+            if constexpr (std::is_same<T, float>::value) {
+                fence_regs(lo[i]);
+            }
+        }
+        fence_regs(d);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+            const int first = (acc || c0 + i > 0) ? 1 : 0;
+            Wgmma<T, N>::mma(d, hi[i], desc(c0 + i, 0), first);
+            if constexpr (std::is_same<T, float>::value) {
+                Wgmma<T, N>::mma(d, hi[i], desc(c0 + i, 1), 1);
+                Wgmma<T, N>::mma(d, lo[i], desc(c0 + i, 0), 1);
+            }
+        }
+        wgmma_commit();
+        fence_regs(d);
+        wgmma_wait<1>();   // the chunk before is done: its registers free
+    }
+}
 
 }  // namespace

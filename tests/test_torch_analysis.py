@@ -219,6 +219,28 @@ def test_chip_smoke_bounds_keep_their_recorded_values():
         0.20833796585074627
 
 
+@pytest.mark.parametrize("case,dtype,want", [
+    ("FA_PATH_A", "float32", (0.19532111127272725, "operations")),
+    ("FA_DECODE", "float32", (0.009791274029850746, "bytes")),
+    ("FA_MAIN", "bfloat16", (0.13900152467542973, "operations")),
+    ("FA_DBRX", "bfloat16", (0.10427658923356926, "operations")),
+    ("FA_MLA", "bfloat16", (0.3475886307785642, "operations")),
+    ("FA_SEAMLESS", "bfloat16", (0.03474189925985845, "operations")),
+])
+def test_chip_smoke_forward_bounds_at_the_kernels_line_shapes(case, dtype,
+                                                             want):
+    """The flash-attention forward's bounds that `chip_smoke.py` prints
+    beside its bf16, path A and decode times equal the values PERF.md
+    records (bf16 at the bf16 rate; the decode launch bound by its
+    bytes)."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(ROOT)
+    assert cs._fa_bound(getattr(cs, case)[:9] + (dtype,))[:2] == want
+
+
 def test_attention_work_at_unequal_head_dims():
     """MLA's (192, 128): the forward 2·(Dqk + Dv) and the backward
     6·Dqk + 4·Dv operations a pair; at equal dims 4·D and 10·D."""

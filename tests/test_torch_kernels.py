@@ -327,6 +327,161 @@ def test_split_tf32_meets_the_float32_tolerance_where_tf32_does_not(
     assert single_err > TOL["float32"], single_err
 
 
+# flash_attention.cu's float32 orders within each 8 of a contraction:
+# Q's rows are stored d 0, 4, 1, 5, 2, 6, 3, 7 (two float4 of d 0..3 and
+# 4..7 interleaved); an A register of k index t is read at position 2t,
+# of t + 4 at 2t + 1; S's accumulator holds keys 2t, 2t + 1 at k index t,
+# t + 4 of P's A fragment; a thread of the V split writes keys p, p + 2,
+# p + 4, p + 6 at positions 4p .. 4p + 3 of V^T's row
+_Q_D_OF_POS = np.array([0, 4, 1, 5, 2, 6, 3, 7])
+_A_POS_OF_K = np.array([2 * t for t in range(4)] + [2 * t + 1
+                                                   for t in range(4)])
+_P_KEY_OF_K = np.array([2 * t for t in range(4)] + [2 * t + 1
+                                                   for t in range(4)])
+_VT_KEY_OF_POS = np.array([p + 2 * j for p in (0, 1) for j in range(4)])
+
+
+def _gather8(x, idx):
+    """x [n, 8c] with each 8 columns taken in the order idx"""
+    n, w = x.shape
+    return x.reshape(n, w // 8, 8)[:, :, idx].reshape(n, w)
+
+
+def _fa_fwd_kernel_algorithm(q, k, v, *, causal, window, scale, q_offset,
+                             wg, nk):
+    """`csrc/flash_attention.cu`'s float32 body on the CPU, in numpy
+    float32, for q [B, Sq, Hq, Dqk], k [B, Sk, Hkv, Dqk], v [B, Sk, Hkv,
+    Dv]; returns (out, lse [B, Hq, Sq]).
+
+    A block is `wg` warpgroups of 64 q rows and walks the `nk`-key tiles
+    of its rows' band (zero past Sk); a warpgroup skips a tile that hides
+    all its rows.  S = Q K^T reads Q from rows stored with d t and t + 4
+    side by side (the A registers of k index t and t + 4) against K as it
+    lands; P's A fragment is S's accumulator as it stands (k index t <->
+    key 2t, t + 4 <-> 2t + 1 within 8), so V^T's keys are stored in that
+    order.  Every product is split TF32 (hi rounded to nearest, lo the
+    remainder, read rounded toward zero).  Then the scale, the mask
+    (-1e30), the online softmax's rescale alpha = exp(m - m_new) of l and
+    O, and out = O / l (l = 0 divides by 1), lse = m + log l (+inf)."""
+    f32 = np.float32
+    B, Sq, Hq, Dqk = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    groups = Hq // Hkv
+    rows = 64 * wg
+
+    def mm(a, b):
+        return _mm_3xtf32(a, b, _tf32_rz)
+
+    out = np.zeros((B, Sq, Hq, Dv), f32)
+    lse = np.zeros((B, Hq, Sq), f32)
+    for b in range(B):
+        for h in range(Hq):
+            hk = h // groups
+            for q0 in range(0, Sq, rows):
+                n = min(rows, Sq - q0)
+                pos_lo, pos_hi = q_offset + q0, q_offset + q0 + n - 1
+                k_end = min(Sk, pos_hi + 1) if causal else Sk
+                k_begin = max(0, pos_lo - window + 1) if window else 0
+                tiles = range(k_begin // nk * nk, k_end, nk) \
+                    if k_end > k_begin else ()
+                for w in range(wg):
+                    wq0 = q0 + 64 * w
+                    wn = max(0, min(64, Sq - wq0))
+                    if wn == 0:
+                        continue
+                    qt = np.zeros((64, Dqk), f32)
+                    qt[:wn] = q[b, wq0:wq0 + wn, h]
+                    # Q's rows as stored, then the A registers' k order
+                    a_q = _gather8(_gather8(qt, _Q_D_OF_POS), _A_POS_OF_K)
+                    qi = (q_offset + wq0 + np.arange(64))[:, None]
+                    m = np.full((64, 1), -1e30, f32)
+                    l = np.zeros((64, 1), f32)
+                    acc = np.zeros((64, Dv), f32)
+                    for k0 in tiles:
+                        if (causal and k0 > q_offset + wq0 + wn - 1) or (
+                                window and k0 + nk - 1
+                                <= q_offset + wq0 - window):
+                            continue
+                        kt = np.zeros((nk, Dqk), f32)
+                        vt = np.zeros((nk, Dv), f32)
+                        kn = max(0, min(nk, Sk - k0))
+                        kt[:kn] = k[b, k0:k0 + kn, hk]
+                        vt[:kn] = v[b, k0:k0 + kn, hk]
+                        s = (mm(a_q, kt) * f32(scale)).astype(f32)
+                        kj = (k0 + np.arange(nk))[None, :]
+                        ok = kj < Sk
+                        if causal:
+                            ok = ok & (kj <= qi)
+                        if window:
+                            ok = ok & (kj > qi - window)
+                        s = np.where(ok, s, f32(-1e30))
+                        m_new = np.maximum(m, s.max(axis=1, keepdims=True))
+                        p = np.exp(s - m_new).astype(f32)
+                        alpha = np.exp(m - m_new).astype(f32)
+                        l = (alpha * l + p.sum(axis=1, keepdims=True)
+                             ).astype(f32)
+                        m = m_new
+                        # P's fragment and V^T [Dv, keys] as stored, both
+                        # read along the same k index
+                        a_p = _gather8(p, _P_KEY_OF_K)
+                        v_t = _gather8(np.ascontiguousarray(vt.T),
+                                       _VT_KEY_OF_POS)
+                        acc = (acc * alpha + mm(a_p, v_t)).astype(f32)
+                    lsum = np.where(l == 0, f32(1), l)
+                    out[b, wq0:wq0 + wn, h] = (acc / lsum)[:wn]
+                    lse[b, h, wq0:wq0 + wn] = np.where(
+                        l[:, 0] == 0, np.inf,
+                        m[:, 0] + np.log(l[:, 0]))[:wn]
+    return out, lse
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,Hq,Hkv,Dqk,Dv,causal,window,q_offset,wg,nk", [
+        # D = 256 with a window: one warpgroup, 16-key tiles (the wgmma
+        # body's shape there; the kernel keeps its mma.sync body at 256)
+        (1, 100, 100, 2, 1, 256, 256, True, 40, 0, 1, 16),
+        # MLA's (192, 128) with a GQA group: two warpgroups, 16-key tiles
+        (1, 130, 130, 4, 2, 192, 128, True, None, 0, 2, 16),
+        # ragged Sq != Sk without a mask: two warpgroups, 64-key tiles
+        (1, 70, 150, 2, 2, 64, 64, False, None, 0, 2, 64),
+        # a static q_offset with causal and window at D = 128
+        (1, 65, 129, 2, 1, 128, 128, True, 48, 60, 2, 32),
+    ])
+def test_fa_forward_kernel_algorithm_meets_the_tolerance(
+        B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal, window, q_offset, wg, nk):
+    """The forward kernel's float32 algorithm (64-row warpgroup tiles,
+    `nk`-key tiles, split TF32 with lo read rounded toward zero, the
+    permuted contraction orders, the online softmax's rescale) stays within
+    TOL["float32"] of the plain version in float64, and its log-sum-exp
+    within the same of float64's."""
+    rng = np.random.default_rng(Dqk + Sq)
+    q = rng.standard_normal((B, Sq, Hq, Dqk)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, Hkv, Dqk)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, Hkv, Dv)).astype(np.float32)
+    scale = Dqk ** -0.5
+    got, got_lse = _fa_fwd_kernel_algorithm(
+        q, k, v, causal=causal, window=window, scale=scale,
+        q_offset=q_offset, wg=wg, nk=nk)
+    q64, k64, v64 = (torch.from_numpy(x).double() for x in (q, k, v))
+    want = attention_ref(q64, k64, v64, causal=causal, window=window,
+                         scale=scale, q_offset=q_offset).numpy()
+    s = torch.einsum("bihd,bjhd->bhij", q64, k64.repeat_interleave(
+        Hq // Hkv, dim=2)) * scale
+    qi = torch.arange(Sq)[:, None] + q_offset
+    kj = torch.arange(Sk)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        ok &= kj <= qi
+    if window:
+        ok &= kj > qi - window
+    want_lse = torch.logsumexp(s.masked_fill(~ok, -torch.inf), dim=-1)
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err < TOL["float32"], err
+    lse_err = float(np.abs(got_lse - want_lse.numpy()).max())
+    assert lse_err < TOL["float32"], lse_err
+
+
 # ---------------------------------------------------------------------- #
 # flash attention backward, CPU: the backward kernel's algorithm
 # ---------------------------------------------------------------------- #
@@ -1434,6 +1589,14 @@ FA_EDGES = [
     (20, 9, 2, 2, False, None, None, 0),        # Sk shorter than one tile
     (100, 100, 4, 2, True, 7, None, 0),         # window smaller than a tile
     (70, 130, 2, 1, True, 48, 30.0, 60),        # softcap, static q_offset
+    # lengths one short of, at and one past the wgmma body's tiles: 64 q
+    # rows a warpgroup, 64 or 128 a block, 16-, 32-, 64- and 128-key tiles
+    (127, 127, 2, 1, True, None, None, 0),
+    (128, 128, 2, 2, True, 16, None, 0),
+    (129, 129, 4, 2, False, None, None, 0),
+    (63, 65, 2, 1, False, None, None, 0),
+    (65, 33, 2, 1, True, None, None, 32),
+    (64, 31, 2, 2, False, None, None, 0),
 ]
 
 
@@ -1455,6 +1618,14 @@ def test_flash_attention_kernel_every_head_dim(D, dt, edge, cuda_device):
     assert got.dtype == q.dtype and got.shape == q.shape
     err = float((got.float() - want.float()).abs().max())
     assert err < TOL[dt], (D, dt, edge, err)
+    # two calls give the same bits, and the log-sum-exp leaves out as it is
+    again = fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=cap, q_offset=q_offset)
+    with_lse, lse = fa._launch(q, k, v, causal, window, cap, D ** -0.5,
+                               q_offset, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, with_lse)
+    assert lse.shape == (2, Hq, Sq) and bool(torch.isfinite(lse).all())
 
 
 # (B, S, D, dtype): D of a ragged, an unaligned and a full row; S of one

@@ -1,35 +1,38 @@
-"""Time warp layouts of the flash-attention kernel on one NVIDIA GPU.
+"""Check and time the flash-attention forward kernel on one NVIDIA GPU.
 
-    python3 tools/fa_sweep.py [--parent DIR]
+    python3 tools/fa_sweep.py [--parent DIR] [--variants] [--apart]
+                              [--no-shapes]
 
-Builds copies of `src/repro_torch/csrc/flash_attention.cu` (with
-`fa_common.cuh` inlined) with other block constants — warps per block (kWarps, 16 q rows each) and keys per
-k tile (kBlockK) — and other unroll factors of the loop over head_dim
-that forms the scores, one nvcc each with the library's flags, all at once,
-and prints each copy's registers and spills for the float32 head_dim-256
-instantiation, and for the source's own layout the tensor-core and
-shared-load instructions in the SASS of the head_dim-256 kernels
-(`cuobjdump -sass`, where the toolkit has it). Each variant is checked
-against the plain version at the serving shape of recurrentgemma-9b
-(q [2,3072,16,256], k/v [2,3072,1,256], float32, causal, window 2048) to
-2e-5, then timed with CUDA events (a warm-up, then the mean of 10
-launches), every variant twice in turn. A variant whose shared memory
-does not fit on the card is reported as such. The first variant is the
-source's own layout.
+Builds `src/repro_torch/csrc/flash_attention.cu` with its headers inlined
+and prints, for each instantiation of the forward (`fa_fwd_kernel<T, Dqk,
+Dv>`, and `fa_mma_kernel` where it keeps the mma.sync body), its
+registers and spills (`-Xptxas -v`) and its SASS counts of
+`wgmma` (HGMMA) and `mma.sync` (HMMA) instructions (`cuobjdump -sass`,
+where the toolkit has it).  Then at every shape of `chip_smoke.py`'s
+kernels line (`SHAPES`: recurrentgemma-9b's serving layer, dbrx-132b's,
+deepseek-v3's MLA (192, 128), seamless's encoder, training path A's and
+seamless's decode cross attention), in float32 and bfloat16, it holds
+the kernel against the plain version (2e-5 float32, 2e-2 bf16), checks
+that two calls give the same bits and that the log-sum-exp leaves `out`
+as it is, and times it with CUDA events beside
+`scaled_dot_product_attention` on the same inputs.
 
-With `--parent DIR`, a checkout of an earlier commit (its
-`src/repro_torch/csrc/flash_attention.cu` with its headers inlined) is
-built beside it, and the two are run on the same inputs at the serving
-shape and at dbrx-132b's prefill shape (q [2,2048,48,128], k/v
-[2,2048,8,128], float32, causal): both checked against the plain
-version, whether their outputs are the same bits printed, and each
-timed in turns (parent, this, this, parent).  The parent's C entry may
-take one head dim (before the (Dqk, Dv) entries) or two.
+With `--parent DIR`, a checkout of an earlier commit (for example
+unpacked from `git archive`), that checkout's `flash_attention.cu` is
+built alone beside it (with its own headers), checked the same way at
+every shape and dtype, and timed in turns (parent, this, this, parent);
+whether the two outputs are the same bits is printed.  `--variants`
+builds copies of this source with another tile shape (`VARIANTS`: a
+`REPRO_FA_TUNE` line's warpgroups, keys a tile, stages and body) and
+holds and times each at its shape in turns with the source's own.
+`--apart` times copies that each leave one cost out (`APART`, never
+checked: their outputs are wrong by design) at `APART_SHAPES`.
+`--no-shapes` skips the checks and times at `SHAPES`.  Every check runs
+even after one fails; the exit code is 1 if any failed.
 """
 from __future__ import annotations
 
 import argparse
-import collections
 import ctypes
 import os
 import re
@@ -40,200 +43,329 @@ import tempfile
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(HERE, "..", "src"))
+sys.path.insert(0, HERE)
 
+from kernel_sweep import (_build, build, card_line, cuda_ms,  # noqa: E402
+                          entry)
+
+sys.path.insert(0, os.path.join(HERE, "..", "src"))
 from repro_torch.core._native import build_root  # noqa: E402
-from repro_torch.core.cuda import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
-# (kWarps, kBlockK, unroll of the scores' loop over head_dim); the
-# source's own first
-VARIANTS = [(8, 16, 8), (8, 16, 4), (8, 16, 2), (8, 16, 32), (4, 32, 8),
-            (4, 16, 8), (2, 32, 8), (2, 16, 8), (6, 16, 8), (4, 64, 8)]
-SOURCE = {"kWarps": 8, "kBlockK": 16}
-SCORES_LOOP = "#pragma unroll {}\n        for (int d0 = 0; d0 < D; d0 += 8)"
-SOURCE_UNROLL = 8
-MAIN = dict(B=2, S=3072, Hq=16, Hkv=1, D=256, window=2048)
-# dbrx-132b's prefill shape, for the comparison with a parent
-DBRX = dict(B=2, S=2048, Hq=48, Hkv=8, D=128, window=None)
-TOL = 2e-5
-# the float32, head_dim-256 instantiation's mangled name
-ENTRY = "fa_kernelIfLi256E"
+CSRC = os.path.join(HERE, "..", "src", "repro_torch", "csrc")
+# name: (B, Sq, Sk, Hq, Hkv, (Dqk, Dv), causal, window)
+SHAPES = {
+    "recurrentgemma": (2, 3072, 3072, 16, 1, (256, 256), True, 2048),
+    "dbrx": (2, 2048, 2048, 48, 8, (128, 128), True, None),
+    "mla": (2, 2048, 2048, 128, 128, (192, 128), True, None),
+    "seamless": (2, 2048, 2048, 16, 16, (64, 64), False, None),
+    "path_a": (4, 2048, 2048, 15, 5, (64, 64), True, None),
+    "decode": (4, 1, 1000, 16, 16, (64, 64), False, None),
+}
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (shape, dtype, warpgroups, keys a tile, stages[, mma]): a REPRO_FA_TUNE
+# line of the shape's instantiation set to these (mma 1: the mma.sync body,
+# 0: the wgmma body)
+VARIANTS = [
+    ("recurrentgemma", torch.float32, 1, 16, 2, 0),
+    ("mla", torch.float32, 2, 16, 3), ("mla", torch.float32, 1, 32, 2),
+    ("dbrx", torch.float32, 2, 32, 3), ("dbrx", torch.float32, 2, 16, 2),
+    ("path_a", torch.float32, 2, 32, 2), ("path_a", torch.float32, 2, 64, 3),
+    ("recurrentgemma", torch.bfloat16, 2, 32, 3),
+    ("dbrx", torch.bfloat16, 2, 64, 3), ("dbrx", torch.bfloat16, 2, 128, 3),
+    ("mla", torch.bfloat16, 2, 64, 3), ("mla", torch.bfloat16, 2, 64, 4),
+    ("path_a", torch.bfloat16, 2, 128, 3),
+    ("path_a", torch.bfloat16, 2, 64, 4),
+]
+# timing-only copies that each leave one cost out (their outputs are
+# wrong by design, never checked), timed at APART_SHAPES in turns with the
+# source's own: the ring's refills, the tile's first barrier, the S and
+# P.V products, the exponentials, float32's split of K and V
+APART = {
+    "no_fill": [("fill(i + kStages - 1);", "(void)0;"),
+                ("fill(i + kStages);", "(void)0;")],
+    "no_qk": [("product<float, kNk, kDq / 8, C::kChunk>(",
+               "if (false) product<float, kNk, kDq / 8, C::kChunk>("),
+              ("WgmmaSS<kNk>::mma(s, sw128_step",
+               "if (false) WgmmaSS<kNk>::mma(s, sw128_step")],
+    "no_pv": [(f"Wgmma<float, kPn>::mma(o[c], {a}, {b}, 1);",
+               f"if (false) Wgmma<float, kPn>::mma(o[c], {a}, {b}, 1);")
+              for a, b in (("ph[j]", "dh"), ("ph[j]", "dl"), ("pl[j]", "dh"))]
+    + [("WgmmaRT<kPn>::mma(", "if (false) WgmmaRT<kPn>::mma(")],
+    "no_exp": [("C::kF32 ? expf(x) : ex2_approx(x * kLog2e)", "x")],
+    "no_split": [("it < C::kKBytes / 16 / C::kThreads;", "it < 0;"),
+                 ("it < kNk / 8 * 2 * DV / C::kThreads;", "it < 0;")],
+    "no_scale": [("float val = s[4 * j + e] * scale;",
+                  "float val = s[4 * j + e]; continue;")],
+    "no_softmax": [("r < 2; ++r) {\n                float mx",
+                    "r < 0; ++r) {\n                float mx")],
+    "no_rescale": [("o[c][4 * j + 2 * r] *= alpha;", ""),
+                   ("o[c][4 * j + 2 * r + 1] *= alpha;", "")],
+    "no_epilogue": [("        if (row >= Sq) {", "        if (true) {")],
+    "no_store": [("                if (col < DV) {",
+                  "                if (col < 0) {")],
+    "no_sum": [("sum += s[4 * j + e];", "(void)0;")],
+    "recip": [("const float denom = (l_run[r] == 0.f) ? 1.f : l_run[r];",
+               "const float denom = 1.f / ((l_run[r] == 0.f) ? 1.f : "
+               "l_run[r]);"),
+              ("o[c][4 * j + 2 * r] / denom", "o[c][4 * j + 2 * r] * denom"),
+              ("o[c][4 * j + 2 * r + 1] / denom",
+               "o[c][4 * j + 2 * r + 1] * denom")],
+}
+APART["skeleton"] = (APART["no_qk"] + APART["no_pv"] + APART["no_scale"]
+                     + APART["no_softmax"] + APART["no_fill"])
+APART_SHAPES = [("dbrx", torch.float32), ("dbrx", torch.bfloat16),
+                ("mla", torch.float32), ("mla", torch.bfloat16)]
+V, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_float
+KERNEL = re.compile(r"(fa_fwd_kernel|fa_mma_kernel|fa_kernel)"
+                    r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?")
+failures: list[str] = []
 
 
-def variant_source(text: str, warps: int, block_k: int,
-                   unroll: int) -> str:
-    swaps = [(f"constexpr int {name} = {SOURCE[name]};",
-              f"constexpr int {name} = {value};")
-             for name, value in (("kWarps", warps), ("kBlockK", block_k))]
-    swaps.append((SCORES_LOOP.format(SOURCE_UNROLL),
-                  SCORES_LOOP.format(unroll)))
-    for old, new in swaps:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{old!r} is not in the source once")
-        text = text.replace(old, new)
-    return text
+def inlined(csrc: str) -> str:
+    """`flash_attention.cu` of a source directory with its headers
+    inlined, each once where first included, so a copy builds anywhere."""
+    with open(os.path.join(csrc, "flash_attention.cu")) as f:
+        text = f.read()
+    done = set()
+    while True:
+        m = re.search(r'#include "(\w+\.cuh)"', text)
+        if not m:
+            return text
+        body = ""
+        if m.group(1) not in done:
+            done.add(m.group(1))
+            with open(os.path.join(csrc, m.group(1))) as f:
+                body = f.read()
+        text = text[:m.start()] + body + text[m.end():]
 
 
-def ptxas_report(log: str) -> str:
-    """Registers, spills and shared memory of ENTRY from `-Xptxas -v`."""
+def tune_line(text: str, dtype, dims) -> str:
+    f32 = "true" if dtype == torch.float32 else "false"
+    m = re.search(rf"REPRO_FA_TUNE\({f32}, {dims[0]}, {dims[1]}, "
+                  r"\d+, \d+, \d+, \d\)", text)
+    if m is None:
+        raise RuntimeError(f"no REPRO_FA_TUNE line for {f32} {dims}")
+    return m.group(0)
+
+
+def kernel_name(mangled: str) -> str:
+    m = KERNEL.search(mangled)
+    if m is None:
+        return mangled[:50]
+    dt = "float32" if m.group(2) == "f" else "bf16"
+    dims = m.group(3) + (f", {m.group(4)}" if m.group(4) else "")
+    return f"{m.group(1)}<{dt}, {dims}>"
+
+
+def report(label: str, so: str, log: str) -> None:
+    """Registers and spills of each forward instantiation, and its SASS
+    HGMMA and HMMA counts."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and ENTRY in line:
-            rest = " ".join(l.strip() for l in lines[i + 1:i + 4])
-            regs = re.search(r"Used (\d+) registers", rest)
-            spill = re.search(r"(\d+) bytes spill stores", rest)
-            return (f"{regs.group(1) if regs else '?'} registers, "
-                    f"{spill.group(1) if spill else '?'} bytes spill stores")
-    return "no report"
-
-
-def sass_counts(lib_path: str) -> None:
-    """Instruction counts of the head_dim-256 kernels' SASS."""
+        if "Compiling entry function" not in line or not KERNEL.search(line):
+            continue
+        rest = " ".join(part.strip() for part in lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", rest)
+        spill = re.search(r"(\d+) bytes spill stores", rest)
+        print(f"{label} {kernel_name(line)}: "
+              f"{regs.group(1) if regs else '?'} registers, "
+              f"{spill.group(1) if spill else '?'} bytes spill stores",
+              flush=True)
+    for line in lines:
+        if "C75" in line:   # ptxas's notes on serialized wgmma
+            print(f"{label} ptxas: {line.strip()[:200]}", flush=True)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
-        print("sass: cuobjdump not found", flush=True)
+        print(f"{label} sass: cuobjdump not found", flush=True)
         return
-    sass = subprocess.run([cuobjdump, "-sass", lib_path],
-                          capture_output=True, text=True, timeout=120).stdout
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, timeout=120).stdout
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = func.split("\n", 1)[0].strip()
-        if "fa_kernel" not in name or "Li256E" not in name:
+        if not KERNEL.search(name):
             continue
         ops = re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", func)
-        mma = collections.Counter(op for op in ops if "MMA" in op)
-        kind = "bf16" if "bfloat16" in name else "float32"
-        print(f"sass {kind} head_dim 256: {len(ops)} instructions, "
-              f"{dict(mma)}, LDS {sum(op.startswith('LDS') for op in ops)}",
-              flush=True)
+        print(f"{label} sass {kernel_name(name)}: {len(ops)} instructions, "
+              f"HGMMA {sum(op.startswith('HGMMA') for op in ops)}, "
+              f"HMMA {sum(op.startswith('HMMA') for op in ops)}, "
+              f"LDS {sum(op.startswith('LDS') for op in ops)}, "
+              f"STS {sum(op.startswith('STS') for op in ops)}", flush=True)
 
 
-def source(csrc: str) -> str:
-    """`flash_attention.cu` of a source directory with `fa_common.cuh`
-    inlined, so the block constants it holds can be swapped too and a
-    copy builds anywhere."""
-    with open(os.path.join(csrc, "flash_attention.cu")) as f:
-        text = f.read()
-    with open(os.path.join(csrc, "fa_common.cuh")) as f:
-        return text.replace('#include "fa_common.cuh"', f.read())
+def entries(so: str, two_dims: bool) -> dict:
+    """{dtype: the library's forward entry, called with this source's
+    arguments}; an entry of one head dim drops Dv."""
+    fns = {}
+    for dtype, name in ((torch.float32, "flash_attention_f32"),
+                        (torch.bfloat16, "flash_attention_bf16")):
+        fn = entry(so, name, [V] * 5 + [I64] * (7 if two_dims else 6) +
+                   [I32, I32, I64, I32, F32, F32, I64, V])
+        fns[dtype] = fn if two_dims else (
+            lambda *a, fn=fn: fn(*a[:11], *a[12:]))
+    return fns
 
 
-def argtypes(two_dims: bool) -> list:
-    """The C entry's arguments: q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
-    the head dim (Dqk, Dv with `two_dims`), causal, has_window, window,
-    has_softcap, softcap, scale, q_offset, stream."""
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    f32 = ctypes.c_float
-    return ([vp] * 5 + [i64] * (7 if two_dims else 6)
-            + [i32, i32, i64, i32, f32, f32, i64, vp])
+def inputs(shape, dtype, seed=1):
+    B, Sq, Sk, Hq, Hkv, (Dqk, Dv), _, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Sq, Hq, Dqk), generator=g, device="cuda")
+    k = torch.randn((B, Sk, Hkv, Dqk), generator=g, device="cuda")
+    v = torch.randn((B, Sk, Hkv, Dv), generator=g, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def build(tmp: str) -> dict:
-    text = source(os.path.join(HERE, "..", "src", "repro_torch", "csrc"))
-    procs = {}
-    for shape in VARIANTS:
-        name = "w{}k{}u{}".format(*shape)
-        path = os.path.join(tmp, name + ".cu")
-        with open(path, "w") as f:
-            f.write(variant_source(text, *shape))
-        procs[shape] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-             os.path.join(tmp, name + ".so"), path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for shape, proc in procs.items():
-        out, _ = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {shape}:\n{out}")
-        lib = ctypes.CDLL(os.path.join(tmp, "w{}k{}u{}.so".format(*shape)))
-        fn = lib.flash_attention_f32
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes(True)
-        print(f"variant kWarps={shape[0]} kBlockK={shape[1]} "
-              f"unroll={shape[2]}: {ptxas_report(out)}", flush=True)
-        if shape == VARIANTS[0]:
-            sass_counts(os.path.join(tmp, "w{}k{}u{}.so".format(*shape)))
-        libs[shape] = fn
-    return libs
+def caller(fn, shape, q, k, v, out, lse=None):
+    B, Sq, Sk, Hq, Hkv, (Dqk, Dv), causal, window = shape
+
+    def call():
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv,
+                Dqk, Dv, int(causal), int(window is not None), window or 0,
+                0, 0.0, Dqk ** -0.5, 0,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+    return call
 
 
-def cuda_ms(fn, reps: int) -> float:
-    fn()
+def check(label, fn, shape, dtype, q, k, v, want) -> torch.Tensor:
+    """One kernel against the plain version: the error, two calls the same
+    bits, `out` the same with the log-sum-exp; returns the output."""
+    B, Sq, _, Hq = shape[:4]
+    out, again, with_lse = (q.new_empty(q.shape[:3] + (shape[5][1],))
+                            for _ in range(3))
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device="cuda")
+    caller(fn, shape, q, k, v, out)()
+    caller(fn, shape, q, k, v, again)()
+    caller(fn, shape, q, k, v, with_lse, lse)()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def parent_entry(parent: str, tmp: str):
-    """The parent checkout's float32 forward, built alone: (its C
-    function, whether it takes Dqk and Dv)."""
-    text = source(os.path.join(parent, "src", "repro_torch", "csrc"))
-    path = os.path.join(tmp, "parent.cu")
-    with open(path, "w") as f:
-        f.write(text)
-    so = path[:-3] + ".so"
-    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                          "-o", so, path], capture_output=True, text=True,
-                         timeout=600)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the parent:\n{out.stdout}"
-                           f"{out.stderr}")
-    two_dims = "int64_t Dv" in text
-    fn = ctypes.CDLL(so).flash_attention_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes(two_dims)
-    print(f"parent {parent}: {ptxas_report(out.stdout + out.stderr)}",
+    err = float((out.float() - want).abs().max())
+    same = torch.equal(out, again) and torch.equal(out, with_lse)
+    ok = err <= TOL[dtype] and same and bool(torch.isfinite(lse).all())
+    if not ok:
+        failures.append(f"{label} {dtype}")
+    print(f"  {label}: max abs error {err!r} (tolerance {TOL[dtype]}), "
+          f"same bits twice and with lse {same}, lse finite "
+          f"{bool(torch.isfinite(lse).all())}{'' if ok else '  FAILED'}",
           flush=True)
-    return fn, two_dims
+    return out
 
 
-def compare(this_fn, parent_fn, parent_two_dims: bool) -> None:
-    """This source's kernel and the parent's on the same inputs at MAIN
-    and DBRX: both against the plain version, the same bits or not, and
-    the times in turns (parent, this, this, parent)."""
-    for shape in (MAIN, DBRX):
-        B, S, Hq, Hkv, D, window = (shape[k] for k in
-                                    ("B", "S", "Hq", "Hkv", "D", "window"))
-        g = torch.Generator(device="cuda").manual_seed(1)
-        q = torch.randn((B, S, Hq, D), generator=g, device="cuda")
-        k = torch.randn((B, S, Hkv, D), generator=g, device="cuda")
-        v = torch.randn((B, S, Hkv, D), generator=g, device="cuda")
-        want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
-        outs = {"this": torch.empty_like(q), "parent": torch.empty_like(q)}
+def sdpa(shape, q, k, v):
+    """One PyTorch call for the same function (explicit mask with a
+    window, `is_causal` without)."""
+    F = torch.nn.functional
+    _, Sq, Sk, Hq, Hkv, _, causal, window = shape
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = {"enable_gqa": Hq != Hkv}
+    if window is not None:
+        pos_q = torch.arange(Sq, device="cuda")[:, None]
+        pos_k = torch.arange(Sk, device="cuda")[None, :]
+        kw["attn_mask"] = (pos_k <= pos_q) & (pos_k > pos_q - window)
+    elif causal:
+        kw["is_causal"] = True
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
-        def call(who):
-            fn, dims = ((this_fn, (D, D)) if who == "this" else
-                        (parent_fn, (D, D) if parent_two_dims else (D,)))
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    outs[who].data_ptr(), None, B, S, S, Hq, Hkv, *dims, 1,
-                    int(window is not None), window or 0, 0, 0.0,
-                    D ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"{who} launch failed: CUDA error {rc}")
 
-        for who in outs:
-            call(who)
-        torch.cuda.synchronize()
-        errs = {who: float((out - want).abs().max())
-                for who, out in outs.items()}
-        if not max(errs.values()) <= TOL:
-            raise AssertionError(f"parent comparison error {errs!r}")
-        ms = {"parent": [], "this": []}
-        for who in ("parent", "this", "this", "parent"):
-            ms[who].append(cuda_ms(lambda: call(who), 10))
-        print(f"compare q [{B},{S},{Hq},{D}] k/v [{B},{S},{Hkv},{D}] "
-              f"float32, causal, window {window}: parent {ms['parent']!r} "
-              f"ms, this {ms['this']!r} ms; max abs error {errs!r}; same "
-              f"bits {torch.equal(outs['this'], outs['parent'])}",
+def run_shapes(names, this, parent) -> None:
+    for name in names:
+        shape = SHAPES[name]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = inputs(shape, dtype)
+            want = fa.flash_attention_plain(
+                q, k, v, causal=shape[6], window=shape[7]).float()
+            print(f"{name} {str(dtype)[6:]}: q {list(q.shape)} k "
+                  f"{list(k.shape)} v {list(v.shape)}, causal {shape[6]}, "
+                  f"window {shape[7]}", flush=True)
+            mine = check("this", this[dtype], shape, dtype, q, k, v, want)
+            out = torch.empty_like(mine)
+            calls = {"this": caller(this[dtype], shape, q, k, v, out)}
+            if parent is not None:
+                theirs = check("parent", parent[dtype], shape, dtype, q, k,
+                               v, want)
+                print(f"  the same bits as the parent "
+                      f"{torch.equal(mine, theirs)}", flush=True)
+                calls["parent"] = caller(parent[dtype], shape, q, k, v, out)
+            ms = {who: [] for who in calls}
+            order = (("parent", "this", "this", "parent") if parent
+                     else ("this", "this"))
+            for who in order:
+                ms[who].append(cuda_ms(calls[who], 10))
+            lib = cuda_ms(sdpa(shape, q, k, v), 10)
+            print(f"  ms: this {ms['this']!r}"
+                  + (f", parent {ms['parent']!r}" if parent else "")
+                  + f", sdpa {lib!r}", flush=True)
+            del q, k, v, want, mine, out
+            torch.cuda.empty_cache()
+
+
+def run_variants(tmp, text, this) -> None:
+    sources = {}
+    for key in VARIANTS:
+        name, dtype, wg, nk, stages, mma = key + (0,) * (6 - len(key))
+        line = tune_line(text, dtype, SHAPES[name][5])
+        new = re.sub(r"\d+, \d+, \d+, \d\)$",
+                     f"{wg}, {nk}, {stages}, {mma})", line)
+        sources[key] = text.replace(line, new)
+    built = build(tempfile.mkdtemp(dir=tmp), sources, label=str)
+    for key, (so, log) in built.items():
+        name, dtype, wg, nk, stages, mma = key + (0,) * (6 - len(key))
+        label = f"variant {name} {str(dtype)[6:]} kWG={wg} kNk={nk} " \
+                f"kStages={stages} kMma={mma}"
+        shape = SHAPES[name]
+        fn = entries(so, True)[dtype]
+        q, k, v = inputs(shape, dtype)
+        want = fa.flash_attention_plain(q, k, v, causal=shape[6],
+                                        window=shape[7]).float()
+        print(label, flush=True)
+        try:
+            mine = check("variant", fn, shape, dtype, q, k, v, want)
+        except RuntimeError as e:   # a tile that does not fit
+            print(f"  {e}", flush=True)
+            continue
+        out = torch.empty_like(mine)
+        calls = {"variant": caller(fn, shape, q, k, v, out),
+                 "this": caller(this[dtype], shape, q, k, v, out)}
+        ms = {"variant": [], "this": []}
+        for who in ("this", "variant", "variant", "this"):
+            ms[who].append(cuda_ms(calls[who], 10))
+        print(f"  ms: variant {ms['variant']!r}, this {ms['this']!r}",
               flush=True)
-        del q, k, v, want, outs
+        del q, k, v, want, mine, out
+        torch.cuda.empty_cache()
+
+
+def run_apart(tmp, text, this) -> None:
+    sources = {}
+    for name, swaps in APART.items():
+        copy = text
+        for a, b in swaps:   # an anchor may be in one dtype's path only
+            if copy.count(a) > 1:
+                raise RuntimeError(f"{a!r} is in the source more than once")
+            copy = copy.replace(a, b)
+        if copy == text:
+            raise RuntimeError(f"no anchor of {name} is in the source")
+        sources[name] = copy
+    built = build(tempfile.mkdtemp(dir=tmp), sources, label=str)
+    for shape_name, dtype in APART_SHAPES:
+        shape = SHAPES[shape_name]
+        q, k, v = inputs(shape, dtype)
+        out = q.new_empty(q.shape[:3] + (shape[5][1],))
+        calls = {"this": caller(this[dtype], shape, q, k, v, out)}
+        for name, (so, _) in built.items():
+            calls[name] = caller(entries(so, True)[dtype], shape, q, k, v,
+                                 out)
+        ms = {who: [] for who in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for who in order:
+                ms[who].append(cuda_ms(calls[who], 10))
+        print(f"apart {shape_name} {str(dtype)[6:]} (timing only): "
+              + ", ".join(f"{who} {t!r}" for who, t in ms.items()),
+              flush=True)
+        del q, k, v, out
         torch.cuda.empty_cache()
 
 
@@ -241,57 +373,44 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--parent", default=None,
                     help="a checkout of an earlier commit to compare with")
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--apart", action="store_true")
+    ap.add_argument("--no-shapes", dest="shapes", action="store_false",
+                    help="skip the checks and times at SHAPES")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fa_sweep: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    B, S, Hq, Hkv, D, window = (MAIN[k] for k in
-                                ("B", "S", "Hq", "Hkv", "D", "window"))
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((B, S, Hq, D), generator=g, device="cuda")
-    k = torch.randn((B, S, Hkv, D), generator=g, device="cuda")
-    v = torch.randn((B, S, Hkv, D), generator=g, device="cuda")
-    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
-    out = torch.empty_like(q)
-    root = build_root()
-    with tempfile.TemporaryDirectory(dir=root) as tmp:
-        libs = build(tmp)
-        print(f"shape q [{B},{S},{Hq},{D}] k/v [{B},{S},{Hkv},{D}] float32, "
-              f"causal, window {window}", flush=True)
-        fits = {}
-        for _ in range(2):
-            for shape, fn in libs.items():
-                def call(fn=fn):
-                    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), None, B, S, S, Hq, Hkv, D,
-                              D, 1, 1,
-                              window, 0, 0.0, D ** -0.5, 0,
-                              torch.cuda.current_stream().cuda_stream)
-                if fits.get(shape, True):
-                    rc = call()
-                    fits[shape] = rc == 0
-                if not fits[shape]:
-                    print(f"  kWarps={shape[0]} kBlockK={shape[1]} "
-                          f"unroll={shape[2]}: does not fit (launch "
-                          f"refused)", flush=True)
-                    continue
-                torch.cuda.synchronize()
-                err = float((out - want).abs().max())
-                if not err <= TOL:
-                    raise AssertionError(f"variant {shape} error {err!r}")
-                ms = cuda_ms(call, 10)
-                print(f"  kWarps={shape[0]} kBlockK={shape[1]} "
-                      f"unroll={shape[2]}: {ms!r} ms (max abs error "
-                      f"{err!r})", flush=True)
-        del q, k, v, want, out
-        torch.cuda.empty_cache()
-        if args.parent:
-            compare(libs[VARIANTS[0]], *parent_entry(args.parent, tmp))
-    return 0
+    print(card_line(), flush=True)
+    text = inlined(CSRC)
+    sources = {"this": text}
+    if args.parent:
+        sources["parent"] = inlined(os.path.join(args.parent, "src",
+                                                 "repro_torch", "csrc"))
+    # a directory for each batch of builds: ctypes keeps a library loaded by
+    # its path, so a path is never built twice
+    with tempfile.TemporaryDirectory(dir=build_root()) as tmp:
+        built = build(tempfile.mkdtemp(dir=tmp), sources, label=str)
+        if "this" not in built:
+            return 1
+        for who, (so, log) in built.items():
+            report(who, so, log)
+        this = entries(built["this"][0], True)
+        parent = None
+        if "parent" in built:
+            parent = entries(built["parent"][0],
+                             "int64_t Dv" in sources["parent"])
+        elif args.parent:
+            failures.append("the parent does not build")
+        if args.apart:
+            run_apart(tmp, text, this)
+        if args.shapes:
+            run_shapes(list(SHAPES), this, parent)
+        if args.variants:
+            run_variants(tmp, text, this)
+    if failures:
+        print(f"FAILED: {failures}", flush=True)
+    return 1 if failures else 0
 
 
 if __name__ == "__main__":
