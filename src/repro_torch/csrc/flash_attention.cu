@@ -34,7 +34,8 @@
 // 16-key tiles, where every warp split every K and V element it read into
 // TF32 hi and lo (most of its instructions), 237 registers at D = 256:
 // 3.31 ms at the serving shape, 25 % of its bound, and 3.2-3.6 % slower
-// than SDPA at MLA's (192, 128) (H100 80GB HBM3, 700 W; PERF.md).
+// than SDPA at MLA's (192, 128) (H100 80GB HBM3, 700 W; PERF.md).  It
+// ran float32 at D = 256 until the D-halved body below replaced it.
 //
 // This design (warpgroup products, `wgmma`, hopper_common.cuh), timed
 // part by part with tools/fa_sweep.py --apart (PERF.md):
@@ -82,10 +83,22 @@
 //   two warpgroups, 64-key tiles below D = 128, 32 at 128, 16 at (192,
 //   128) (the Q rows of two warpgroups take 100 KB there); bf16 two
 //   warpgroups and 128 keys (64 at D = 256, where O takes 128
-//   registers).  float32 at D = 256 keeps the previous body (`kMma`,
-//   `fa_mma_kernel` below): Q for two warpgroups (132 KB) leaves no room
-//   for the split tiles, and one warpgroup with 16-key tiles, its S on
-//   m64n16 products, was 14 % slower than it.
+//   registers).
+// - float32 at D = 256 (`kHalves`): whole split tiles beside two
+//   warpgroups' Q (132 KB padded) do not fit, and one warpgroup with
+//   16-key tiles (S on m64n16 products) was slower than the previous
+//   body.  So each K and V tile of 32 keys streams as two 128-column
+//   halves through a ring of two 16 KB halves (K swizzled, V as rows),
+//   and the block splits each half into a slot of its own (a hi and a lo
+//   half: K's in the swizzled layout, V^T's transposed), slot h for half
+//   h: S sums K's halves in one accumulator (k-steps of half 0 from slot
+//   0, then half 1's from slot 1), O's pieces 0-1 take V^T's half 0 and
+//   pieces 2-3 half 1.  Q is stored unpadded (128 KB), each 16-byte chunk
+//   of a row at chunk c ^ (row % 8) so that the fragment loads stay free
+//   of conflicts.  V(i) lands while S(i) runs and K(i+1) while O(i) runs;
+//   the splits run between barriers (the slots are shared by both
+//   warpgroups; splitting each half under the other half's products, six
+//   barriers a tile, was no faster on an H100: 2.17 against 2.12-2.15 ms).
 // Every sum has one order, so two calls give the same bits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -99,25 +112,23 @@
 namespace {
 
 // A launch's tile shape: kWG warpgroups of 64 q rows, kNk keys a tile,
-// kStages stages of the ring; kMma 1 keeps the previous body (mma.sync,
-// `fa_mma_kernel`) where it is the faster: float32 at D = 256,
-// where two warpgroups of 64 rows do not fit shared memory beside the
-// split tiles and one warpgroup with 16-key tiles (S on m64n16 products)
-// took 3.77 ms against its 3.30 at recurrentgemma-9b's shape (PERF.md)
+// kStages stages of the ring, and HALVES 1 for float32 at D = 256, each K
+// and V tile streamed as two 128-column halves (the ring then holds
+// kStages halves)
 template <bool kF32, int DQ, int DV>
 struct Tune;
-#define REPRO_FA_TUNE(F32, DQ, DV, WG, NK, STAGES, MMA)                      \
+#define REPRO_FA_TUNE(F32, DQ, DV, WG, NK, STAGES, HALVES)                   \
     template <>                                                               \
     struct Tune<F32, DQ, DV> {                                                \
         static constexpr int kWG = WG, kNk = NK, kStages = STAGES;            \
-        static constexpr bool kMma = MMA;                                     \
+        static constexpr bool kHalves = HALVES;                               \
     };
 REPRO_FA_TUNE(true, 16, 16, 2, 64, 2, 0)
 REPRO_FA_TUNE(true, 32, 32, 2, 64, 2, 0)
 REPRO_FA_TUNE(true, 64, 64, 2, 64, 2, 0)
 REPRO_FA_TUNE(true, 128, 128, 2, 32, 2, 0)
 REPRO_FA_TUNE(true, 192, 128, 2, 16, 2, 0)
-REPRO_FA_TUNE(true, 256, 256, 1, 16, 2, 1)
+REPRO_FA_TUNE(true, 256, 256, 2, 32, 2, 1)
 REPRO_FA_TUNE(false, 16, 16, 2, 128, 2, 0)
 REPRO_FA_TUNE(false, 32, 32, 2, 128, 2, 0)
 REPRO_FA_TUNE(false, 64, 64, 2, 128, 2, 0)
@@ -133,6 +144,7 @@ struct FwdCfg {
     static constexpr int kWG = Tn::kWG;
     static constexpr int kNk = Tn::kNk;
     static constexpr int kStages = Tn::kStages;
+    static constexpr bool kHalves = Tn::kHalves;
     static constexpr int kEs = static_cast<int>(sizeof(T));
     static constexpr int kThreads = 128 * kWG;
     static constexpr int kBlockQ = 64 * kWG;
@@ -162,8 +174,21 @@ struct FwdCfg {
     static constexpr int kOffStages = (kQBytes + 1023) / 1024 * 1024;
     static constexpr int kOffKlo = kOffStages + kStages * kStage;
     static constexpr int kOffVt = kOffKlo + (kF32 ? kKBytes : 0);
+    // kHalves: Q unpadded (rows swizzled in 16-byte chunks instead), a
+    // ring of kStages halves of kHw columns (K swizzled, V as rows), and
+    // two slots of a hi and a lo half (K's split, or V^T's: kHw rows of
+    // kNk keys), slot h for half h
+    static constexpr int kHw = DQ / 2;
+    static constexpr int kHalf = kNk * kHw * 4;
+    static constexpr int kOffLand = kBlockQ * kDq * 4;
+    static constexpr int kOffSlots = kOffLand + kStages * kHalf;
     static constexpr int kBytes =
-        kOffVt + (kF32 ? 2 * kVtBytes : 0) + 1024;   // and the alignment
+        kHalves ? kOffSlots + 4 * kHalf + 1024
+                : kOffVt + (kF32 ? 2 * kVtBytes : 0) + 1024;   // alignment
+    static_assert(!kHalves || (kF32 && DQ == 256 && DV == 256 &&
+                               kNk == 32 && kHalf % 1024 == 0),
+                  "halves: float32 at (256, 256), a V^T half one "
+                  "128-byte row of keys");
     static_assert(kKBytes % 1024 == 0 && kVBytes % 1024 == 0 &&
                       kVtBytes % 1024 == 0,
                   "swizzled tiles start on 1024 bytes");
@@ -300,8 +325,49 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     };
 
+    // kHalves: half hh of tile m's K (y 0) or V (y 1) into the ring's
+    // half hh (one cp.async group)
+    auto fill_half = [&](int64_t m, int y, int hh) {
+        if constexpr (C::kHalves) {
+            const int64_t k0 = (t_begin + m) * kNk;
+            unsigned char* dst = smem + C::kOffLand + hh * C::kHalf;
+            if (m < n_tiles) {
+                if (y == 0) {
+                    copy_tile<T, C::kHw, C::kHw, kNk, C::kThreads, true>(
+                        dst, kb + hh * C::kHw, k_stride, k0, Sk);
+                } else {
+                    copy_tile<T, C::kHw, C::kHw, kNk, C::kThreads, false>(
+                        dst, vb + hh * C::kHw, v_stride, k0, Sk);
+                }
+            }
+            cp_async_commit();
+        }
+    };
+
     // Q of the block's rows (zeros past Sq and past DQ)
-    if constexpr (C::kF32) {
+    if constexpr (C::kHalves) {
+        // as below, and each 16-byte chunk c of a row r stored at chunk
+        // c ^ (r % 8) of its 128 bytes: no padding, and a warp's fragment
+        // loads still touch every bank evenly
+        for (int i = threadIdx.x; i < C::kBlockQ * (kDq / 8);
+             i += C::kThreads) {
+            const int r = i / (kDq / 8);
+            const int s = i % (kDq / 8);
+            float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+            if (q0 + r < Sq) {
+                const float* src = reinterpret_cast<const float*>(qb) +
+                                   (q0 + r) * q_stride + 8 * s;
+                x0 = *reinterpret_cast<const float4*>(src);
+                x1 = *reinterpret_cast<const float4*>(src + 4);
+            }
+            unsigned char* row = smem + r * kDq * 4 + (s >> 2) * 128;
+            const int c = 2 * (s & 3);
+            *reinterpret_cast<float4*>(row + ((c ^ (r & 7)) << 4)) =
+                make_float4(x0.x, x1.x, x0.y, x1.y);
+            *reinterpret_cast<float4*>(row + (((c + 1) ^ (r & 7)) << 4)) =
+                make_float4(x0.z, x1.z, x0.w, x1.w);
+        }
+    } else if constexpr (C::kF32) {
         // 8 floats a thread: d 8s..8s+7 of a row stored as d 8s, 8s+4,
         // 8s+1, 8s+5, 8s+2, 8s+6, 8s+3, 8s+7
         float* qs = reinterpret_cast<float*>(smem);
@@ -331,11 +397,16 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // the ring's first tiles: bf16 refills a stage at the top of the next
     // tile, float32 once the tile's S and split are past it
     constexpr int kAhead = C::kF32 ? kStages : kStages - 1;
-    for (int64_t m = 0; m < kAhead; ++m) {
-        if (m < n_tiles) {
-            fill(m);
+    if constexpr (C::kHalves) {
+        fill_half(0, 0, 0);
+        fill_half(0, 0, 1);
+    } else {
+        for (int64_t m = 0; m < kAhead; ++m) {
+            if (m < n_tiles) {
+                fill(m);
+            }
+            cp_async_commit();   // one group a tile, empty or not
         }
-        cp_async_commit();   // one group a tile, empty or not
     }
 
     // this warpgroup's rows [wq0, wq0 + 64), of which wrows < Sq; this
@@ -411,7 +482,60 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             *reinterpret_cast<uint4*>(vt + C::kVtBytes + off) = lo;
         }
     };
-    if constexpr (C::kF32) {
+    // kHalves: the ring's K halves split into the slots' hi and lo halves
+    // (the same swizzled layout), and its V halves into V^T's (as split_v)
+    const uint32_t slot_addr = smem_u32(smem + C::kOffSlots);
+    auto split_k_half = [&](int hh) {
+        if constexpr (C::kHalves) {
+            constexpr int kPer = C::kHalf / 16 / C::kThreads;
+            static_assert(kPer * 16 * C::kThreads == C::kHalf, "rounds");
+            const float4* src = reinterpret_cast<const float4*>(
+                smem + C::kOffLand + hh * C::kHalf);
+            uint4* dst = reinterpret_cast<uint4*>(smem + C::kOffSlots +
+                                                  hh * 2 * C::kHalf);
+#pragma unroll
+            for (int it = 0; it < kPer; ++it) {
+                const int x = threadIdx.x + it * C::kThreads;
+                const float4 raw = src[x];
+                uint4 hi;
+                uint4 lo;
+                split(raw.x, hi.x, lo.x);
+                split(raw.y, hi.y, lo.y);
+                split(raw.z, hi.z, lo.z);
+                split(raw.w, hi.w, lo.w);
+                dst[x] = hi;
+                dst[x + C::kHalf / 16] = lo;
+            }
+        }
+    };
+    auto split_v_half = [&](int hh) {
+        if constexpr (C::kHalves) {
+            constexpr int kHw = C::kHw;
+            constexpr int kPer = kNk / 8 * 2 * kHw / C::kThreads;
+            static_assert(kPer * C::kThreads == kNk / 8 * 2 * kHw, "rounds");
+            const float* vr = reinterpret_cast<const float*>(
+                smem + C::kOffLand + hh * C::kHalf);
+            unsigned char* vt = smem + C::kOffSlots + hh * 2 * C::kHalf;
+#pragma unroll
+            for (int it = 0; it < kPer; ++it) {
+                const int x = threadIdx.x + it * C::kThreads;
+                const int d = x % kHw;
+                const int p = (x / kHw) & 1;
+                const int kg = x / (2 * kHw);
+                uint4 hi;
+                uint4 lo;
+                const float* src = vr + (8 * kg + p) * kHw + d;
+                split(src[0], hi.x, lo.x);
+                split(src[2 * kHw], hi.y, lo.y);
+                split(src[4 * kHw], hi.z, lo.z);
+                split(src[6 * kHw], hi.w, lo.w);
+                const uint32_t off = sw128_offset(kHw, d, 32 * kg + 16 * p);
+                *reinterpret_cast<uint4*>(vt + off) = hi;
+                *reinterpret_cast<uint4*>(vt + C::kHalf + off) = lo;
+            }
+        }
+    };
+    if constexpr (C::kF32 && !C::kHalves) {
         if (n_tiles > 0) {   // tile 0's K, published by the loop's barrier
             cp_async_wait<kStages - 1>();
             __syncthreads();
@@ -429,7 +553,16 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int64_t k0 = (t_begin + i) * kNk;
         unsigned char* st = stages + (i % kStages) * C::kStage;
         const uint32_t k_addr = smem_u32(st);
-        if constexpr (C::kF32) {
+        if constexpr (C::kHalves) {
+            cp_async_wait<0>();   // this thread's copies of K(i)
+            __syncthreads();   // every copy is in; O(i-1) is done everywhere
+            split_k_half(0);
+            split_k_half(1);
+            fence_proxy_async();
+            __syncthreads();   // the slots hold K(i); the ring is free
+            fill_half(i, 1, 0);   // V(i) lands while S(i) runs
+            fill_half(i, 1, 1);
+        } else if constexpr (C::kF32) {
             __syncthreads();   // K(i) is split; tile i-1 is done everywhere
         } else {
             cp_async_wait<kStages - 2>();   // this thread's copies of tile i
@@ -454,7 +587,43 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // free: O(i-1) is done everywhere), after which the stage of tile
         // i is free and takes tile i + kStages
         float s[kNk / 2];
-        if constexpr (C::kF32) {
+        if constexpr (C::kHalves) {
+            // over K's two halves into one accumulator: k-steps of half 0
+            // from slot 0, then half 1's from slot 1
+            constexpr int kHs = C::kHw / 8;   // k-steps a half
+            constexpr int kC = C::kChunk;
+            const uint64_t dk0 = sw128_desc(slot_addr, kNk, 0);
+            const unsigned char* qr =
+                smem + (64 * wg + 16 * warp + g) * kDq * 4;
+            const int gx = g ^ (t >> 1);
+            // Q's A registers of k-step kq: d 8kq + 2t, + 1 as stored, in
+            // chunk 2kq + t / 2 with its low 3 bits XOR the row's (g)
+            auto qfrag = [&](int kq, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                const int at = 128 * (kq >> 2) + 16 * ((2 * (kq & 3)) ^ gx) +
+                               8 * (t & 1);
+                const float2 r0 = *reinterpret_cast<const float2*>(qr + at);
+                const float2 r1 = *reinterpret_cast<const float2*>(
+                    qr + 8 * kDq * 4 + at);
+                split(r0.x, hi[0], lo[0]);
+                split(r1.x, hi[1], lo[1]);
+                split(r0.y, hi[2], lo[2]);
+                split(r1.y, hi[3], lo[3]);
+            };
+            // K's hi (copy 0) or lo of k-step kq: slot kq / kHs
+            auto kdesc = [&](int kq, int copy) {
+                return sw128_step(
+                    dk0 + ((kq / kHs) * 2 + copy) * (C::kHalf >> 4), kNk,
+                    32 * (kq % kHs));
+            };
+            product<float, kNk, 2 * kHs, kC>(
+                s,
+                [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                    qfrag(kk, hi, lo);
+                },
+                [&](int kk, int copy) { return kdesc(kk, copy); }, false);
+            wgmma_wait<0>();
+            fence_regs(s);
+        } else if constexpr (C::kF32) {
             const uint64_t dkh = sw128_desc(k_addr, kNk, 0);
             const uint64_t dkl = sw128_desc(klo_addr, kNk, 0);
             product<float, kNk, kDq / 8, C::kChunk>(
@@ -611,6 +780,53 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 fence_regs(ph[j]);
                 fence_regs(pl[j]);
             }
+            if constexpr (C::kHalves) {
+                // O's pieces 0-1 from slot 0 (V^T half 0), pieces 2-3 from
+                // slot 1
+                constexpr int kPh = kPieces / 2;
+                auto o_half = [&](int hh) {
+                    wgmma_fence();
+#pragma unroll
+                    for (int j = 0; j < kNk / 8; ++j) {
+#pragma unroll
+                        for (int c2 = 0; c2 < kPh; ++c2) {
+                            const int c = hh * kPh + c2;
+                            const uint32_t at = slot_addr +
+                                                hh * 2 * C::kHalf +
+                                                c2 * kPn * 128;
+                            const uint64_t dh =
+                                sw128_desc(at, C::kHw, 32 * j);
+                            const uint64_t dl =
+                                sw128_desc(at + C::kHalf, C::kHw, 32 * j);
+                            Wgmma<float, kPn>::mma(o[c], ph[j], dh, 1);
+                            Wgmma<float, kPn>::mma(o[c], ph[j], dl, 1);
+                            Wgmma<float, kPn>::mma(o[c], pl[j], dh, 1);
+                        }
+                    }
+                    wgmma_commit();
+                };
+                cp_async_wait<0>();   // this thread's copies of V(i)
+                __syncthreads();   // every copy is in; S(i) done everywhere
+                split_v_half(0);
+                split_v_half(1);
+                fence_proxy_async();
+                __syncthreads();   // the slots hold V^T(i); the ring is free
+                fill_half(i + 1, 0, 0);   // K(i+1) lands while O(i) runs
+                fill_half(i + 1, 0, 1);
+                o_half(0);
+                o_half(1);
+                wgmma_wait<0>();
+#pragma unroll
+                for (int j = 0; j < kNk / 8; ++j) {
+                    fence_regs(ph[j]);
+                    fence_regs(pl[j]);
+                }
+#pragma unroll
+                for (int c = 0; c < kPieces; ++c) {
+                    fence_regs(o[c]);
+                }
+                continue;
+            }
             wgmma_fence();
 #pragma unroll
             for (int j = 0; j < kNk / 8; ++j) {
@@ -712,267 +928,28 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// ------------------------------------------------------------------ //
-// The previous body, kept where `Tune` says kMma: mma.sync m16n8
-// on the tensor cores, 8 warps of 16 q rows (a 128-row q tile) and 16-key
-// tiles double-buffered by cp.async; float32 as split TF32 with every
-// warp splitting the K and V elements it reads (fa_common.cuh `Mma`), the
-// contraction index permuted so that each fragment is one 8-byte shared
-// load and S's accumulator is P's operand as it stands; shared-memory
-// rows padded so that a warp's fragment loads touch 32 distinct banks.
-// At D = 256 in float32 it takes 237 registers and 198 KB: one block an
-// SM.
-// ------------------------------------------------------------------ //
-constexpr int kMmaWarps = 8;               // warps per block, 16 q rows each
-constexpr int kMmaBlockQ = 16 * kMmaWarps;    // q rows per block
-constexpr int kMmaThreads = 32 * kMmaWarps;
-
-// Shared-memory layout of one block (elements of T).
-template <typename T, int Dqk, int Dv>
-struct MmaTiles {
-    static constexpr int kLdQK = Dqk + 32 / static_cast<int>(sizeof(T));
-    static constexpr int kLdV = Dv + 16 / static_cast<int>(sizeof(T));
-    static constexpr int kQ = kMmaBlockQ * kLdQK;
-    static constexpr int kK = kBlockK * kLdQK;
-    static constexpr int kStage = kK + kBlockK * kLdV;   // one K and one V
-    static constexpr int kBytes =
-        static_cast<int>(sizeof(T)) * (kQ + 2 * kStage);
-};
-
-
-template <typename T, int Dqk, int Dv>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-fa_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out,
-          float* __restrict__ lse, int64_t Sq,
-          int64_t Sk, int Hq, int Hkv, int causal, int has_window,
-          int64_t window, int has_softcap, float softcap, float scale,
-          int64_t q_offset) {
-    using L = MmaTiles<T, Dqk, Dv>;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* qs = reinterpret_cast<T*>(smem_raw);
-    T* stages = qs + L::kQ;
-
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    // the last q tile first: under a causal mask it has the most keys
-    const int64_t q0 =
-        static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kMmaBlockQ;
-    const int h = blockIdx.y;
-    const int64_t b = blockIdx.z;
-    const int hk = h / (Hq / Hkv);
-    // per position: q and k rows are Dqk wide, v and out rows Dv
-    const int64_t q_stride = static_cast<int64_t>(Hq) * Dqk;
-    const int64_t k_stride = static_cast<int64_t>(Hkv) * Dqk;
-    const int64_t v_stride = static_cast<int64_t>(Hkv) * Dv;
-    const int64_t o_stride = static_cast<int64_t>(Hq) * Dv;
-    const T* qb = q + (b * Sq * Hq + h) * Dqk;
-    const T* kb = k + (b * Sk * Hkv + hk) * Dqk;
-    const T* vb = v + (b * Sk * Hkv + hk) * Dv;
-    T* ob = out + (b * Sq * Hq + h) * Dv;
-
-    // the k tiles this q tile can see
-    const int64_t rows = (Sq - q0 < kMmaBlockQ) ? (Sq - q0) : kMmaBlockQ;
-    const int64_t pos_lo = q_offset + q0;
-    const int64_t pos_hi = pos_lo + rows - 1;
-    int64_t k_begin = 0;
-    int64_t k_end = Sk;
-    if (causal && pos_hi + 1 < k_end) {
-        k_end = pos_hi + 1;
-    }
-    if (has_window && pos_lo - window + 1 > k_begin) {
-        k_begin = pos_lo - window + 1;
-    }
-    const int64_t t_begin = k_begin / kBlockK;
-    const int64_t t_end = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
-
-    load_rows<T, Dqk, kMmaBlockQ, L::kLdQK, kMmaThreads>(qs, qb, q_stride, q0,
-                                                   Sq);
-    if (t_begin < t_end) {
-        const int64_t k0 = t_begin * kBlockK;
-        load_rows<T, Dqk, kBlockK, L::kLdQK, kMmaThreads>(stages, kb, k_stride,
-                                                       k0, Sk);
-        load_rows<T, Dv, kBlockK, L::kLdV, kMmaThreads>(stages + L::kK, vb,
-                                                     v_stride, k0, Sk);
-    }
-    cp_async_commit();
-
-    // this thread's rows of the tile: r_lo = 16*warp + g and r_lo + 8
-    const int64_t wpos_lo = pos_lo + 16 * warp;   // the warp's first row
-    const int64_t my_pos[2] = {wpos_lo + g, wpos_lo + g + 8};
-    float o[Dv / 8][4];
-#pragma unroll
-    for (int c = 0; c < Dv / 8; ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            o[c][e] = 0.f;
-        }
-    }
-    float m[2] = {kNegInf, kNegInf};
-    float l[2] = {0.f, 0.f};
-    const T* qw = qs + 16 * warp * L::kLdQK;
-
-    for (int64_t kt = t_begin; kt < t_end; ++kt) {
-        const int64_t k0 = kt * kBlockK;
-        T* ks = stages + ((kt - t_begin) & 1) * L::kStage;
-        const T* vs = ks + L::kK;
-        cp_async_wait_all();
-        __syncthreads();   // tile kt is in; every warp is done with kt-1
-        if (kt + 1 < t_end) {   // tile kt+1 loads while kt is computed
-            T* nxt = stages + ((kt + 1 - t_begin) & 1) * L::kStage;
-            load_rows<T, Dqk, kBlockK, L::kLdQK, kMmaThreads>(
-                nxt, kb, k_stride, k0 + kBlockK, Sk);
-            load_rows<T, Dv, kBlockK, L::kLdV, kMmaThreads>(
-                nxt + L::kK, vb, v_stride, k0 + kBlockK, Sk);
-            cp_async_commit();
-        }
-
-        float s[kBlockK / 8][4];
-        Mma<T>::template scores<Dqk, L::kLdQK>(qw, ks, g, t, s);
-
-        // scale, softcap and mask; a tile inside the band for every row
-        // of the warp needs no position tests
-        const bool inside =
-            k0 + kBlockK <= Sk &&
-            (!causal || k0 + kBlockK - 1 <= wpos_lo) &&
-            (!has_window || k0 > wpos_lo + 15 - window);
-#pragma unroll
-        for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                float val = s[j][e] * scale;
-                if (has_softcap) {
-                    val = tanhf(val / softcap) * softcap;
-                }
-                if (!inside) {
-                    const int64_t kp = k0 + 8 * j + 2 * t + (e & 1);
-                    const int64_t pos = my_pos[e >> 1];
-                    bool ok = kp < Sk;
-                    if (causal) {
-                        ok = ok && kp <= pos;
-                    }
-                    if (has_window) {
-                        ok = ok && kp > pos - window;
-                    }
-                    val = ok ? val : kNegInf;
-                }
-                s[j][e] = val;
-            }
-        }
-
-        // the online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3),
-        // each spread over the 4 threads of a quad
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            float mx = kNegInf;
-#pragma unroll
-            for (int j = 0; j < kBlockK / 8; ++j) {
-                mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-            }
-            mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1));
-            mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 2));
-            const float m_new = fmaxf(m[r], mx);
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < kBlockK / 8; ++j) {
-                s[j][2 * r] = expf(s[j][2 * r] - m_new);
-                s[j][2 * r + 1] = expf(s[j][2 * r + 1] - m_new);
-                sum += s[j][2 * r] + s[j][2 * r + 1];
-            }
-            sum += __shfl_xor_sync(kFullMask, sum, 1);
-            sum += __shfl_xor_sync(kFullMask, sum, 2);
-            const float alpha = expf(m[r] - m_new);
-            l[r] = alpha * l[r] + sum;
-            m[r] = m_new;
-#pragma unroll
-            for (int c = 0; c < Dv / 8; ++c) {
-                o[c][2 * r] *= alpha;
-                o[c][2 * r + 1] *= alpha;
-            }
-        }
-
-        Mma<T>::template pv<Dv, L::kLdV>(s, vs, g, t, o);
-    }
-    cp_async_wait_all();   // no copy outlives the block (no k tile: Q's)
-
-    // thread (g, t) owns columns 16c + 4t .. 16c + 4t + 3 of rows g, g+8
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int64_t row = q0 + 16 * warp + g + 8 * r;
-        if (row < Sq && lse != nullptr && t == 0) {
-            // log of the row's softmax denominator, for the backward; +inf
-            // where no key was visited (the row's P is 0 there)
-            lse[(b * Hq + h) * Sq + row] =
-                l[r] == 0.f ? __int_as_float(0x7f800000) : m[r] + logf(l[r]);
-        }
-        if (row < Sq) {
-            const float denom = (l[r] == 0.f) ? 1.f : l[r];
-            T* dst = ob + row * o_stride + 4 * t;
-#pragma unroll
-            for (int c = 0; c < Dv / 16; ++c) {
-                store4<T>(dst + 16 * c, o[2 * c][2 * r] / denom,
-                          o[2 * c + 1][2 * r] / denom,
-                          o[2 * c][2 * r + 1] / denom,
-                          o[2 * c + 1][2 * r + 1] / denom);
-            }
-        }
-    }
-}
-
-template <typename T, int Dqk, int Dv>
-int launch_mma(const T* q, const T* k, const T* v, T* out, float* lse,
-               int64_t B, int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv,
-               int causal, int has_window, int64_t window, int has_softcap,
-               float softcap, float scale, int64_t q_offset, void* stream) {
-    const int smem = MmaTiles<T, Dqk, Dv>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_mma_kernel<T, Dqk, Dv>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) {   // returned here, so cleared for later calls
-        cudaGetLastError();
-        return static_cast<int>(err);
-    }
-    const dim3 grid(static_cast<unsigned>((Sq + kMmaBlockQ - 1) / kMmaBlockQ),
-                    static_cast<unsigned>(Hq), static_cast<unsigned>(B));
-    fa_mma_kernel<T, Dqk, Dv><<<grid, kMmaThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-        q, k, v, out, lse, Sq, Sk, static_cast<int>(Hq),
-        static_cast<int>(Hkv), causal, has_window, window, has_softcap,
-        softcap, scale, q_offset);
-    return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, int DQ, int DV>
 int launch(const T* q, const T* k, const T* v, T* out, float* lse, int64_t B,
            int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hkv, int causal,
            int has_window, int64_t window, int has_softcap, float softcap,
            float scale, int64_t q_offset, void* stream) {
-    if constexpr (Tune<std::is_same<T, float>::value, DQ, DV>::kMma) {
-        return launch_mma<T, DQ, DV>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv,
-                                     causal, has_window, window, has_softcap,
-                                     softcap, scale, q_offset, stream);
-    } else {
-        using C = FwdCfg<T, DQ, DV>;
-        const int smem = C::kBytes;
-        cudaError_t err = cudaFuncSetAttribute(
-            fa_fwd_kernel<T, DQ, DV>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) {   // returned here, so cleared for later
-            cudaGetLastError();
-            return static_cast<int>(err);
-        }
-        const dim3 grid(
-            static_cast<unsigned>((Sq + C::kBlockQ - 1) / C::kBlockQ),
-            static_cast<unsigned>(Hq), static_cast<unsigned>(B));
-        fa_fwd_kernel<T, DQ, DV><<<grid, C::kThreads, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
-            q, k, v, out, lse, Sq, Sk, static_cast<int>(Hq),
-            static_cast<int>(Hkv), causal, has_window, window, has_softcap,
-            softcap, scale, q_offset);
-        return static_cast<int>(cudaGetLastError());
+    using C = FwdCfg<T, DQ, DV>;
+    const int smem = C::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_fwd_kernel<T, DQ, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) {   // returned here, so cleared for later calls
+        cudaGetLastError();
+        return static_cast<int>(err);
     }
+    const dim3 grid(static_cast<unsigned>((Sq + C::kBlockQ - 1) / C::kBlockQ),
+                    static_cast<unsigned>(Hq), static_cast<unsigned>(B));
+    fa_fwd_kernel<T, DQ, DV><<<grid, C::kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+        q, k, v, out, lse, Sq, Sk, static_cast<int>(Hq),
+        static_cast<int>(Hkv), causal, has_window, window, has_softcap,
+        softcap, scale, q_offset);
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>

@@ -91,9 +91,9 @@
 //    and is added to the sums on the CUDA cores: a tensor-core sum over a
 //    whole band and group rounds away the split's small products (measured
 //    against float64: 2e-4 of max|g| at path B's shape, against 5e-6 this
-//    way).  At D = 256 float32 the two accumulators of 16 owned rows fit,
-//    and one pass forms both; at (192, 128) so do dV^T's two M blocks and
-//    dK^T's three of 32 owned rows.
+//    way).  At (192, 128) dV^T's two M blocks and dK^T's three of 32
+//    owned rows fit, and one pass forms both; at float32 (256, 256) so do
+//    the four and four of 32 owned rows (point 6).
 // 4. dQ: its own launch, a block per (b, q head, q tile), which forms S
 //    and dP again (14*D a pair in all at equal head dims); fixed-order
 //    dQ shares from the dK/dV blocks would be ~0.35 GB written and read
@@ -102,9 +102,30 @@
 // 5. Longest bands first: dK/dV blocks are issued key tile by key tile
 //    (a causal band shortens as the keys move right), dQ blocks from the
 //    last q tile back.
+// 6. float32 at (256, 256) (`kByParts`): the owned tiles' hi and lo copies
+//    of 32 rows take 128 KB, so a whole 256-wide streamed tile (67.6 KB)
+//    fits once: 16 owned rows (the products' N) were the parent's rule.
+//    Here each streamed tile comes as kParts (2) column parts of 64 rows,
+//    a stage each (34.8 KB; two stages), each freed once its fragments are
+//    in registers; T1 and T2 sum their parts in one accumulator, and the
+//    M blocks of A1/A2 take the part that holds their columns.  P and dS
+//    share one tile: dK/dV streams Q's parts (T1, then P), dO's (T2's
+//    parts, and dV^T's blocks from P), then writes dS over P (P read back
+//    from the tile, the softcap's factor from a tile of its own, so S is
+//    not held in registers) and streams Q's parts again (dK^T's blocks);
+//    dQ streams V's parts (T2) and K's (T1, kept for dQ^T's blocks).  One
+//    kv head gives Sk / 32 dK/dV blocks (96 of 132 SMs at path B's
+//    shape), so the dK/dV launch runs on a side stream of the highest
+//    priority, forked after delta_kernel and joined before the call
+//    returns, and the dQ launch's blocks fill the other SMs (9.3-9.7
+//    against 11.3-11.4 ms one after the other, on an H100).  Quarters (a
+//    4-deep ring of 17.4 KB parts) were 1.7x slower, 16 owned rows
+//    (192 blocks; or two warpgroups, 168 registers at 288 threads) 6-40 %
+//    slower (PERF.md).
 // Every sum has one order, so two calls give the same bits.
 //
 // Build: see flash_attention.cu.
+#include <mutex>
 #include <type_traits>
 
 #include "fa_common.cuh"
@@ -127,20 +148,27 @@ constexpr int kRows = 64;        // streamed rows of a tile: wgmma's M
 // At (192, 128) (float32 only: bf16 runs flash_attention_bwd_mla.cuh),
 // 32 owned rows and two stages (one of each width) take 201,792 bytes; 16
 // rows and four stages (230,464) were 18 % slower at deepseek-v3's layer
-// on an H100 (48.1 against 40.7 ms).
+// on an H100 (48.1 against 40.7 ms).  float32 (256, 256) streams column
+// parts (kParts, point 6 above): 32 owned rows, one P/dS tile, two
+// stages, one k-step a chunk (two spill more and were 5-10 % slower).
 template <typename T, int DQ, int DV>
 struct BwdCfg {
     static constexpr int D = DQ > DV ? DQ : DV;
     static constexpr bool kF32 = std::is_same<T, float>::value;
     static constexpr int kEs = static_cast<int>(sizeof(T));
+    // float32 at (256, 256): each streamed tile as kParts column parts, a
+    // stage each (0: whole tiles)
+    static constexpr int kParts = kF32 && DQ == 256 && DV == 256 ? 2 : 0;
+    static constexpr bool kByParts = kParts > 0;
     static constexpr int kNo =
-        kF32 ? (D <= 64 ? 48 : (D == 192 ? 32 : 4096 / D))
+        kF32 ? (D <= 64 ? 48 : (D == 192 || kByParts ? 32 : 4096 / D))
              : (D <= 128 ? 64 : 32);
     static constexpr int kWG = D <= 64 ? 2 : 1;
-    static constexpr int kStoreTiles = kF32 && D <= 64 ? 1 : 2;
+    static constexpr int kStoreTiles = kF32 && (D <= 64 || kByParts) ? 1 : 2;
     static constexpr int kStages =
-        kF32 ? (D <= 64 ? 4 : (D == 128 ? 3 : 2)) : 4;
-    static constexpr int kChunk = kF32 && D <= 64 ? 2 : 4;
+        kF32 ? (D <= 64 ? 4 : (D == 128 ? 3 : (kByParts ? kParts : 2))) : 4;
+    static constexpr int kChunk =
+        kByParts ? 1 : (kF32 && D <= 64 ? 2 : 4);
     static constexpr int kK = kF32 ? 8 : 16;           // wgmma's K
     static constexpr int kCopies = kF32 ? 2 : 1;       // hi (and lo)
     // a streamed row: its width and 32 bytes, so that the fragment loads
@@ -153,6 +181,11 @@ struct BwdCfg {
     static constexpr bool kY2First = DQ != DV;
     static constexpr int kStageA = kY2First ? kStage2 : kStage1;
     static constexpr int kStageB = kY2First ? kStage1 : kStage2;
+    // kByParts: every stage one part, kPw columns of 64 rows (and 32
+    // bytes)
+    static constexpr int kPw = kParts > 0 ? DQ / kParts : DQ;
+    static constexpr int kLdP = kPw + 32 / kEs;
+    static constexpr int kStageP = kRows * kLdP * kEs;
     static constexpr int kDp1 = DQ * kEs < 128 ? 128 / kEs : DQ;
     static constexpr int kDp2 = DV * kEs < 128 ? 128 / kEs : DV;
     static constexpr int kOwn1 = kNo * kDp1 * kEs;     // one X1 copy
@@ -170,12 +203,18 @@ struct BwdCfg {
     static constexpr int kPerWG = kOffStore + kStoreTiles * kCopies * kStore;
     static constexpr int kOffRing = kWG * kPerWG;
     static constexpr int kRing =
-        kStages / 2 * (kStageA + kStageB) + kStages % 2 * kStageA;
-    static constexpr int kOffBar = kOffRing + kRing;
+        kByParts ? kStages * kStageP
+                : kStages / 2 * (kStageA + kStageB) + kStages % 2 * kStageA;
+    // kByParts: the softcap's factor 1 - tanh^2 of a tile's pairs, from P's
+    // forming to dS's
+    static constexpr int kOffFac = kOffRing + kRing;
+    static constexpr int kOffBar =
+        kOffFac + (kByParts ? kWG * kNo * kRows * 4 : 0);
     static constexpr int kBytes = kOffBar + 2 * kStages * 8 + 1024;
     // byte offset of stage s in the ring
     __device__ __forceinline__ static int stage(int s) {
-        return s / 2 * (kStageA + kStageB) + s % 2 * kStageA;
+        return kByParts ? s * kStageP
+                       : s / 2 * (kStageA + kStageB) + s % 2 * kStageA;
     }
     static_assert(kOwn1 % 1024 == 0 && kOwn2 % 1024 == 0 &&
                       kStore % 1024 == 0,
@@ -184,8 +223,11 @@ struct BwdCfg {
                   "bulk copies need 16-byte rows");
     static_assert(kStages % 2 == 0 || DQ == DV,
                   "an odd ring holds both widths in one stage size");
-    static_assert(kStoreTiles == 2 || kMb == 1,
-                  "a shared P/dS tile, one M block");
+    static_assert(kStoreTiles == 2 || kMb == 1 || kByParts,
+                  "a shared P/dS tile, one M block (or dS after every "
+                  "block of dV^T, kByParts)");
+    static_assert(!kByParts || (kPw % 64 == 0 && kStages >= kParts),
+                  "whole M blocks a part; dQ holds K's parts");
     static_assert(kBytes <= 232448, "shared memory of a block");
 };
 
@@ -422,6 +464,50 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
 
+    if constexpr (C::kByParts) {
+        if (warp == C::kConsumers / 32) {
+            // ---------- producer: the streamed tiles' parts ----------- //
+            // load j of a tile, part j % kParts (the consumers' order):
+            // dK/dV q's parts, dout's, q's again; dQ v's, then k's
+            constexpr int kP = C::kParts;
+            constexpr int kLoads = (kDQ ? 2 : 3) * kP;
+            for (int64_t n = 0; n < n_tiles; ++n) {
+                const int64_t i0 = (t_begin + n % n_band) * kRows;
+                const int hs =
+                    kDQ ? hx / groups
+                        : hx * groups + static_cast<int>(n / n_band);
+                const int rows = static_cast<int>(
+                    S_str - i0 < kRows ? S_str - i0 : kRows);
+                const uint32_t bytes =
+                    static_cast<uint32_t>(rows * C::kPw * C::kEs);
+                for (int j = 0; j < kLoads; ++j) {
+                    const int y = kDQ ? (j < kP ? 1 : 0) : (j / kP == 1);
+                    const int64_t stride =
+                        kDQ ? (y == 0 ? k_stride : v_stride)
+                            : (y == 0 ? q_stride : o_stride);
+                    const T* src =
+                        kDQ ? (y == 0 ? k : v) : (y == 0 ? q : dout);
+                    src += (b * S_str + i0) * stride +
+                           static_cast<int64_t>(hs) * (y == 0 ? DQ : DV) +
+                           (j % kP) * C::kPw;
+                    const int64_t slot = kLoads * n + j;
+                    const int s = static_cast<int>(slot % C::kStages);
+                    mbar_wait(empty(s), static_cast<uint32_t>(
+                                            ((slot / C::kStages) & 1) ^ 1));
+                    if (lane == 0) {
+                        mbar_expect_tx(full(s), bytes);
+                    }
+                    __syncwarp();
+                    const uint32_t dst = smem_u32(ring + C::stage(s));
+                    for (int r = lane; r < rows; r += 32) {
+                        bulk_g2s(dst + r * C::kLdP * C::kEs, src + r * stride,
+                                 C::kPw * C::kEs, full(s));
+                    }
+                }
+            }
+            return;
+        }
+    }
     if (warp == C::kConsumers / 32) {
         // ---------------- producer: the streamed tiles ---------------- //
         for (int64_t n = 0; n < n_tiles; ++n) {
@@ -595,7 +681,267 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     using Frag1 = Frag<T, DQ, C::kLd1>;
     using Frag2 = Frag<T, DV, C::kLd2>;
-    for (int64_t n = 0; n < n_tiles; ++n) {
+    if constexpr (C::kByParts) {
+        // Each 256-wide streamed tile as kParts column parts, a stage
+        // each, every part freed once its fragments are in registers.
+        // dK/dV, 3 kParts loads a tile: Q's parts (T1, then P into the
+        // store tile), dO's (T2's parts, and dV^T's M blocks of each part
+        // from P), then dS over P and Q's parts again (dK^T's M blocks).
+        // dQ, 2 kParts: V's (T2), K's (T1, each kept for dQ^T's M blocks
+        // after dS).
+        using FragP = Frag<T, C::kPw, C::kLdP>;
+        constexpr int kP = C::kParts;
+        constexpr int kLoads = (kDQ ? 2 : 3) * kP;
+        constexpr int kHs = C::kPw / C::kK;   // k-steps a part
+        constexpr int kTc = C::kChunk < kHs ? C::kChunk : kHs;
+        constexpr int kAs = kRows / C::kK;
+        constexpr int kAc = C::kChunk < kAs ? C::kChunk : kAs;
+        constexpr int kBp = C::kPw / 64;      // M blocks a part
+        for (int64_t n = 0; n < n_tiles; ++n) {
+            const int64_t i0 = (t_begin + n % n_band) * kRows;
+            const int nv = static_cast<int>(S_str - i0 < kRows ? S_str - i0
+                                                                : kRows);
+            const int hq =
+                kDQ ? hx : hx * groups + static_cast<int>(n / n_band);
+            // load j of this tile: its stage; take waits for it and zeros
+            // its rows past the end (the last tile), give frees it
+            auto at = [&](int j) {
+                return reinterpret_cast<T*>(
+                    ring + C::stage(static_cast<int>((kLoads * n + j) %
+                                                     C::kStages)));
+            };
+            auto take = [&](int j) {
+                const int64_t slot = kLoads * n + j;
+                mbar_wait(full(static_cast<int>(slot % C::kStages)),
+                          static_cast<uint32_t>((slot / C::kStages) & 1));
+                T* y = at(j);
+                if (nv < kRows) {
+                    for (int i = tid; i < (kRows - nv) * C::kPw; i += 128) {
+                        y[(nv + i / C::kPw) * C::kLdP + i % C::kPw] =
+                            cast_out<T>(0.f);
+                    }
+                    fence_proxy_async();   // before the producer's next copy
+                    bar_sync(bar_id, 128);
+                }
+                return y;
+            };
+            auto give = [&](int j) {
+                mbar_arrive(empty(static_cast<int>((kLoads * n + j) %
+                                                   C::kStages)));
+            };
+            // the owned and store tiles' addresses, opaque to the
+            // compiler once a tile, so that it forms each descriptor where
+            // it is used and holds none of them across the loop
+            uint32_t ob = own_base, sb = store_base;
+            asm volatile("" : "+r"(ob), "+r"(sb));
+            auto odesc = [&](int x, int copy, int kk) {
+                const int off_x = x == 0 ? copy * C::kOwn1
+                                         : C::kCopies * C::kOwn1 +
+                                               copy * C::kOwn2;
+                return sw128_desc(ob + off_x, kNo, 32 * kk);
+            };
+            // T += part pp of the streamed tile y against owned tile x
+            auto t_part = [&](float (&d)[kNo / 2], const T* y, int x,
+                              int pp) {
+                product<T, kNo, kHs, kTc>(
+                    d,
+                    [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                        FragP::rows(y, m0, kk * C::kK, g, t, hi, lo);
+                    },
+                    [&](int kk, int copy) {
+                        return odesc(x, copy, kk + pp * kHs);
+                    },
+                    pp > 0);
+            };
+            // A1 or A2's M blocks of part pp (the columns of y) against
+            // the store tile, each into a fresh accumulator added to acc
+            // on the CUDA cores; load j is freed once their fragments are
+            // in (two accumulators in turns, each added once the next
+            // block had waited for it, measured no faster)
+            float a[kNo / 2];
+            auto a_part = [&](float (&acc)[C::kMb][kNo / 2], const T* y,
+                              int pp, int j) {
+#pragma unroll
+                for (int mb2 = 0; mb2 < kBp; ++mb2) {
+                    product<T, kNo, kAs, kAc>(
+                        a,
+                        [&](int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+                            FragP::cols(y, 64 * mb2 + m0, kk * C::kK, g, t,
+                                        hi, lo);
+                        },
+                        [&](int kk, int copy) {
+                            return sw128_desc(sb + copy * C::kStore, kNo,
+                                              32 * kk);
+                        },
+                        false);
+                    if (mb2 == kBp - 1) {
+                        give(j);
+                    }
+                    wgmma_wait<0>();
+                    fence_regs(a);
+#pragma unroll
+                    for (int i = 0; i < kNo / 2; ++i) {
+                        acc[kBp * pp + mb2][i] =
+                            acc[kBp * pp + mb2][i] + a[i];
+                    }
+                }
+            };
+
+            float row_l2[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+            if constexpr (!kDQ) {
+                const float* lse_b = lse + (b * Hq + hq) * Sq;
+                const float* delta_b = delta + (b * Hq + hq) * Sq;
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const int64_t row = i0 + m0 + g + 8 * r;
+                    row_l2[r] = row < Sq ? lse_b[row] * kLog2e : inf_f();
+                    row_delta[r] = row < Sq ? delta_b[row] : 0.f;
+                }
+            }
+            const int64_t q_lo = kDQ ? o0 : i0;
+            const int64_t q_hi = q_lo + (kDQ ? kNo : kRows) - 1;
+            const int64_t k_lo = kDQ ? i0 : o0;
+            const int64_t k_hi = k_lo + (kDQ ? kRows : kNo) - 1;
+            const bool inside = q_hi < Sq && k_hi < Sk &&
+                                (!causal || k_hi <= q_offset + q_lo) &&
+                                (!has_window ||
+                                 k_lo > q_offset + q_hi - window);
+            // P (part 0: from t1 (S) into the store tile, and the
+            // softcap's factor into its own tile) or dS (part 1: from t2
+            // (dP), with P read back from the store tile (dK/dV, after
+            // dV^T has read it: t1 is dead by then) or formed from t1
+            // (dQ), into the store tile)
+            float t1[kNo / 2], t2[kNo / 2];
+            auto body = [&](auto part, auto masked, auto capped) {
+                constexpr int kPart = decltype(part)::value;
+                constexpr bool kMasked = decltype(masked)::value;
+                constexpr bool kCapped = decltype(capped)::value;
+                unsigned char* const fac =
+                    smem + C::kOffFac + wg * kNo * kRows * 4;
+#pragma unroll
+                for (int j = 0; j < kNo / 8; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        unsigned char* const pt = store + off[e] + 1024 * j;
+                        if constexpr (kPart == 1 && !kDQ) {
+                            const float Dl = row_delta[e >> 1];
+                            float ds = (__uint_as_float(*reinterpret_cast<
+                                            const uint32_t*>(pt)) +
+                                        *reinterpret_cast<const float*>(
+                                            pt + C::kStore)) *
+                                       (t2[4 * j + e] - Dl);
+                            if constexpr (kCapped) {
+                                ds = ds * *reinterpret_cast<const float*>(
+                                              fac + off[e] + 1024 * j);
+                            }
+                            put<C>(pt, ds);
+                            continue;
+                        }
+                        const float L2 =
+                            kDQ ? own_l2[j][e & 1] : row_l2[e >> 1];
+                        float x2, dfac = 1.f;
+                        if constexpr (kCapped) {
+                            const float th = tanhf(t1[4 * j + e] * scale /
+                                                   softcap);
+                            x2 = th * softcap * kLog2e;
+                            dfac = 1.f - th * th;
+                        } else {
+                            x2 = t1[4 * j + e] * scale2;
+                        }
+                        float p = exp2f(x2 - L2);
+                        if constexpr (kMasked) {
+                            const int r = m0 + g + 8 * (e >> 1);
+                            const int c = 8 * j + 2 * t + (e & 1);
+                            const int64_t qi = kDQ ? o0 + c : i0 + r;
+                            const int64_t kj = kDQ ? i0 + r : o0 + c;
+                            const int64_t pos = q_offset + qi;
+                            const bool ok = qi < Sq && kj < Sk &&
+                                            (!causal || kj <= pos) &&
+                                            (!has_window ||
+                                             kj > pos - window);
+                            p = ok ? p : 0.f;
+                        }
+                        if constexpr (kPart == 0) {
+                            put<C>(pt, p);
+                            if constexpr (kCapped) {
+                                *reinterpret_cast<float*>(
+                                    fac + off[e] + 1024 * j) = dfac;
+                            }
+                        } else {
+                            float ds =
+                                p * (t2[4 * j + e] - own_delta[j][e & 1]);
+                            if constexpr (kCapped) {
+                                ds = ds * dfac;
+                            }
+                            put<C>(pt, ds);
+                        }
+                    }
+                }
+                fence_proxy_async();
+                bar_sync(bar_id, 128);
+            };
+            auto form = [&](auto part) {
+                if (inside) {
+                    if (has_softcap) {
+                        body(part, std::false_type{}, std::true_type{});
+                    } else {
+                        body(part, std::false_type{}, std::false_type{});
+                    }
+                } else {
+                    if (has_softcap) {
+                        body(part, std::true_type{}, std::true_type{});
+                    } else {
+                        body(part, std::true_type{}, std::false_type{});
+                    }
+                }
+            };
+            using Part0 = std::integral_constant<int, 0>;
+            using Part1 = std::integral_constant<int, 1>;
+
+            if constexpr (kDQ) {
+#pragma unroll
+                for (int pp = 0; pp < kP; ++pp) {   // V's parts: T2
+                    t_part(t2, take(pp), 1, pp);
+                    give(pp);
+                }
+#pragma unroll
+                for (int pp = 0; pp < kP; ++pp) {   // K's parts: T1
+                    t_part(t1, take(kP + pp), 0, pp);
+                }
+                wgmma_wait<0>();
+                fence_regs(t1);
+                fence_regs(t2);
+                form(Part1{});
+#pragma unroll
+                for (int pp = 0; pp < kP; ++pp) {   // dQ^T from K's parts
+                    a_part(acc2, at(kP + pp), pp, kP + pp);
+                }
+            } else {
+#pragma unroll
+                for (int pp = 0; pp < kP; ++pp) {   // Q's parts: T1, P
+                    t_part(t1, take(pp), 0, pp);
+                    give(pp);
+                }
+                wgmma_wait<0>();
+                fence_regs(t1);
+                form(Part0{});
+#pragma unroll
+                for (int pp = 0; pp < kP; ++pp) {   // dO's: T2, dV^T
+                    const T* y = take(kP + pp);
+                    t_part(t2, y, 1, pp);
+                    a_part(acc1, y, pp, kP + pp);
+                }
+                fence_regs(t2);   // T2 is done, and P is read
+                form(Part1{});                      // dS over P
+#pragma unroll
+                for (int pp = 0; pp < kP; ++pp) {   // Q's again: dK^T
+                    a_part(acc2, take(2 * kP + pp), pp, 2 * kP + pp);
+                }
+            }
+        }
+    }
+    // every other instantiation: whole streamed tiles
+    if constexpr (!C::kByParts) for (int64_t n = 0; n < n_tiles; ++n) {
         const int64_t i0 = (t_begin + n % n_band) * kRows;
         const int nv = static_cast<int>(S_str - i0 < kRows ? S_str - i0
                                                             : kRows);
@@ -920,6 +1266,44 @@ bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// A side stream of the highest priority and the events that fork it from
+// the caller's stream and join it back, one set a device, made at its
+// first use there (null if that failed)
+struct Side {
+    cudaStream_t stream;
+    cudaEvent_t fork, join;
+};
+inline const Side* side_stream() {
+    constexpr int kMaxDevices = 64;
+    static Side sides[kMaxDevices];
+    static bool made[kMaxDevices] = {};
+    static std::mutex lock;
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 ||
+        dev >= kMaxDevices) {
+        cudaGetLastError();
+        return nullptr;
+    }
+    std::lock_guard<std::mutex> hold(lock);
+    if (!made[dev]) {
+        Side& sd = sides[dev];
+        int least = 0, greatest = 0;
+        if (cudaDeviceGetStreamPriorityRange(&least, &greatest) !=
+                cudaSuccess ||
+            cudaStreamCreateWithPriority(&sd.stream, cudaStreamNonBlocking,
+                                         greatest) != cudaSuccess ||
+            cudaEventCreateWithFlags(&sd.fork, cudaEventDisableTiming) !=
+                cudaSuccess ||
+            cudaEventCreateWithFlags(&sd.join, cudaEventDisableTiming) !=
+                cudaSuccess) {
+            cudaGetLastError();
+            return nullptr;
+        }
+        made[dev] = true;
+    }
+    return &sides[dev];
+}
+
 template <typename K>
 int set_smem(K kernel, int bytes) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -952,15 +1336,33 @@ int launch(const T* q, const T* k, const T* v, const T* out, const T* dout,
     if ((err = set_smem(bwd_kernel<T, DQ, DV, false>, C::kBytes))) {
         return err;
     }
+    if ((err = set_smem(bwd_kernel<T, DQ, DV, true>, C::kBytes))) {
+        return err;
+    }
+    // float32 (256, 256): the dK/dV launch on a side stream of the
+    // highest priority, forked after delta_kernel and joined before the
+    // call returns, so that the dQ launch's blocks fill the SMs the dK/dV
+    // launch leaves idle (one kv head's Sk / 32 blocks: 96 of 132 SMs at
+    // path B's shape) and never delay its blocks
+    cudaStream_t kstream = stream;
+    if constexpr (C::kByParts) {
+        const Side* side = side_stream();
+        if (side == nullptr) {
+            return static_cast<int>(cudaErrorInitializationError);
+        }
+        kstream = side->stream;
+        if ((err = static_cast<int>(cudaEventRecord(side->fork, stream))) ||
+            (err = static_cast<int>(
+                 cudaStreamWaitEvent(kstream, side->fork, 0)))) {
+            return err;
+        }
+    }
     const dim3 kgrid(static_cast<unsigned>(B * Hkv),
                      static_cast<unsigned>((Sk + kCta - 1) / kCta));
-    bwd_kernel<T, DQ, DV, false><<<kgrid, C::kThreads, C::kBytes, stream>>>(
+    bwd_kernel<T, DQ, DV, false><<<kgrid, C::kThreads, C::kBytes, kstream>>>(
         q, k, v, dout, lse, delta, dk, dv, Sq, Sk, hq, hkv, causal,
         has_window, window, has_softcap, softcap, scale, q_offset);
     if ((err = static_cast<int>(cudaGetLastError()))) {
-        return err;
-    }
-    if ((err = set_smem(bwd_kernel<T, DQ, DV, true>, C::kBytes))) {
         return err;
     }
     const dim3 qgrid(static_cast<unsigned>(B * Hq),
@@ -968,7 +1370,18 @@ int launch(const T* q, const T* k, const T* v, const T* out, const T* dout,
     bwd_kernel<T, DQ, DV, true><<<qgrid, C::kThreads, C::kBytes, stream>>>(
         q, k, v, dout, lse, delta, dq, nullptr, Sq, Sk, hq, hkv, causal,
         has_window, window, has_softcap, softcap, scale, q_offset);
-    return static_cast<int>(cudaGetLastError());
+    if ((err = static_cast<int>(cudaGetLastError()))) {
+        return err;
+    }
+    if constexpr (C::kByParts) {
+        const Side* side = side_stream();
+        if ((err = static_cast<int>(cudaEventRecord(side->join, kstream))) ||
+            (err = static_cast<int>(
+                 cudaStreamWaitEvent(stream, side->join, 0)))) {
+            return err;
+        }
+    }
+    return 0;
 }
 
 // bf16 at (192, 128): delta_kernel, then flash_attention_bwd_mla.cuh's body

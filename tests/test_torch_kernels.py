@@ -348,7 +348,7 @@ def _gather8(x, idx):
 
 
 def _fa_fwd_kernel_algorithm(q, k, v, *, causal, window, scale, q_offset,
-                             wg, nk):
+                             wg, nk, halves=False):
     """`csrc/flash_attention.cu`'s float32 body on the CPU, in numpy
     float32, for q [B, Sq, Hq, Dqk], k [B, Sk, Hkv, Dqk], v [B, Sk, Hkv,
     Dv]; returns (out, lse [B, Hq, Sq]).
@@ -362,7 +362,10 @@ def _fa_fwd_kernel_algorithm(q, k, v, *, causal, window, scale, q_offset,
     order.  Every product is split TF32 (hi rounded to nearest, lo the
     remainder, read rounded toward zero).  Then the scale, the mask
     (-1e30), the online softmax's rescale alpha = exp(m - m_new) of l and
-    O, and out = O / l (l = 0 divides by 1), lse = m + log l (+inf)."""
+    O, and out = O / l (l = 0 divides by 1), lse = m + log l (+inf).
+    `halves`: float32 at D = 256, each K and V tile streamed as two
+    column halves, S summed over K's halves in one float32 accumulator
+    and O's columns of each half from V^T's half."""
     f32 = np.float32
     B, Sq, Hq, Dqk = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -407,7 +410,13 @@ def _fa_fwd_kernel_algorithm(q, k, v, *, causal, window, scale, q_offset,
                         kn = max(0, min(nk, Sk - k0))
                         kt[:kn] = k[b, k0:k0 + kn, hk]
                         vt[:kn] = v[b, k0:k0 + kn, hk]
-                        s = (mm(a_q, kt) * f32(scale)).astype(f32)
+                        if halves:
+                            hw = Dqk // 2
+                            s = (mm(a_q[:, :hw], kt[:, :hw]).astype(f32)
+                                 + mm(a_q[:, hw:], kt[:, hw:])).astype(f32)
+                        else:
+                            s = mm(a_q, kt)
+                        s = (s * f32(scale)).astype(f32)
                         kj = (k0 + np.arange(nk))[None, :]
                         ok = kj < Sk
                         if causal:
@@ -426,7 +435,13 @@ def _fa_fwd_kernel_algorithm(q, k, v, *, causal, window, scale, q_offset,
                         a_p = _gather8(p, _P_KEY_OF_K)
                         v_t = _gather8(np.ascontiguousarray(vt.T),
                                        _VT_KEY_OF_POS)
-                        acc = (acc * alpha + mm(a_p, v_t)).astype(f32)
+                        if halves:
+                            hw = Dv // 2
+                            pv = np.concatenate([mm(a_p, v_t[:hw]),
+                                                 mm(a_p, v_t[hw:])], axis=1)
+                        else:
+                            pv = mm(a_p, v_t)
+                        acc = (acc * alpha + pv).astype(f32)
                     lsum = np.where(l == 0, f32(1), l)
                     out[b, wq0:wq0 + wn, h] = (acc / lsum)[:wn]
                     lse[b, h, wq0:wq0 + wn] = np.where(
@@ -436,22 +451,25 @@ def _fa_fwd_kernel_algorithm(q, k, v, *, causal, window, scale, q_offset,
 
 
 @pytest.mark.parametrize(
-    "B,Sq,Sk,Hq,Hkv,Dqk,Dv,causal,window,q_offset,wg,nk", [
-        # D = 256 with a window: one warpgroup, 16-key tiles (the wgmma
-        # body's shape there; the kernel keeps its mma.sync body at 256)
-        (1, 100, 100, 2, 1, 256, 256, True, 40, 0, 1, 16),
+    "B,Sq,Sk,Hq,Hkv,Dqk,Dv,causal,window,q_offset,wg,nk,halves", [
+        # D = 256 float32 (the D-halved body): two warpgroups, 32-key
+        # tiles, K and V as 128-column halves; windowed MQA, ragged tiles
+        (1, 100, 100, 2, 1, 256, 256, True, 40, 0, 2, 32, True),
+        (1, 150, 190, 4, 1, 256, 256, True, 70, 40, 2, 32, True),
         # MLA's (192, 128) with a GQA group: two warpgroups, 16-key tiles
-        (1, 130, 130, 4, 2, 192, 128, True, None, 0, 2, 16),
+        (1, 130, 130, 4, 2, 192, 128, True, None, 0, 2, 16, False),
         # ragged Sq != Sk without a mask: two warpgroups, 64-key tiles
-        (1, 70, 150, 2, 2, 64, 64, False, None, 0, 2, 64),
+        (1, 70, 150, 2, 2, 64, 64, False, None, 0, 2, 64, False),
         # a static q_offset with causal and window at D = 128
-        (1, 65, 129, 2, 1, 128, 128, True, 48, 60, 2, 32),
+        (1, 65, 129, 2, 1, 128, 128, True, 48, 60, 2, 32, False),
     ])
 def test_fa_forward_kernel_algorithm_meets_the_tolerance(
-        B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal, window, q_offset, wg, nk):
+        B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal, window, q_offset, wg, nk,
+        halves):
     """The forward kernel's float32 algorithm (64-row warpgroup tiles,
     `nk`-key tiles, split TF32 with lo read rounded toward zero, the
-    permuted contraction orders, the online softmax's rescale) stays within
+    permuted contraction orders, the online softmax's rescale; at D = 256
+    the tiles' column halves) stays within
     TOL["float32"] of the plain version in float64, and its log-sum-exp
     within the same of float64's."""
     rng = np.random.default_rng(Dqk + Sq)
@@ -461,7 +479,7 @@ def test_fa_forward_kernel_algorithm_meets_the_tolerance(
     scale = Dqk ** -0.5
     got, got_lse = _fa_fwd_kernel_algorithm(
         q, k, v, causal=causal, window=window, scale=scale,
-        q_offset=q_offset, wg=wg, nk=nk)
+        q_offset=q_offset, wg=wg, nk=nk, halves=halves)
     q64, k64, v64 = (torch.from_numpy(x).double() for x in (q, k, v))
     want = attention_ref(q64, k64, v64, causal=causal, window=window,
                          scale=scale, q_offset=q_offset).numpy()
@@ -489,7 +507,7 @@ _LOG2E = np.float32(1.4426950408889634)
 
 
 def _fa_bwd_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
-                             kno, rows=64):
+                             kno, rows=64, window=None, halves=False):
     """`csrc/flash_attention_bwd.cu`'s float32 path on the CPU, in numpy
     float32, for q [B, Sq, Hq, Dqk], k [B, Sk, Hkv, Dqk], v [B, Sk, Hkv,
     Dv] and the forward's out [B, Sq, Hq, Dv] and lse [B, Hq, Sq].
@@ -504,13 +522,24 @@ def _fa_bwd_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
     dQ^T), each in a fresh accumulator added to the block's sums in that
     order; the dQ pass forms S and dP again.  Every product is split TF32:
     hi rounded to nearest, lo the remainder, which the tensor core reads
-    rounded toward zero."""
+    rounded toward zero.  `halves` (float32 at D = 256): the streamed
+    tiles come as two column halves, T1 and T2 summed over them in one
+    float32 accumulator.  `window`: the band and the mask of a sliding
+    window."""
     B, Sq, Hq, Dqk = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     groups = Hq // Hkv
     def mm(a, b):
         """a @ b.T as the tensor cores form it from split operands."""
         return _mm_3xtf32(a, b, _tf32_rz)
+
+    def mt(y, x):
+        """T = y x^T over the head dim, by halves when `halves`."""
+        if not halves:
+            return mm(y, x)
+        hw = y.shape[1] // 2
+        return (mm(y[:, :hw], x[:, :hw]).astype(np.float32)
+                + mm(y[:, hw:], x[:, hw:])).astype(np.float32)
 
     delta = np.einsum("bihd,bihd->bhi", dout, out).astype(np.float32)
     l2 = (lse * _LOG2E).astype(np.float32)
@@ -529,6 +558,8 @@ def _fa_bwd_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
         p = np.exp2((t1 * s2 - L2).astype(np.float32)).astype(np.float32)
         ds = (p * (t2 - Dl)).astype(np.float32)
         ok = (qi < Sq) & (kj < Sk) & ((kj <= qi) if causal else True)
+        if window:
+            ok = ok & (kj > qi - window)
         return np.where(ok, p, 0).astype(np.float32), \
             np.where(ok, ds, 0).astype(np.float32)
 
@@ -544,8 +575,9 @@ def _fa_bwd_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
                 acc_k = np.zeros((Dqk, kno), np.float32)
                 acc_v = np.zeros((v.shape[3], kno), np.float32)
                 lo = (o0 // rows) * rows if causal else 0
+                hi = min(Sq, o0 + kno - 1 + window) if window else Sq
                 for h in range(hk * groups, (hk + 1) * groups):
-                    for i0 in range(lo, Sq, rows):
+                    for i0 in range(lo, hi, rows):
                         qi = (i0 + np.arange(rows))[:, None]
                         Y1, Y2 = tile(q[b, :, h], i0), \
                             tile(dout[b, :, h], i0)
@@ -554,7 +586,7 @@ def _fa_bwd_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
                         n = min(rows, Sq - i0)
                         rl[:n], rd[:n] = l2[b, h, i0:i0 + n], \
                             delta[b, h, i0:i0 + n]
-                        p, ds = p_ds(mm(Y1, X1), mm(Y2, X2), rl[:, None],
+                        p, ds = p_ds(mt(Y1, X1), mt(Y2, X2), rl[:, None],
                                      rd[:, None], qi, kj)
                         acc_v = (acc_v + mm(Y2.T, p.T)).astype(np.float32)
                         acc_k = (acc_k + mm(Y1.T, ds.T)).astype(np.float32)
@@ -573,11 +605,13 @@ def _fa_bwd_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
                 ol[:n], od[:n] = l2[b, h, o0:o0 + n], delta[b, h, o0:o0 + n]
                 acc = np.zeros((Dqk, kno), np.float32)
                 hi = min(Sk, o0 + kno) if causal else Sk
-                for i0 in range(0, hi, rows):
+                lo = (max(0, o0 - window + 1) // rows * rows if window
+                      else 0)
+                for i0 in range(lo, hi, rows):
                     kj = (i0 + np.arange(rows))[:, None]
                     Y1, Y2 = tile(k[b, :, hk], i0), \
                         tile(v[b, :, hk], i0)
-                    _, ds = p_ds(mm(Y1, X1), mm(Y2, X2), ol[None, :],
+                    _, ds = p_ds(mt(Y1, X1), mt(Y2, X2), ol[None, :],
                                  od[None, :], qi, kj)
                     acc = (acc + mm(Y1.T, ds.T)).astype(np.float32)
                 dq[b, o0:o0 + n, h] = (acc.T * np.float32(scale))[:n]
@@ -705,16 +739,19 @@ def _fa_bwd_mla_kernel_algorithm(q, k, v, out, lse, dout, *, causal, scale,
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dqk,Dv,causal,kno", [
-    (1, 130, 130, 2, 1, 192, 128, True, 16),   # MLA's tile, a GQA group
-    (2, 100, 150, 2, 2, 64, 64, False, 48),    # Sq != Sk, ragged tiles
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,Dqk,Dv,causal,window,kno", [
+    (1, 130, 130, 2, 1, 192, 128, True, None, 16),   # MLA's, a GQA group
+    (2, 100, 150, 2, 2, 64, 64, False, None, 48),    # Sq != Sk, ragged
+    # D = 256 float32: 32 owned rows, the streamed tiles by halves;
+    # windowed MQA, ragged tiles
+    (1, 150, 150, 4, 1, 256, 256, True, 70, "halves"),
     # the bf16 (192, 128) body: a GQA group and ragged 64- and 128-row
     # tiles, causal; Sq != Sk without a mask
-    (1, 200, 200, 4, 2, 192, 128, True, "mla"),
-    (1, 100, 150, 2, 2, 192, 128, False, "mla"),
+    (1, 200, 200, 4, 2, 192, 128, True, None, "mla"),
+    (1, 100, 150, 2, 2, 192, 128, False, None, "mla"),
 ])
 def test_fa_backward_kernel_algorithm_meets_the_tolerance(
-        B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal, kno):
+        B, Sq, Sk, Hq, Hkv, Dqk, Dv, causal, window, kno):
     """The backward kernels' algorithms stay within BWD_TOL of the plain
     version's autograd in float64, for dQ, dK and dV each; the forward's
     out and log-sum-exp as the forward kernel writes them.  An int `kno`:
@@ -725,7 +762,8 @@ def test_fa_backward_kernel_algorithm_meets_the_tolerance(
     streamed tiles for dK/dV and 64-row for dQ, P and dS rounded to bf16,
     float32 sums over the band)
     against BWD_TOL["bfloat16"], the reference taking the same bfloat16
-    inputs."""
+    inputs.  "halves": the float32 path at D = 256 (32 owned rows, the
+    streamed tiles' column halves summed in one accumulator), windowed."""
     mla = kno == "mla"
     rng = np.random.default_rng(Dqk + Sq)
     q, k = (rng.standard_normal((B, S, H, Dqk)).astype(np.float32)
@@ -738,22 +776,30 @@ def test_fa_backward_kernel_algorithm_meets_the_tolerance(
     q64, k64, v64 = (torch.from_numpy(x).double() for x in (q, k, v))
     s = torch.einsum("bihd,bjhd->bhij", q64, k64.repeat_interleave(
         Hq // Hkv, dim=2)) * scale
+    qi = torch.arange(Sq)[:, None]
+    kj = torch.arange(Sk)[None, :]
     if causal:
-        s = s.masked_fill(torch.ones(Sq, Sk).tril().logical_not(), -1e30)
+        s = s.masked_fill(kj > qi, -1e30)
+    if window:
+        s = s.masked_fill(kj <= qi - window, -1e30)
     lse = torch.logsumexp(s, dim=-1)
-    out = attention_ref(q64, k64, v64, causal=causal, scale=scale)
+    out = attention_ref(q64, k64, v64, causal=causal, window=window,
+                        scale=scale)
     out32 = out.float().numpy()
     if mla:
         got = _fa_bwd_mla_kernel_algorithm(
             q, k, v, _bf16(out32), lse.float().numpy(), dout,
             causal=causal, scale=scale)
     else:
+        halves = kno == "halves"
         got = _fa_bwd_kernel_algorithm(
             q, k, v, out32, lse.float().numpy(), dout, causal=causal,
-            scale=scale, kno=kno)
+            scale=scale, kno=32 if halves else kno, window=window,
+            halves=halves)
     want = fa.flash_attention_bwd_plain(q64, k64, v64,
                                         torch.from_numpy(dout).double(),
-                                        causal=causal, scale=scale)
+                                        causal=causal, window=window,
+                                        scale=scale)
     tol = BWD_TOL["bfloat16" if mla else "float32"]
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == tuple(w.shape), name
@@ -1567,6 +1613,9 @@ def test_kernel_wrappers_stay_differentiable_on_the_cpu(wrapper, i):
 @pytest.mark.parametrize("case", FA_CASES + [
     (1, 300, 300, 16, 1, 256, True, 128, None, "float32"),
     (1, 70, 70, 4, 1, 16, True, None, None, "float32"),
+    # float32 (256, 256)'s halves body: MQA with a window over several
+    # 32-key tiles, a softcap and Sq != Sk, ragged in both
+    (1, 200, 333, 16, 1, 256, True, 100, 50.0, "float32"),
 ])
 def test_flash_attention_kernel_matches_plain(case, cuda_device):
     causal, window, cap, dt = case[6:]
@@ -1823,6 +1872,9 @@ FA_BWD_CASES = FA_CASES + [
     (1, 2304, 2304, 16, 1, 256, True, 2048, None, "float32"),
     (1, 2304, 2304, 16, 1, 256, True, 2048, None, "bfloat16"),
     (1, 70, 130, 4, 2, 128, True, 48, 30.0, "float32"),   # q_offset 60
+    # float32 (256, 256) by column halves: MQA, a window over several
+    # tiles, a softcap, Sq != Sk, ragged 64-row and 32-row tiles
+    (1, 200, 333, 16, 1, 256, True, 100, 50.0, "float32"),
 ] + [(1, Sq, Sk, 16, 16, 64, causal, None, None, dt)
      for Sq, Sk, causal in ((300, 1000, False), (1000, 1000, False),
                             (1000, 1000, True))

@@ -22,6 +22,7 @@ and B in float32, MLA in both).  With `--parent DIR`, a checkout of an
 earlier commit (for example unpacked from `git archive`), that
 checkout's `flash_attention_bwd.cu` is built beside it and timed at the
 same shapes in both dtypes in turns (parent, this, this, parent).
+Each time comes with SDPA's backward on the same inputs, in turns.
 `--errors` prints dq, dk and dv's errors against float64 at path A's and
 B's shapes for this kernel, the parent's and the plain version in
 float32.  `--variants` builds copies of this source with other tile
@@ -32,10 +33,11 @@ A (head_dim 64), B (256) or MLA's (192, float32) (1e-4 of max(1,
 max|g|) in float32, 2e-2 in bf16) and times it there in turns with the
 library; then, as `--mla-variants` alone does, the bf16 (192, 128)
 body's (`MLA_VARIANTS` of `MlaCfg`) at MLA's shape.  `--apart` times
-copies of the (192, 128) bodies that each leave one cost out (`APART`:
-in float32 the band's streaming, the split of the streamed tiles, the dQ
-launch; in bf16 the exp, the streaming, the mask's element tests, the
-dK/dQ products) at MLA's shape in turns with the library, never
+copies of the (192, 128) bodies and of float32 (256, 256)'s that each
+leave one cost out (`APART`: in float32 the band's streaming, the split
+of the streamed tiles, the dQ launch; in bf16 the exp, the streaming, the
+mask's element tests, the dK/dQ products) at MLA's shape, and the
+float32 ones also at path B's, in turns with the library, never
 checked: their gradients are wrong by design.  Every check runs even
 after one fails; the exit code is 1 if any failed.
 """
@@ -81,13 +83,20 @@ PATH_B = (1, 3072, 16, 1, 256, 2048)
 PATH_MLA = (2, 2048, 128, 128, (192, 128), None)
 # each variant's head dim -> the shape it is timed at
 VARIANT_SHAPES = {64: PATH_A, 256: PATH_B, 192: PATH_MLA}
-# (dtype, head_dim, kNo, kWG, kStoreTiles, kStages, kChunk): other tile
-# shapes of one instantiation (head_dim: the wider of Dqk and Dv), timed
-# at VARIANT_SHAPES[head_dim]
+# (dtype, head_dim, kNo, kWG, kStoreTiles, kStages, kChunk[, kParts]):
+# other tile shapes of one instantiation (head_dim: the wider of Dqk and
+# Dv), timed at VARIANT_SHAPES[head_dim].  At float32 (256, 256), whose
+# streamed tiles come by column parts: quarters (a ring of four), 16 owned
+# rows (one warpgroup with four half stages, or two warpgroups), 2 k-steps
+# a chunk.
 VARIANTS = [("float32", 64, 48, 2, 1, 4, 1), ("float32", 64, 48, 2, 1, 4, 4),
             ("float32", 64, 64, 1, 2, 4, 4), ("bfloat16", 64, 64, 2, 2, 4, 2),
-            ("float32", 192, 32, 1, 2, 2, 2), ("float32", 192, 32, 1, 2, 2, 8)]
-TUNABLES = ("kNo", "kWG", "kStoreTiles", "kStages", "kChunk")
+            ("float32", 192, 32, 1, 2, 2, 2), ("float32", 192, 32, 1, 2, 2, 8),
+            ("float32", 256, 32, 1, 1, 4, 1, 4),
+            ("float32", 256, 16, 1, 1, 4, 1, 2),
+            ("float32", 256, 16, 2, 1, 2, 1, 2),
+            ("float32", 256, 32, 1, 1, 2, 2, 2)]
+TUNABLES = ("kNo", "kWG", "kStoreTiles", "kStages", "kChunk", "kParts")
 # bf16 (192, 128), flash_attention_bwd_mla.cuh's `MlaCfg`: (streamed rows
 # kBs, ring stages kStages and tiles read ahead kAhead of the dK/dV launch,
 # the same of the dQ launch), timed at PATH_MLA
@@ -95,32 +104,34 @@ MLA_VARIANTS = [(32, 4, 3, 64, 3, 2), (32, 6, 4, 64, 3, 1),
                 (32, 5, 3, 64, 2, 1)]
 MLA_TUNABLES = ("kBs dK/dV", "kStages dK/dV", "kAhead dK/dV", "kBs dQ",
                 "kStages dQ", "kAhead dQ")
-# timing-only copies of the (192, 128) bodies, whose gradients are wrong
-# by design and never checked: name -> (dtype, (old, new) replacements in
-# the inlined source).  float32 (`bwd_kernel`): one_tile streams the
-# band's first tile over and over (L2-hot: no band to fetch); no_copy
-# fills each stage once and then only completes its barrier (no streaming
-# at all); no_split takes a streamed element as its TF32 hi with a zero lo
-# (no split's arithmetic; the products stay three); dkdv_only skips the dQ
-# launch.  bf16 (`mla_bwd_kernel`): without the exp, without streaming
+# timing-only copies of the (192, 128) and float32 (256, 256) bodies,
+# whose gradients are wrong by design and never checked: name -> (dtype,
+# (old, new) replacements in the inlined source).  float32 (`bwd_kernel`,
+# at Dqk >= 192): one_tile streams the band's first tile over and over
+# (L2-hot: no band to fetch); no_copy fills each stage once and then only
+# completes its barrier (no streaming at all); no_split takes a streamed
+# element as its TF32 hi with a zero lo (no split's arithmetic; the
+# products stay three); dkdv_only skips the dQ launch (at (256, 256) the
+# side stream is still forked and joined).  bf16 (`mla_bwd_kernel`): without the exp, without streaming
 # (each stage filled once), without the mask's element tests, without the
 # dK/dQ products.
 APART = {
     "one_tile": ("float32", [
         ("const int64_t i0 = (t_begin + n % n_band) * kRows;",
-         "const int64_t i0 = (t_begin + (DQ == 192 ? 0 : n % n_band)) * "
+         "const int64_t i0 = (t_begin + (DQ >= 192 ? 0 : n % n_band)) * "
          "kRows;")]),
     "no_copy": ("float32", [
-        ("                if (lane == 0) {\n"
-         "                    mbar_expect_tx(full(s), bytes);",
-         "                if (DQ == 192 && slot >= C::kStages) {\n"
-         "                    if (lane == 0) {\n"
-         "                        mbar_arrive(full(s));\n"
-         "                    }\n"
-         "                    continue;\n"
-         "                }\n"
-         "                if (lane == 0) {\n"
-         "                    mbar_expect_tx(full(s), bytes);")]),
+        (f"{sp}if (lane == 0) {{\n"
+         f"{sp}    mbar_expect_tx(full(s), bytes);",
+         f"{sp}if (DQ >= 192 && slot >= C::kStages) {{\n"
+         f"{sp}    if (lane == 0) {{\n"
+         f"{sp}        mbar_arrive(full(s));\n"
+         f"{sp}    }}\n"
+         f"{sp}    continue;\n"
+         f"{sp}}}\n"
+         f"{sp}if (lane == 0) {{\n"
+         f"{sp}    mbar_expect_tx(full(s), bytes);")
+        for sp in (" " * 16, " " * 20)]),
     "no_split": ("float32", [
         ("struct Frag<float, W, LD> {",
          "struct Frag<float, W, LD> {\n"
@@ -130,11 +141,10 @@ APART = {
          "        lo = 0u;\n"
          "    }")]),
     "dkdv_only": ("float32", [
-        ("    if ((err = set_smem(bwd_kernel<T, DQ, DV, true>, "
-         "C::kBytes))) {",
-         "    if (DQ == 192) {\n        return 0;\n    }\n"
-         "    if ((err = set_smem(bwd_kernel<T, DQ, DV, true>, "
-         "C::kBytes))) {")]),
+        ("    bwd_kernel<T, DQ, DV, true><<<qgrid, C::kThreads, C::kBytes, "
+         "stream>>>(",
+         "    if (DQ < 192) bwd_kernel<T, DQ, DV, true><<<qgrid, C::kThreads,"
+         " C::kBytes, stream>>>(")]),
     "mla_no_exp": ("bfloat16", [("float p = ex2_approx(x2 - L2(j, e));",
                                  "float p = x2 - L2(j, e);")]),
     "mla_no_copy": ("bfloat16", [
@@ -251,10 +261,32 @@ def parent_entry(parent: str, tmp: str):
     return fns, scratch
 
 
+def sdpa_bwd(shape, q, k, v, dout):
+    """One PyTorch call for the same gradient: the backward of
+    `scaled_dot_product_attention` (explicit mask with a window,
+    `is_causal` without), timed only."""
+    F = torch.nn.functional
+    B, S, Hq, Hkv, D, window = shape
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    kw = {"scale": _dims(D)[0] ** -0.5, "enable_gqa": Hq != Hkv}
+    if window is not None:
+        pos = torch.arange(S, device="cuda")
+        kw["attn_mask"] = ((pos[None, :] <= pos[:, None])
+                           & (pos[None, :] > pos[:, None] - window))
+    else:
+        kw["is_causal"] = True
+    ot = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    dt = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(ot, (qt, kt, vt), dt,
+                                       retain_graph=True)
+
+
 def timed(shape, dtype, parent_fns, parent_scratch) -> dict:
-    """This backward at `shape`, and the parent's in turns (parent, this,
-    this, parent) when given, with the largest scaled difference of the
-    two's gradients."""
+    """This backward at `shape`, SDPA's backward and the parent's in
+    turns (parent, this, sdpa, sdpa, this, parent; without a parent this,
+    sdpa, sdpa, this), with the largest scaled difference of this and
+    the parent's gradients."""
     B, S, Hq, Hkv, D, window = shape
     Dqk, Dv = _dims(D)
     q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, dtype)
@@ -285,13 +317,20 @@ def timed(shape, dtype, parent_fns, parent_scratch) -> dict:
         mine = this()
         torch.cuda.synchronize()
         res["parent_vs_this"] = max(_err(a, b) for a, b in zip(grads, mine))
-        ms = {"parent": [], "this": []}
-        for who in ("parent", "this", "this", "parent"):
-            ms[who].append(cuda_ms(parent if who == "parent" else this, 10))
+        res["same_bits_as_parent"] = all(
+            torch.equal(a, b) for a, b in zip(grads, mine))
+    calls = {"this": this, "sdpa": sdpa_bwd(shape, q, k, v, dout)}
+    order = ("this", "sdpa", "sdpa", "this")
+    if parent_fn is not None:
+        calls["parent"] = parent
+        order = ("parent",) + order + ("parent",)
+    ms = {who: [] for who in calls}
+    for who in order:
+        ms[who].append(cuda_ms(calls[who], 10))
+    res["ms"] = ms["this"]
+    res["sdpa_ms"] = ms["sdpa"]
+    if parent_fn is not None:
         res["parent_ms"] = ms["parent"]
-        res["ms"] = ms["this"]
-    else:
-        res["ms"] = [cuda_ms(this, 10), cuda_ms(this, 10)]
     return res
 
 
@@ -396,9 +435,9 @@ def _ptxas_lines(log: str, part: str) -> list:
     return found
 
 
-def _mla_path(dtype):
-    """Inputs, forward and a library backward call at PATH_MLA."""
-    B, S, Hq, Hkv, D, window = PATH_MLA
+def _mla_path(dtype, shape=PATH_MLA):
+    """Inputs, forward and a library backward call at `shape`."""
+    B, S, Hq, Hkv, D, window = shape
     Dqk, Dv = _dims(D)
     q, k, v, dout = _inputs(B, S, S, Hq, Hkv, D, dtype)
     scale = Dqk ** -0.5
@@ -427,9 +466,10 @@ def _in_turns(runs: dict, label: str) -> None:
 
 
 def time_apart(tmp: str) -> None:
-    """Each APART copy timed at PATH_MLA in its dtype in turns with the
-    library (never checked: wrong by design), with the registers, spills
-    and HGMMA counts of the (192, 128) kernels it changes."""
+    """Each APART copy timed at PATH_MLA in its dtype, and the float32
+    ones at PATH_B, in turns with the library (never checked: wrong by
+    design), with the registers, spills and HGMMA counts of the kernels it
+    changes."""
     text = inlined(os.path.join(HERE, "..", "src", "repro_torch", "csrc"))
     sources = {}
     for name, (_, edits) in APART.items():
@@ -439,10 +479,13 @@ def time_apart(tmp: str) -> None:
             t = t.replace(old, new)
         sources[name] = t
     built = build(tmp, sources, label=str)
-    for dt in ("float32", "bfloat16"):
+    for dt, label, shape in (("float32", "PATH_MLA", PATH_MLA),
+                             ("bfloat16", "PATH_MLA", PATH_MLA),
+                             ("float32", "PATH_B", PATH_B)):
         dtype = getattr(torch, dt)
-        qkv, library, run_entry = _mla_path(dtype)
-        part = "bwd_kernelIfLi192ELi128E" if dt == "float32" \
+        qkv, library, run_entry = _mla_path(dtype, shape)
+        dims = _dims(shape[4])
+        part = f"bwd_kernelIfLi{dims[0]}ELi{dims[1]}E" if dt == "float32" \
             else "mla_bwd_kernel"
         runs = {"library": library}
         for name, (so, log) in built.items():
@@ -454,13 +497,13 @@ def time_apart(tmp: str) -> None:
             grads = [torch.empty_like(x) for x in qkv]
             rc = run_entry(fn, grads)
             torch.cuda.synchronize()
-            print(f"apart {name}: (192, 128) {dt} (dQ, dK/dV) registers "
+            tag = f"fLi{dims[0]}" if dt == "float32" else "mla"
+            print(f"apart {name}: {dims} {dt} (dQ, dK/dV) registers "
                   f"and spill bytes {_ptxas_lines(log, part)}; "
-                  f"{wgmma_counts(so, 'fLi192' if dt == 'float32' else 'mla')}"
-                  f"; launch rc {rc}", flush=True)
+                  f"{wgmma_counts(so, tag)}; launch rc {rc}", flush=True)
             if rc == 0:
                 runs[name] = lambda fn=fn, grads=grads: run_entry(fn, grads)
-        _in_turns(runs, f"apart {dt} PATH_MLA")
+        _in_turns(runs, f"apart {dt} {label}")
         del qkv
         torch.cuda.empty_cache()
 

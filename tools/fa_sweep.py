@@ -5,7 +5,7 @@
 
 Builds `src/repro_torch/csrc/flash_attention.cu` with its headers inlined
 and prints, for each instantiation of the forward (`fa_fwd_kernel<T, Dqk,
-Dv>`, and `fa_mma_kernel` where it keeps the mma.sync body), its
+Dv>`, and a parent's `fa_mma_kernel`, the mma.sync body), its
 registers and spills (`-Xptxas -v`) and its SASS counts of
 `wgmma` (HGMMA) and `mma.sync` (HMMA) instructions (`cuobjdump -sass`,
 where the toolkit has it).  Then at every shape of `chip_smoke.py`'s
@@ -23,8 +23,9 @@ built alone beside it (with its own headers), checked the same way at
 every shape and dtype, and timed in turns (parent, this, this, parent);
 whether the two outputs are the same bits is printed.  `--variants`
 builds copies of this source with another tile shape (`VARIANTS`: a
-`REPRO_FA_TUNE` line's warpgroups, keys a tile, stages and body) and
-holds and times each at its shape in turns with the source's own.
+`REPRO_FA_TUNE` line's warpgroups, keys a tile, stages and body; at
+recurrentgemma's float32 (256, 256) the bodies tried there) and holds
+and times each at its shape in turns with the source's own.
 `--apart` times copies that each leave one cost out (`APART`, never
 checked: their outputs are wrong by design) at `APART_SHAPES`.
 `--no-shapes` skips the checks and times at `SHAPES`.  Every check runs
@@ -63,10 +64,14 @@ SHAPES = {
     "decode": (4, 1, 1000, 16, 16, (64, 64), False, None),
 }
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# (shape, dtype, warpgroups, keys a tile, stages[, mma]): a REPRO_FA_TUNE
-# line of the shape's instantiation set to these (mma 1: the mma.sync body,
-# 0: the wgmma body)
+# (shape, dtype, warpgroups, keys a tile, stages[, halves]): a
+# REPRO_FA_TUNE line of the shape's instantiation set to these (halves 1:
+# float32 (256, 256)'s tiles streamed by column halves, 0: whole).  At
+# recurrentgemma's float32 (256, 256): one warpgroup by halves, and whole
+# tiles (one warpgroup, 16 keys); the earlier mma.sync body is timed as a
+# parent's (`--parent`).
 VARIANTS = [
+    ("recurrentgemma", torch.float32, 1, 32, 2, 1),
     ("recurrentgemma", torch.float32, 1, 16, 2, 0),
     ("mla", torch.float32, 2, 16, 3), ("mla", torch.float32, 1, 32, 2),
     ("dbrx", torch.float32, 2, 32, 3), ("dbrx", torch.float32, 2, 16, 2),
@@ -83,9 +88,13 @@ VARIANTS = [
 # P.V products, the exponentials, float32's split of K and V
 APART = {
     "no_fill": [("fill(i + kStages - 1);", "(void)0;"),
-                ("fill(i + kStages);", "(void)0;")],
+                ("fill(i + kStages);", "(void)0;"),
+                ("            if (m < n_tiles) {\n                if (y == 0) {",
+                 "            if (m < 1) {\n                if (y == 0) {")],
     "no_qk": [("product<float, kNk, kDq / 8, C::kChunk>(",
                "if (false) product<float, kNk, kDq / 8, C::kChunk>("),
+              ("product<float, kNk, 2 * kHs, kC>(",
+               "if (false) product<float, kNk, 2 * kHs, kC>("),
               ("WgmmaSS<kNk>::mma(s, sw128_step",
                "if (false) WgmmaSS<kNk>::mma(s, sw128_step")],
     "no_pv": [(f"Wgmma<float, kPn>::mma(o[c], {a}, {b}, 1);",
@@ -94,7 +103,9 @@ APART = {
     + [("WgmmaRT<kPn>::mma(", "if (false) WgmmaRT<kPn>::mma(")],
     "no_exp": [("C::kF32 ? expf(x) : ex2_approx(x * kLog2e)", "x")],
     "no_split": [("it < C::kKBytes / 16 / C::kThreads;", "it < 0;"),
-                 ("it < kNk / 8 * 2 * DV / C::kThreads;", "it < 0;")],
+                 ("it < kNk / 8 * 2 * DV / C::kThreads;", "it < 0;"),
+                 ("for (int it = 0; it < kPer; ++it) {",
+                  "for (int it = 0; it < 0; ++it) {")],
     "no_scale": [("float val = s[4 * j + e] * scale;",
                   "float val = s[4 * j + e]; continue;")],
     "no_softmax": [("r < 2; ++r) {\n                float mx",
@@ -115,7 +126,8 @@ APART = {
 APART["skeleton"] = (APART["no_qk"] + APART["no_pv"] + APART["no_scale"]
                      + APART["no_softmax"] + APART["no_fill"])
 APART_SHAPES = [("dbrx", torch.float32), ("dbrx", torch.bfloat16),
-                ("mla", torch.float32), ("mla", torch.bfloat16)]
+                ("mla", torch.float32), ("mla", torch.bfloat16),
+                ("recurrentgemma", torch.float32)]
 V, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
     ctypes.c_float
 KERNEL = re.compile(r"(fa_fwd_kernel|fa_mma_kernel|fa_kernel)"
@@ -305,16 +317,16 @@ def run_shapes(names, this, parent) -> None:
 def run_variants(tmp, text, this) -> None:
     sources = {}
     for key in VARIANTS:
-        name, dtype, wg, nk, stages, mma = key + (0,) * (6 - len(key))
+        name, dtype, wg, nk, stages, halves = key + (0,) * (6 - len(key))
         line = tune_line(text, dtype, SHAPES[name][5])
         new = re.sub(r"\d+, \d+, \d+, \d\)$",
-                     f"{wg}, {nk}, {stages}, {mma})", line)
+                     f"{wg}, {nk}, {stages}, {halves})", line)
         sources[key] = text.replace(line, new)
     built = build(tempfile.mkdtemp(dir=tmp), sources, label=str)
     for key, (so, log) in built.items():
-        name, dtype, wg, nk, stages, mma = key + (0,) * (6 - len(key))
+        name, dtype, wg, nk, stages, halves = key + (0,) * (6 - len(key))
         label = f"variant {name} {str(dtype)[6:]} kWG={wg} kNk={nk} " \
-                f"kStages={stages} kMma={mma}"
+                f"kStages={stages} halves={halves}"
         shape = SHAPES[name]
         fn = entries(so, True)[dtype]
         q, k, v = inputs(shape, dtype)
@@ -342,10 +354,8 @@ def run_apart(tmp, text, this) -> None:
     sources = {}
     for name, swaps in APART.items():
         copy = text
-        for a, b in swaps:   # an anchor may be in one dtype's path only
-            if copy.count(a) > 1:
-                raise RuntimeError(f"{a!r} is in the source more than once")
-            copy = copy.replace(a, b)
+        for a, b in swaps:   # an anchor may be in one body only, or in
+            copy = copy.replace(a, b)   # several: each is replaced
         if copy == text:
             raise RuntimeError(f"no anchor of {name} is in the source")
         sources[name] = copy
