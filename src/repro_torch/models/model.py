@@ -37,6 +37,10 @@ input and output to ("data", None, None) and the logits to ("data",
 None, "model") with `parallel.maybe_shard`, at the JAX package's call
 sites; outside a mesh those calls do nothing.  The scan barrier has no
 counterpart: it only steers XLA.
+
+The final norm and the unembedding of every full-sequence forward are the
+program span `models.unembed` (`repro_torch.obs`; in `torch.profiler`'s
+trace while it records).
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..configs.base import ModelConfig
 from ..core.cuda import resolve_device
 from ..parallel.sharding import (axis_index, axis_size, local_region,
@@ -329,8 +334,10 @@ def _forward(model: Model, batch: dict, impl: str, remat: bool):
         h = maybe_shard(h, "data", None, None)
         if a is not None:
             aux = aux + a
-    h = rms_norm(model.final_ln, h)
-    logits = maybe_shard(unembed(model.embed, cfg, h), "data", None, "model")
+    with obs.span("models.unembed"):
+        h = rms_norm(model.final_ln, h)
+        logits = maybe_shard(unembed(model.embed, cfg, h), "data", None,
+                             "model")
     return logits, aux, enc
 
 

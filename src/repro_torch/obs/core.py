@@ -10,6 +10,13 @@ Design contract:
   check one module global and return immediately; the disabled ``span()``
   hands back a shared no-op context manager, so instrumented hot loops
   pay a dict lookup and nothing else.
+* **One clock with ``torch.profiler``.**  While the profiler records
+  (``prof.start()`` up to ``prof.stop()``), ``span()`` also enters
+  ``record_function(name)`` for the span's extent, collector or not, so
+  the span lands in the profiler's trace as a ``user_annotation`` on the
+  device trace's own clock.  The check reads the profiler's flag through
+  ``sys.modules``: this module never imports torch.  ``complete()``
+  (spans timed after the fact) is not mirrored.
 * **Thread-safe.**  A :class:`Collector` guards its event list with a
   lock; spans measure time outside the lock and append once.
 * **Process-safe by construction.**  Worker processes never talk to the
@@ -137,30 +144,49 @@ class Collector:
         self.metrics.merge(other.metrics)  # registry has its own lock
 
 
+def _profiler() -> Any:
+    """``torch.autograd.profiler`` while ``torch.profiler`` records in
+    this process, else None; never imports torch."""
+    mod = sys.modules.get("torch.autograd.profiler")
+    if mod is not None and getattr(mod, "_is_profiler_enabled", False):
+        return mod
+    return None
+
+
 class _Span:
-    """Context manager recording one complete event on exit."""
+    """Context manager recording one complete event on exit into the
+    collector, if any, and spanning a ``record_function`` of its name
+    while the profiler records."""
 
-    __slots__ = ("_col", "_name", "_lane", "_cat", "_args", "_t0")
+    __slots__ = ("_col", "_name", "_lane", "_cat", "_args", "_t0", "_rf")
 
-    def __init__(self, col: Collector, name: str, lane: str, cat: str, args: dict):
+    def __init__(self, col: Optional[Collector], name: str, lane: str,
+                 cat: str, args: dict, prof: Any = None):
         self._col = col
         self._name = name
         self._lane = lane
         self._cat = cat
         self._args = args
+        self._rf = prof.record_function(name) if prof is not None else None
 
     def set(self, **kw: Any) -> None:
         """Attach args discovered mid-span (e.g. ``sp.set(full=True)``)."""
         self._args.update(kw)
 
     def __enter__(self) -> "_Span":
+        if self._rf is not None:
+            self._rf.__enter__()
         self._t0 = perf_counter()
         return self
 
     def __exit__(self, *exc: Any) -> bool:
-        self._col.complete(
-            self._name, self._t0, perf_counter(), self._lane, self._cat, **self._args
-        )
+        if self._col is not None:
+            self._col.complete(
+                self._name, self._t0, perf_counter(), self._lane, self._cat,
+                **self._args
+            )
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         return False
 
 
@@ -208,12 +234,13 @@ def disable() -> Optional[Collector]:
 def span(name: str, lane: str = "main", cat: str = "op", **args: Any):
     """``with obs.span("dist.round", lane="cut/w0", round=3): ...``
 
-    Returns a shared no-op when telemetry is disabled.
+    Returns a shared no-op when telemetry is disabled and
+    ``torch.profiler`` is not recording.
     """
-    col = _active
-    if col is None:
+    col, prof = _active, _profiler()
+    if col is None and prof is None:
         return _NOOP
-    return _Span(col, name, lane, cat, args)
+    return _Span(col, name, lane, cat, args, prof)
 
 
 def complete(

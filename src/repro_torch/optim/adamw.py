@@ -13,7 +13,8 @@ one (`models.param_tree(model)` gives a model's); the optimizer state is
 v in bfloat16 where memory is tight.  `adamw_update(..., inplace=True)`
 writes the new parameters and moments into the tensors it is given,
 under `torch.no_grad()`, so that a full-width model holds no second copy
-of its weights; the values equal the functional form's.
+of its weights; the values equal the functional form's.  The whole update
+(clip, schedule, every leaf) is the program span `optim.adamw`.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import dataclasses
 import math
 
 import torch
+
+from .. import obs
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
            "clip_by_global_norm", "tree_leaves", "tree_map"]
@@ -113,34 +116,35 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, *,
     With `inplace`, the new parameters and moments are written into the
     tensors of `params` and `state` (which are returned), one leaf at a
     time; without, `params` and `state` are left as they are."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state["step"] + 1
-    lr = cosine_schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - b1 ** step.to(torch.float32)
-    bc2 = 1.0 - b2 ** step.to(torch.float32)
+    with obs.span("optim.adamw"):
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        step = state["step"] + 1
+        lr = cosine_schedule(cfg, step)
+        b1, b2 = cfg.b1, cfg.b2
+        bc1 = 1.0 - b1 ** step.to(torch.float32)
+        bc2 = 1.0 - b2 ** step.to(torch.float32)
 
-    def upd(p, g, m, v):
-        gf = g.float()
-        mf = b1 * m.float() + (1 - b1) * gf
-        vf = b2 * v.float() + (1 - b2) * gf * gf
-        update = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
-        pf = p.float()
-        pf = pf - lr * (update + cfg.weight_decay * pf)
+        def upd(p, g, m, v):
+            gf = g.float()
+            mf = b1 * m.float() + (1 - b1) * gf
+            vf = b2 * v.float() + (1 - b2) * gf * gf
+            update = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
+            pf = p.float()
+            pf = pf - lr * (update + cfg.weight_decay * pf)
+            if inplace:
+                p.copy_(pf)
+                m.copy_(mf)
+                v.copy_(vf)
+                return p, m, v
+            return pf.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+
+        flat = tree_map(upd, params, grads, state["m"], state["v"])
+        metrics = {"grad_norm": gnorm, "lr": lr}
         if inplace:
-            p.copy_(pf)
-            m.copy_(mf)
-            v.copy_(vf)
-            return p, m, v
-        return pf.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
-
-    flat = tree_map(upd, params, grads, state["m"], state["v"])
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    if inplace:
-        state["step"].copy_(step)
-        return params, state, metrics
-    new_p, new_m, new_v = (_pick(flat, i) for i in range(3))
-    return new_p, {"m": new_m, "v": new_v, "step": step}, metrics
+            state["step"].copy_(step)
+            return params, state, metrics
+        new_p, new_m, new_v = (_pick(flat, i) for i in range(3))
+        return new_p, {"m": new_m, "v": new_v, "step": step}, metrics
 
 
 def _pick(tree, i: int):
