@@ -211,7 +211,11 @@ Phases, each reported on its own line(s):
    checkpoint write, its scratch bytes and its 1.25 ms aim; the flash
    attention forward's and backward's launches in the captured train
    step as `launches_capture_step`, and in phase 18's step on a mesh as
-   `launches_mesh_step`): seven entries; each bound from the function's
+   `launches_mesh_step`), and the fused AdamW (phase 13b: its device
+   time at path A's leaves beside its bound on bytes, the tree path's
+   and `torch.optim.AdamW(fused=True)`'s, its host cost `host_ms` and
+   the leaf tables' `host_table_ms` with the 2 ms aim stated as met or
+   missed, its updates a step of path A): eight entries; each bound from the function's
    work as `repro_torch.analysis.hlo_cost` (and, for the segment sum,
    `repro_torch.core.cuda.cost`) counts it, over the card's peaks;
 12. backward kernels: flash attention's (`csrc/flash_attention_bwd.cu`)
@@ -249,12 +253,20 @@ Phases, each reported on its own line(s):
    to 1e-4 relative), then `make_train_step` on the whole model
    (361,821,120 float32 parameters, 8 x 2,048 tokens in 2 microbatches,
    AdamW with warm-up 2) for 8 steps: exactly 512 flash-attention
-   forward and 512 backward launches and no other kernel, finite losses,
-   the last below the first; step time, tokens/s and peak memory;
+   forward and 512 backward launches, 8 fused AdamW updates and no other
+   kernel, finite losses, the last below the first; step time, tokens/s
+   and peak memory;
+13b. the fused AdamW (`csrc/adamw.cu`) at path A's 290 full-width
+   leaves against the tree path (`adamw._tree_update`) on the same card
+   tensors, two steps: with the clip off, p, m, v and the rate bit for
+   bit and grad_norm within 1e-6 relative; with the clip engaged, every
+   leaf within 1e-6 of its largest value; one counted update a call;
+   then its timing (the kernels line);
 14. training path B: recurrentgemma-9b at full width, one pattern period
    (rec, rec, attn; 1,705,062,400 parameters), B = 1, S = 3,072, 3
-   steps: per step exactly 1 flash-attention forward and backward and 2
-   RG-LRU forward and backward launches, finite losses;
+   steps: per step exactly 1 flash-attention forward and backward, 2
+   RG-LRU forward and backward launches and 1 fused AdamW update,
+   finite losses;
 16. training path C: rwkv6-7b at full width (d 4,096, 64 heads
    of 64, d_ff 14,336, vocab 65,536) cut to 4 layers (1,411,567,616
    float32 parameters: AdamW's state for all 32 does not fit one card),
@@ -262,8 +274,8 @@ Phases, each reported on its own line(s):
    through the kernels held against `impl="chunked"` (what the JAX
    package trains with; loss and grad_norm to 1e-4 relative, and every
    gradient leaf of one microbatch to 1e-4 of max(1, max|g|)), then
-   exactly 24 RWKV6 forward and 24 backward launches and no other
-   kernel, finite losses; step time, tokens/s, peak memory and one step
+   exactly 24 RWKV6 forward and 24 backward launches, 3 fused AdamW
+   updates (1 in each check step) and no other kernel, finite losses; step time, tokens/s, peak memory and one step
    under `torch.profiler`;
 15. the training CLI (`python -m repro_torch.launch.train`, reduced
    smollm-360m on the card) twice on one `--ckpt-dir`: the second run
@@ -287,7 +299,8 @@ Phases, each reported on its own line(s):
    microbatch, as the JAX package's `_encode` takes no impl), then 2 x
    2,048 tokens with 2 x 1,000 frames in 2 microbatches for 3 AdamW
    steps: exactly (24 + 24 + 24) x 2 x 3 = 432 flash-attention forward
-   and 432 backward launches and no other kernel, finite losses, the
+   and 432 backward launches, 3 fused AdamW updates (1 in each check
+   step) and no other kernel, finite losses, the
    last below the first; step time, tokens/s, peak memory and one step
    under `torch.profiler`;
 17. capture path (`repro_torch.core.op_graph`): (a) `python -m
@@ -302,6 +315,7 @@ Phases, each reported on its own line(s):
    on the card: its loss and every updated parameter bit-identical to an
    uncaptured step from the same seed, its `flash_attention` and
    `flash_attention_bwd` vertices equal to the launches (64 each), one
+   `adamw` vertex for its one fused update, one
    `silu_backward` vertex a layer and microbatch (the backward's
    operators seen on autograd's device thread), its vertex and edge
    counts, ten most frequent labels and wall time captured against
@@ -315,8 +329,9 @@ Phases, each reported on its own line(s):
 18. mesh and cost (`repro_torch.parallel`, `.launch.{mesh,cells,dryrun}`,
    `.analysis`): (a) path A's step on a (1, 1) `DeviceMesh("cuda")`, every
    parameter a DTensor placed by `param_specs`, against the unsharded
-   step from the same seed: the same 64 + 64 flash-attention launches,
-   the loss and every parameter within 1e-4 (bit-identity logged), the
+   step from the same seed: the same 64 + 64 flash-attention launches
+   (the unsharded step's one fused AdamW update the mesh's DTensors
+   leave to the tree path), the loss and every parameter within 1e-4 (bit-identity logged), the
    placed arguments' bytes equal to the unsharded ones'; (b)
    `analyze_program` of one more step on the mesh: its mm FLOPs equal to
    `FlopCounterMode`'s, FLOPs and bytes by operator class beside the
@@ -331,7 +346,9 @@ Phases, each reported on its own line(s):
    captured on the card and on the host: the card's kernel vertices
    equal to its launches, the two graphs apart only by the
    flash-attention backward (`CENSUS_PLAIN_BWD` a call on the host, one
-   `flash_attention_bwd` vertex on the card; ROADMAP.md queue 3, item
+   `flash_attention_bwd` vertex on the card) and by AdamW (the tree
+   path's operators on the host, `adamw_tree_labels`; one `adamw` vertex
+   on the card; ROADMAP.md queue 3, item
    2).
 
 The last line is `{"ok": true, "device": {...}}`.  Any failure raises
@@ -519,6 +536,10 @@ TRAIN_A_CHECK_LAYERS = 4        # the kernels-against-ref train step
 TRAIN_B_ARCH, TRAIN_B_PARAMS = "recurrentgemma-9b", 1_705_062_400
 TRAIN_B_LAYERS, TRAIN_B_B, TRAIN_B_S, TRAIN_B_STEPS = 3, 1, 3072, 3
 TRAIN_LR, TRAIN_TOL = 1e-3, 1e-4
+# the fused AdamW (csrc/adamw.cu) at path A's leaves: the tree path's
+# bits with the clip off, this relative gap with it on (the norm's
+# squares summed in another order), and the host's cost of an update
+ADAMW_CLIP_TOL, ADAMW_HOST_AIM_MS = 1e-6, 2.0
 # the backward kernels against their plain versions in float64 on the
 # card: (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype) at the
 # two paths' attention shapes, after FA_CASES
@@ -1494,13 +1515,15 @@ def _counted():
     module, the counter's name there)."""
     from repro_torch.core.cuda import segsum
     from repro_torch.kernels import flash_attention, rglru, rwkv6
+    from repro_torch.optim import adamw_cuda
     return {"segment_sum": (segsum, "launches"),
             "flash_attention": (flash_attention, "launches"),
             "flash_attention_bwd": (flash_attention, "launches_bwd"),
             "rglru": (rglru, "launches"),
             "rglru_bwd": (rglru, "launches_bwd"),
             "rwkv6": (rwkv6, "launches"),
-            "rwkv6_bwd": (rwkv6, "launches_bwd")}
+            "rwkv6_bwd": (rwkv6, "launches_bwd"),
+            "adamw": (adamw_cuda, "launches")}
 
 
 def zero_launches() -> None:
@@ -2349,7 +2372,8 @@ def phase_train_a() -> dict:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = TRAIN_A_STEPS * TRAIN_A_MICRO * cfg.n_layers
-    expect = _expect(flash_attention=n, flash_attention_bwd=n)
+    expect = _expect(flash_attention=n, flash_attention_bwd=n,
+                     adamw=TRAIN_A_STEPS)
     check(launches == expect, f"path A launches {launches}, expected "
           f"{expect}")
     losses = [m["loss"] for m in metrics]
@@ -2375,6 +2399,157 @@ def phase_train_a() -> dict:
             "per_step": {k: v // TRAIN_A_STEPS for k, v in launches.items()}}
 
 
+def phase_adamw(train_a: dict) -> dict:
+    """13b. The fused AdamW (`csrc/adamw.cu`) at path A's full-width
+    leaves (smollm-360m's 290, 361,821,120 float32 parameters) against the
+    tree path (`adamw._tree_update`) on the same card tensors, two steps
+    each: with the clip off (clip 1e9) p, m, v and the step bit for bit;
+    with it on (clip 1.0 under a norm of ~19) p, m, v within
+    ADAMW_CLIP_TOL of each leaf's largest value and grad_norm and lr
+    within it relative; one counted update a call.  Then its kernels
+    entry: the update's device time beside its bound on bytes (g read for
+    the norm, p, g, m, v read and p, m, v written: 32 B an element), the
+    tree path's and `torch.optim.AdamW(fused=True)` after
+    `clip_grad_norm_`'s, and the host's cost of `adamw_update` and of its
+    leaf tables against the ADAMW_HOST_AIM_MS aim."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig, adamw, adamw_cuda, adamw_init
+    from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
+    cfg = get_config(TRAIN_A_ARCH)
+    model = _train_model(cfg, TRAIN_A_PARAMS)
+    base = tree_map(lambda w: w.detach().clone(), models.param_tree(model))
+    del model
+    n = sum(w.numel() for w in tree_leaves(base))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    grads = tree_map(lambda w: torch.randn(
+        w.shape, device="cuda", generator=gen) * 1e-3, base)
+    worst = {}
+    for clip in (1e9, 1.0):
+        opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=8,
+                              clip_norm=clip)
+        runs = []
+        for fused in (True, False):
+            params = tree_map(torch.clone, base)
+            state = adamw_init(params, opt_cfg)
+            before = adamw_cuda.launches
+            for _ in range(2):
+                if fused:
+                    _, _, m = adamw_update(params, grads, state, opt_cfg,
+                                           inplace=True)
+                else:
+                    _, _, m = adamw._tree_update(params, grads, state,
+                                                 opt_cfg, True)
+            torch.cuda.synchronize()
+            check(adamw_cuda.launches - before == (2 if fused else 0),
+                  f"adamw clip {clip}: {adamw_cuda.launches - before} fused "
+                  f"updates in two {'fused' if fused else 'tree'} steps")
+            runs.append((tree_leaves((params, state["m"], state["v"])),
+                         int(state["step"]), float(m["grad_norm"]),
+                         float(m["lr"])))
+            del params, state
+        (fl, fs, fn, flr), (tl, ts, tn, tlr) = runs
+        engaged = tn > clip
+        check(fs == ts == 2 and engaged == (clip == 1.0),
+              f"adamw clip {clip}: steps {fs} fused, {ts} tree; the norm "
+              f"{tn!r} {'engages' if engaged else 'leaves'} the clip")
+        # the norm's squares are summed in another order: grad_norm within
+        # the tolerance, the rate bit for bit
+        gaps = [abs(fn - tn) / tn, abs(flr - tlr) / tlr]
+        if engaged:
+            gaps += [float((a.double() - b.double()).abs().max())
+                     / max(float(b.double().abs().max()), 1e-30)
+                     for a, b in zip(fl, tl)]
+        worst[clip] = max(gaps)
+        check(worst[clip] <= ADAMW_CLIP_TOL and (engaged or (
+            flr == tlr and all(a.dtype == b.dtype and torch.equal(a, b)
+                               for a, b in zip(fl, tl)))),
+              f"adamw clip {clip}: the fused update differs from the tree "
+              f"path's (worst relative {worst[clip]!r}; grad_norm {fn!r} / "
+              f"{tn!r}, lr {flr!r} / {tlr!r})")
+        log(f"adamw {len(fl) // 3} leaves ({n} float32 parameters), clip "
+            f"{clip} (norm {tn!r}): two fused steps against the tree "
+            f"path's: {'p, m, v bit for bit, ' if not engaged else ''}"
+            f"worst relative {worst[clip]!r} (grad_norm {fn!r} / {tn!r})")
+        del runs, fl, tl
+        torch.cuda.empty_cache()
+
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=8)
+    params = tree_map(torch.clone, base)
+    state = adamw_init(params, opt_cfg)
+    ms = _cuda_ms(lambda: adamw_update(params, grads, state, opt_cfg,
+                                       inplace=True))
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adamw_update(params, grads, state, opt_cfg, inplace=True)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    quads = adamw._zip_leaves(params, grads, state["m"], state["v"])
+    cols = [list(c) for c in zip(*quads)]
+    table = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        adamw_cuda.leaf_tables(*cols, cols[0], cols[2], cols[3],
+                               adamw_cuda._library().adamw_max_leaves())
+        table.append((time.perf_counter() - t0) * 1e3)
+    host_ms, table_ms = float(np.median(host)), float(np.median(table))
+
+    def tree_step():
+        with torch.no_grad():
+            adamw._tree_update(params, grads, state, opt_cfg, True)
+
+    plain_ms = _host_ms(tree_step)
+    del params, state, quads, cols
+    torch.cuda.empty_cache()
+    lib_params = [torch.nn.Parameter(w.clone()) for w in tree_leaves(base)]
+    for w, g in zip(lib_params, tree_leaves(grads)):
+        w.grad = g.clone()
+    lib = torch.optim.AdamW(lib_params, lr=TRAIN_LR, betas=(0.9, 0.95),
+                            eps=1e-8, weight_decay=0.1, fused=True)
+
+    def lib_step():
+        torch.nn.utils.clip_grad_norm_(lib_params, 1.0, foreach=True)
+        lib.step()
+
+    library_ms = _cuda_ms(lib_step)
+    del lib, lib_params, base, grads
+    torch.cuda.empty_cache()
+    bound_ms = 32 * n / PEAK_BYTES_PER_S * 1e3
+    aim = (f"{'met' if host_ms <= ADAMW_HOST_AIM_MS else 'missed'}: "
+           f"{host_ms!r} ms of host time an update against "
+           f"{ADAMW_HOST_AIM_MS} ms")
+    entry = {
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/csrc/adamw.cu",
+        "replaces": "src/repro/optim/adamw.py:60 (plain jnp that XLA "
+                    "fuses; the port's tree path, PyTorch operators a "
+                    "leaf)",
+        "launches": train_a["per_step"]["adamw"],
+        "launches_path": train_a["launches"]["adamw"],
+        "max_abs_err": worst[1.0], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": library_ms,
+        "library": "torch.nn.utils.clip_grad_norm_(foreach=True) and "
+                   "torch.optim.AdamW(fused=True), its own bias "
+                   "corrections",
+        "host_ms": host_ms, "host_table_ms": table_ms, "aim_host": aim,
+        "shape": f"smollm-360m's {TRAIN_A_PARAMS} float32 parameters in "
+                 f"290 leaves, in place, clip engaged",
+        "plain_on": "the card (adamw._tree_update, host-paced)",
+        "launches_note": "fused updates (three kernel launches each) per "
+                         "train step of path A; launches_path over its "
+                         f"{TRAIN_A_STEPS} steps",
+        "max_abs_err_note": "relative to each leaf's largest value, the "
+                            "clip engaged; bit for bit with it off"}
+    log(f"timing adamw at {entry['shape']}: kernels {ms!r} ms "
+        f"({bound_ms / ms:.3f} of the {bound_ms!r} ms bound on bytes), tree "
+        f"path {plain_ms!r} ms, library {library_ms!r} ms; host "
+        f"{host_ms!r} ms an update (leaf tables {table_ms!r} ms), {aim}")
+    return entry
+
+
 def phase_train_b() -> dict:
     """Path B: recurrentgemma-9b at full width, one pattern period."""
     import dataclasses
@@ -2394,7 +2569,7 @@ def phase_train_b() -> dict:
     s = TRAIN_B_STEPS
     expect = _expect(flash_attention=n_attn * s,
                      flash_attention_bwd=n_attn * s, rglru=n_rec * s,
-                     rglru_bwd=n_rec * s)
+                     rglru_bwd=n_rec * s, adamw=s)
     check(launches == expect, f"path B launches {launches}, expected "
           f"{expect}")
     losses = [m["loss"] for m in metrics]
@@ -2446,8 +2621,8 @@ def phase_train_c() -> dict:
         got[impl] = _run_steps(small, model, batches, TRAIN_C_MICRO, 1,
                                impl=impl, lr=TRAIN_C_LR)[0][0]
         n = TRAIN_C_MICRO * TRAIN_C_CHECK_LAYERS
-        expect = (_expect(rwkv6=n, rwkv6_bwd=n) if impl == "auto"
-                  else _expect())
+        expect = (_expect(rwkv6=n, rwkv6_bwd=n, adamw=1) if impl == "auto"
+                  else _expect(adamw=1))
         check(read_launches() == expect, f"path C check {impl}: launches "
               f"{read_launches()}, expected {expect}")
         del model
@@ -2496,7 +2671,7 @@ def phase_train_c() -> dict:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = TRAIN_C_STEPS * TRAIN_C_MICRO * cfg.n_layers
-    expect = _expect(rwkv6=n, rwkv6_bwd=n)
+    expect = _expect(rwkv6=n, rwkv6_bwd=n, adamw=TRAIN_C_STEPS)
     check(launches == expect, f"path C launches {launches}, expected "
           f"{expect}")
     losses = [m["loss"] for m in metrics]
@@ -2750,7 +2925,7 @@ def phase_train_e(cfg) -> dict:
         got[impl] = _run_steps(small, model, batches, TRAIN_E_MICRO, 1,
                                impl=impl)[0][0]
         launches = read_launches()
-        want = _expect(flash_attention=n, flash_attention_bwd=n)
+        want = _expect(flash_attention=n, flash_attention_bwd=n, adamw=1)
         check(launches == want, f"path E check impl={impl}: launches "
               f"{launches}, expected {want} (impl='ref' still launches the "
               f"kernel in the encoder)")
@@ -2780,7 +2955,8 @@ def phase_train_e(cfg) -> dict:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     n = n_layers * TRAIN_E_MICRO * TRAIN_E_STEPS
-    expect = _expect(flash_attention=n, flash_attention_bwd=n)
+    expect = _expect(flash_attention=n, flash_attention_bwd=n,
+                     adamw=TRAIN_E_STEPS)
     check(launches == expect, f"path E launches {launches}, expected "
           f"{expect}")
     losses = [m["loss"] for m in metrics]
@@ -2993,7 +3169,7 @@ def phase_capture() -> dict:
           f"{capt['loss']!r} against {plain['loss']!r}")
     del plain["params"], capt["params"]
     n = TRAIN_A_MICRO * cfg.n_layers
-    expect = _expect(flash_attention=n, flash_attention_bwd=n)
+    expect = _expect(flash_attention=n, flash_attention_bwd=n, adamw=1)
     labels = {k: g.node_labels.count(k) for k in expect}
     check(capt["launches"] == plain["launches"] == expect == labels,
           f"capture path: kernel vertices {labels}, launches "
@@ -3252,10 +3428,12 @@ def phase_mesh() -> dict:
         s_mesh = time.perf_counter() - t0
         launches = read_launches()
         n = TRAIN_A_MICRO * cfg.n_layers
+        # the mesh's DTensor leaves keep AdamW's tree path
         expect = _expect(flash_attention=n, flash_attention_bwd=n)
-        check(launches == launches_plain == expect,
+        check(launches == expect and launches_plain == dict(expect, adamw=1),
               f"mesh 18a: launches {launches} on the mesh, "
-              f"{launches_plain} without, expected {expect}")
+              f"{launches_plain} without, expected {expect} and one fused "
+              f"AdamW without")
         got = [_full(p).detach() for p in
                tree_leaves(models.param_tree(model))]
         got_m = {k: _full(m[k]).item() for k in ("loss", "grad_norm")}
@@ -3274,7 +3452,8 @@ def phase_mesh() -> dict:
         log(f"mesh 18a {cfg.name} train step on a (1, 1) DeviceMesh "
             f"('data', 'model'), every parameter a DTensor placed by "
             f"param_specs ({placements}): launches {json.dumps(launches)} "
-            f"= the unsharded step's; loss {got_m['loss']!r} "
+            f"= the unsharded step's but its fused AdamW (the mesh's "
+            f"DTensors take the tree path); loss {got_m['loss']!r} "
             f"(unsharded {want_m['loss']!r}), grad_norm "
             f"{got_m['grad_norm']!r} ({want_m['grad_norm']!r}); "
             f"parameters {'' if identical else 'not '}bit-identical "
@@ -3362,10 +3541,13 @@ def _census_on_both() -> dict:
     kernel vertices equal its launches, and the two graphs differ only by
     the flash-attention backward, one `flash_attention_bwd` vertex a call
     on the card where the host runs its plain version's operators
-    (`CENSUS_PLAIN_BWD`, the account PERF.md gives)."""
+    (`CENSUS_PLAIN_BWD`, the account PERF.md gives), and by AdamW, one
+    `adamw` vertex on the card where the host runs the tree path's
+    operators (`adamw_tree_labels`: the same leaves' update captured
+    alone)."""
     import collections
 
-    from capture_census import census_step
+    from capture_census import adamw_tree_labels, census_step
     from repro_torch.core.op_graph import capture
     step, args = census_step(device="cuda")
     zero_launches()
@@ -3374,6 +3556,7 @@ def _census_on_both() -> dict:
     del step, args
     step, args = census_step(device="cpu")
     host, _ = capture(step, *args)
+    opt_labels = adamw_tree_labels(census_step(device="cpu")[1])
     labels = {name: collections.Counter(g.node_labels)
               for name, g in (("card", card), ("host", host))}
     calls = labels["card"]["flash_attention"]
@@ -3386,15 +3569,20 @@ def _census_on_both() -> dict:
         f"launches {json.dumps(launches)})")
     check(calls > 0 and launches == _expect(
         flash_attention=calls, flash_attention_bwd=labels["card"][
-            "flash_attention_bwd"]), f"mesh 18e: the card's graph has "
-          f"{calls} flash-attention vertices, its run launched {launches}")
+            "flash_attention_bwd"], adamw=labels["card"]["adamw"]),
+          f"mesh 18e: the card's graph has {calls} flash-attention "
+          f"vertices, its run launched {launches}")
     want = collections.Counter({k: calls * n
                                 for k, n in CENSUS_PLAIN_BWD.items()})
-    check(only_card == collections.Counter(flash_attention_bwd=calls)
+    want.update(opt_labels)
+    check(only_card == collections.Counter(flash_attention_bwd=calls,
+                                           adamw=1)
           and only_host == want,
           f"mesh 18e: the graphs differ beyond the flash-attention "
-          f"backward: only on the host {dict(only_host)} (want "
+          f"backward and AdamW: only on the host {dict(only_host)} (want "
           f"{dict(want)}), only on the card {dict(only_card)}")
+    log(f"mesh 18e: AdamW one `adamw` vertex on the card where the host's "
+        f"tree path makes {sum(opt_labels.values())}")
     return {"card": card.n, "host": host.n, "calls": calls,
             "edges": card.num_edges}
 
@@ -4237,6 +4425,7 @@ def main() -> int:
     rwkv_bwd_err = phase_rwkv_backward_vs_plain()
     t1b = time.perf_counter()
     train_a = phase_train_a()
+    adamw_entry = phase_adamw(train_a)
     t2 = time.perf_counter()
     train_b = phase_train_b()
     t3 = time.perf_counter()
@@ -4278,6 +4467,7 @@ def main() -> int:
     t4 = time.perf_counter()
     kernels["kernels"] += phase_train_timing(train_a, train_b, train_d,
                                              train_e, bwd_errs)
+    kernels["kernels"].append(adamw_entry)
     log(f"phase seconds: 11 (backward timing) "
         f"{time.perf_counter() - t4:.1f}")
     for entry in kernels["kernels"]:
@@ -4290,7 +4480,7 @@ def main() -> int:
     kernels["kernels"].append(phase_rwkv_bwd_timing(train_c, rwkv_bwd_err))
     log(f"phase seconds: 11 (rwkv6_bwd timing) "
         f"{time.perf_counter() - t4:.1f}")
-    check(len(kernels["kernels"]) == 7, "the kernels line lists seven")
+    check(len(kernels["kernels"]) == 8, "the kernels line lists eight")
     check(not any(m in sys.modules for m in ("jax", "repro")),
           "the port imported JAX or the JAX package")
     log(f"chip_smoke: all phases passed in "

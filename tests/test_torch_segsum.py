@@ -210,8 +210,8 @@ def test_build_flags_keep_ieee_adds():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "--fmad=false" in flags and "fast_math" not in flags
     assert [s.rsplit("/", 1)[-1] for s in _build.sources()] == [
-        "flash_attention.cu", "flash_attention_bwd.cu", "rglru.cu",
-        "rglru_bwd.cu", "rwkv6.cu", "rwkv6_bwd.cu", "segsum.cu"]
+        "adamw.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+        "rglru.cu", "rglru_bwd.cu", "rwkv6.cu", "rwkv6_bwd.cu", "segsum.cu"]
     assert [s.rsplit("/", 1)[-1] for s in _build.headers()] == [
         "fa_common.cuh", "flash_attention_bwd_mla.cuh", "hopper_common.cuh",
         "rwkv6_common.cuh"]

@@ -8,9 +8,10 @@ the widths) on the CPU, 2 microbatches, and prints its vertex and edge
 counts and most frequent labels; then the labels of one flash-attention
 call's gradient, so that the vertices a call's plain backward adds on
 the host can be told from the one `flash_attention_bwd` vertex the card
-makes.  No card is needed; `chip_smoke.py` phase 18e captures the same
-step on the card (`census_step(device="cuda")`) and holds its labels to
-the host's.
+makes; then the labels of the step's AdamW update on the host (the tree
+path's operators, where the card makes one `adamw` vertex).  No card is
+needed; `chip_smoke.py` phase 18e captures the same step on the card
+(`census_step(device="cuda")`) and holds its labels to the host's.
 """
 from __future__ import annotations
 
@@ -28,8 +29,10 @@ from repro_torch.configs.base import ParallelConfig
 from repro_torch.core.op_graph import capture
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch.steps import make_train_step
-from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.optim import AdamWConfig, adamw, adamw_init
 from repro_torch.optim.adamw import tree_map
+
+CENSUS_OPT = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
 
 
 def census_step(arch: str = "smollm-360m", device: str = "cpu"):
@@ -44,10 +47,9 @@ def census_step(arch: str = "smollm-360m", device: str = "cpu"):
     model = models.Model(cfg, device=device, params=tree_map(
         lambda t: t.detach().to(device), models.param_tree(host))
     ).requires_grad_(True)
-    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
-    step = make_train_step(cfg, opt_cfg, ParallelConfig(microbatches=2),
+    step = make_train_step(cfg, CENSUS_OPT, ParallelConfig(microbatches=2),
                            impl="cuda")
-    opt = adamw_init(models.param_tree(model), opt_cfg)
+    opt = adamw_init(models.param_tree(model), CENSUS_OPT)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 2, 64))).to(device)
     return step, (model, opt, {"tokens": toks})
@@ -75,6 +77,26 @@ def one_call_backward_labels() -> collections.Counter:
     return +labels
 
 
+def adamw_tree_labels(step_args) -> collections.Counter:
+    """The labels the step's AdamW update makes on the host: the tree
+    path (`adamw._tree_update`, in place, as the step runs it) on the
+    leaves of `census_step`'s arguments `step_args`, captured alone, less
+    its inputs (the card makes one `adamw` vertex instead).  The update
+    is written into those arguments."""
+    model, opt = step_args[:2]
+    params = models.param_tree(model)
+    grads = tree_map(torch.zeros_like, params)
+
+    def update(params, grads, opt):
+        with torch.no_grad():
+            return adamw._tree_update(params, grads, opt, CENSUS_OPT, True)
+
+    g, _ = capture(update, params, grads, opt)
+    labels = collections.Counter(g.node_labels)
+    del labels["input"]
+    return labels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="smollm-360m")
@@ -90,6 +112,9 @@ def main(argv=None) -> int:
     print(json.dumps({"one_call": {"plain_backward_vertices":
                                    sum(bwd.values()),
                                    "labels": dict(bwd)}}))
+    opt = adamw_tree_labels(census_step(args.arch)[1])
+    print(json.dumps({"adamw": {"tree_path_vertices": sum(opt.values()),
+                                "labels": dict(opt)}}))
     return 0
 
 
